@@ -1,0 +1,183 @@
+"""Diffusion-Convolutional RNN (DCRNN) — single-step cell and seq2seq model.
+
+Port of the JAX package's ``models/recurrent/dcrnn.py`` (paper form, Li et
+al., arXiv 1707.01926).  The bidirectional diffusion bases are stacked on
+the feature axis, so the z/r gates are one matmul and the candidate
+another; parameters keep the flax layout ``(in, out)`` and compute is
+``z @ w``.  :meth:`params_from_flax` loads a flax parameter tree (as numpy)
+into a module — the weight carry-over from the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..._device import resolve_device
+from ...ops.graph import diffusion_norms
+from ...ops.operators import DiffusionOperators
+from ...ops.spmm import spmm
+from .._validate import check_node_axis
+from ..conv import glorot, zeros
+
+
+def diffusion_basis(graph, x: torch.Tensor, K: int) -> torch.Tensor:
+    """Stacked bidirectional diffusion basis, shape (..., N, 2·K·F).
+
+    Layout: [T_0^f … T_{K-1}^f | T_0^b … T_{K-1}^b] with T_0 = X,
+    T_1 = P X, T_k = 2 P T_{k-1} − T_{k-2}.  ``graph`` may be a raw
+    :class:`Graph` (normalized here) or prebuilt
+    :class:`DiffusionOperators` (the large-graph path).
+    """
+    check_node_axis(x, graph, "DCRNN/diffusion_basis", "(..., N, F)")
+    if isinstance(graph, DiffusionOperators):
+        p_fwd, p_bwd = graph.p_fwd, graph.p_bwd
+    else:
+        p_fwd, p_bwd = diffusion_norms(graph)
+    out = []
+    for p in (p_fwd, p_bwd):
+        tx = [x]
+        if K > 1:
+            tx.append(spmm(p, x))
+        for _ in range(2, K):
+            tx.append(2.0 * spmm(p, tx[-1]) - tx[-2])
+        out.extend(tx)
+    dtype = out[0].dtype
+    for t in out[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return torch.cat([t.to(dtype) for t in out], dim=-1)
+
+
+def _load(param: nn.Parameter, value) -> None:
+    value = torch.from_numpy(np.array(value, np.float32))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(value.shape)} does not match the "
+                         f"parameter's {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value.to(param.device, param.dtype))
+
+
+def _flax_params(tree):
+    return tree["params"] if "params" in tree else tree
+
+
+class DConv(nn.Module):
+    """Diffusion convolution layer: ``diffusion_basis(graph, x, K) @ weight
+    (+ bias)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, K: int,
+                 use_bias: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.K = K
+        self.weight = nn.Parameter(
+            glorot((2 * K * in_channels, out_channels), generator, device))
+        self.bias = (nn.Parameter(zeros((out_channels,), device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
+        z = diffusion_basis(graph, x, self.K)
+        out = (z @ self.weight.to(z.dtype)).to(x.dtype)
+        if self.bias is not None:
+            out = out + self.bias.to(x.dtype)
+        return out
+
+    def params_from_flax(self, tree) -> "DConv":
+        p = _flax_params(tree)
+        _load(self.weight, p["weight"])
+        if self.bias is not None:
+            _load(self.bias, p["bias"])
+        return self
+
+
+class DCRNN(nn.Module):
+    """Single-step diffusion-convolutional GRU cell.
+
+    forward: (X (..., N, F), graph, H=None) -> H (..., N, C).  All three
+    gates are diffusion convolutions over concat([X, H]) (z, r fused) and
+    concat([X, H·R]) (candidate).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, K: int,
+                 use_bias: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.out_channels = out_channels
+        self.K = K
+        width = 2 * K * (in_channels + out_channels)
+        self.w_zr = nn.Parameter(
+            glorot((width, 2 * out_channels), generator, device))
+        self.b_zr = (nn.Parameter(zeros((2 * out_channels,), device))
+                     if use_bias else None)
+        self.w_h = nn.Parameter(
+            glorot((width, out_channels), generator, device))
+        self.b_h = (nn.Parameter(zeros((out_channels,), device))
+                    if use_bias else None)
+
+    def forward(self, x: torch.Tensor, graph,
+                h: Optional[torch.Tensor] = None) -> torch.Tensor:
+        C = self.out_channels
+        if h is None:
+            h = x.new_zeros(x.shape[:-1] + (C,))
+        b_xh = diffusion_basis(graph, torch.cat([x, h], dim=-1), self.K)
+        zr = (b_xh @ self.w_zr.to(b_xh.dtype)).to(x.dtype)
+        if self.b_zr is not None:
+            zr = zr + self.b_zr.to(x.dtype)
+        z, r = torch.split(torch.sigmoid(zr), C, dim=-1)
+        b_xhr = diffusion_basis(graph, torch.cat([x, h * r], dim=-1), self.K)
+        ht = (b_xhr @ self.w_h.to(b_xhr.dtype)).to(x.dtype)
+        if self.b_h is not None:
+            ht = ht + self.b_h.to(x.dtype)
+        h_tilde = torch.tanh(ht)
+        return z * h + (1.0 - z) * h_tilde
+
+    def params_from_flax(self, tree) -> "DCRNN":
+        p = _flax_params(tree)
+        _load(self.w_zr, p["w_zr"])
+        _load(self.w_h, p["w_h"])
+        if self.b_zr is not None:
+            _load(self.b_zr, p["b_zr"])
+            _load(self.b_h, p["b_h"])
+        return self
+
+
+class DCRNNSeq(nn.Module):
+    """Sequence-to-sequence DCRNN over (B, T, N, F) inputs; returns all
+    hidden states (B, T, N, C).  One cell, shared across the T steps of a
+    Python loop."""
+
+    def __init__(self, in_channels: int, out_channels: int, K: int,
+                 use_bias: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_channels = out_channels
+        self.cell = DCRNN(in_channels, out_channels, K, use_bias,
+                          device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, graph,
+                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x.dim() != 4:
+            raise ValueError(
+                f"DCRNNSeq expects input (B, T, N, F); got shape "
+                f"{tuple(x.shape)}")
+        if x.shape[2] != graph.num_nodes:
+            raise ValueError(
+                f"node axis {x.shape[2]} != graph.num_nodes "
+                f"{graph.num_nodes}")
+        B, T, N, _ = x.shape
+        h = h0 if h0 is not None else x.new_zeros((B, N, self.out_channels))
+        hs = []
+        for t in range(T):
+            h = self.cell(x[:, t], graph, h)
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+    def params_from_flax(self, tree) -> "DCRNNSeq":
+        self.cell.params_from_flax(_flax_params(tree)["cell"])
+        return self
+

@@ -1,0 +1,18 @@
+"""Training: losses, dtype policies, scaler, per-batch trainer."""
+
+from .losses import mae, masked_mae_loss, masked_mse_loss, mse
+from .precision import Policy, bf16_policy, f32_policy
+from .scaler import ZScoreScaler
+from .trainer import BatchTrainer
+
+__all__ = [
+    "BatchTrainer",
+    "Policy",
+    "ZScoreScaler",
+    "bf16_policy",
+    "f32_policy",
+    "mae",
+    "masked_mae_loss",
+    "masked_mse_loss",
+    "mse",
+]

@@ -1,0 +1,72 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``cuda``: each test skips without an NVIDIA card (decided inside
+the fixture, never at import).  Run on the card with
+``python -m pytest tests/test_torch_cuda.py -m cuda``.  Tolerance: both
+sides sum the same f32 products in another order, 1e-4 of the output's
+scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+from pytorch_geometric_temporal_tpu_torch.ops import DiffusionOperators, Graph
+from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def banded(n, e, seed=0, band=40):
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, size=e)
+    r = np.clip(s + rng.integers(-band, band + 1, size=e), 0, n - 1)
+    s = np.concatenate([s, rng.integers(0, n, size=e // 20)])
+    r = np.concatenate([r, rng.integers(0, n, size=e // 20)])
+    return np.stack([s, r]), rng.uniform(0.1, 1.0, s.size).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [8, 96, 200])
+def test_kernels_match_plain(cuda, dtype, f):
+    ei, w = banded(1500, 30000)
+    g = Graph.from_edge_index(ei, w, num_nodes=1500, device=cuda)
+    mat = bcsr.BCSRMatrix.from_graph(g, dtype=dtype)
+    for half in (mat.fwd, mat.bwd):
+        assert half.nnzb and half.num_rem
+        x = torch.randn(half.num_cols, f, device=cuda).to(dtype)
+        before = bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches
+        out = bcsr.tile_spmm(half, x)
+        ref = bcsr.tile_spmm_plain(half, x)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+        bcsr.rem_scatter_(half, x, out)
+        bcsr.rem_scatter_plain(half, x, ref)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+        assert (bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches) == (
+            before[0] + 1, before[1] + 1)
+
+
+def test_model_on_card_matches_cpu(cuda):
+    n = 900
+    ei, w = banded(n, 12000, seed=2)
+    outs = []
+    for dev in ("cpu", cuda):
+        g = Graph.from_edge_index(ei, w, num_nodes=n, device=dev)
+        ops = DiffusionOperators.from_graph(g, bcsr=True, device=dev)
+        model = DCRNNSeq(4, 8, 2, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        x = torch.from_numpy(np.random.default_rng(3).normal(
+            size=(2, 3, n, 4)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            outs.append(model(x, ops).cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-5)

@@ -1,0 +1,85 @@
+"""Port hygiene: the port imports no JAX, flax, optax or JAX-package module,
+and its entry points build on CUDA unless given ``device="cpu"``."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq, DConv
+from pytorch_geometric_temporal_tpu_torch.ops import DiffusionOperators, Graph
+from pytorch_geometric_temporal_tpu_torch.train import (
+    BatchTrainer, ZScoreScaler)
+
+REPO = Path(__file__).parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_temporal_tpu")
+
+PROBE = """
+import json, pkgutil, sys, importlib
+import pytorch_geometric_temporal_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": sorted(sys.modules), "walked": names}))
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in info["modules"]
+           if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+    assert not bad, f"port imported {bad}"
+    for sub in ("ops.bcsr", "csrc", "native", "train.trainer",
+                "models.recurrent.dcrnn"):
+        assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
+
+
+def test_port_sources_name_no_jax_module():
+    pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0].rstrip(",")
+                assert mod not in FORBIDDEN, f"{path}: {line}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    ei = np.array([[0, 1, 2], [1, 2, 0]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Graph.from_edge_index(ei)
+    g = Graph.from_edge_index(ei, device="cpu")
+    for build in (lambda: DiffusionOperators.from_graph(g),
+                  lambda: DCRNNSeq(2, 4, 2),
+                  lambda: DConv(2, 4, 2),
+                  lambda: ZScoreScaler.fit(np.ones(3)),
+                  lambda: BatchTrainer(DCRNNSeq(2, 4, 2, device="cpu"))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    ops = DiffusionOperators.from_graph(g, bcsr=True, device="cpu")
+    model = DCRNNSeq(2, 4, 2, device="cpu")
+    trainer = BatchTrainer(model, lambda x: model(x, ops), device="cpu")
+    loss = trainer.train_step(torch.randn(1, 2, 3, 2), torch.randn(1, 2, 3, 4))
+    assert torch.isfinite(loss)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    g = Graph.from_edge_index(np.array([[0, 1], [1, 0]]), device="cpu")
+    half = bcsr.BCSRMatrix.from_graph(g).fwd
+    x = torch.zeros(half.num_cols, 3, device="meta")
+    with pytest.raises(ValueError):
+        bcsr.tile_spmm(half, x)
