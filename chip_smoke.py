@@ -183,7 +183,7 @@ def phase_slice_kernels(torch, ops, f):
                 half.blocks.dtype)
             e1, t1, e2, t2 = check_kernels(torch, bcsr, half, x)
             log(f"  slice {op_name}.{side} F={f} nnzb={half.nnzb} "
-                f"rem={half.num_rem} chunks={half.rem_step_rb.shape[0]} "
+                f"rem={half.num_rem} rem_rbs={half.rem_rbs.numel()} "
                 f"K1 err {e1:.2e} (tol {t1:.1e}) K2 err {e2:.2e} "
                 f"(tol {t2:.1e})")
             if e1 > t1 or e2 > t2:
@@ -218,19 +218,22 @@ def phase_slice_kernels(torch, ops, f):
         "bytes": k1_bytes, "ops": k1_ops,
     }
 
-    # K2: per-slot indices and values, the distinct x rows gathered, the
-    # touched output row blocks read and written
-    slots = int(half.rem_cols.numel())
-    urows = int(torch.unique(half.rem_cols).numel())
-    touched = int(half.rem_rbs.numel())
-    k2_bytes = (slots * 12 + urows * f * s_x + touched * 128 * f * 4 * 2
-                + (2 * touched + 1) * 4)
-    k2_ops = 2 * slots * f
+    # K2: what the function needs: each remainder edge's column, value and
+    # row (12 B), the distinct x rows gathered, and the distinct output rows
+    # that receive an edge, read and written.  (The kernel moves whole
+    # 128-row output blocks; that is its cost, not the bound's.)
+    rrows = half.rem_rows
+    x_rows = int(torch.unique(half.rem_cols).numel())
+    out_rows = int(torch.unique(rrows).numel())
+    k2_bytes = half.num_rem * 12 + x_rows * f * s_x + out_rows * f * 4 * 2
+    k2_ops = 2 * half.num_rem * f
     k2_t = (k2_bytes / H100_BYTES_PER_S, k2_ops / PEAK_FLOPS["f32"])
     k2_bound, k2_by = max(k2_t), ("bytes" if k2_t[0] >= k2_t[1]
                                   else "operations")
-    rrows = half.rem_rows
-    rvals = half.rem_vals.reshape(-1).to(half.blocks.dtype)
+    log(f"  K2 bound counts {half.num_rem} edges, {x_rows} x rows, "
+        f"{out_rows} output rows (of {half.rem_rbs.numel() * 128} in the "
+        f"row blocks the kernel reads and writes)")
+    rvals = half.rem_vals.to(half.blocks.dtype)
     rem_csr = _csr_of(torch, rrows, half.rem_cols.long(), rvals, shape)
     base = bcsr.tile_spmm(half, x)
     k2 = {

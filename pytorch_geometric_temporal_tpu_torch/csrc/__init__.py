@@ -83,7 +83,7 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pgtt_tile_spmm.argtypes = [p, i, p, p, p, p, i, i, p]
     lib.pgtt_tile_spmm.restype = i
-    lib.pgtt_rem_scatter.argtypes = [p, p, p, p, p, i, p, i, p, i, i, p]
+    lib.pgtt_rem_scatter.argtypes = [p, p, p, p, p, p, i, p, i, i, p]
     lib.pgtt_rem_scatter.restype = i
     _LIB = lib
     return lib

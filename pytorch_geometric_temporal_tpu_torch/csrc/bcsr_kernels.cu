@@ -14,6 +14,7 @@
 //     out[rb*128 + lrow] += val * x[col] over the COO remainder edges of each
 //     row block, IN PLACE on K1's output (the Pallas kernel aliases that
 //     output with input_output_aliases; here the same buffer is updated).
+//     The edges come without the Pallas layout's 128-edge chunk padding.
 //
 // What bounds them on an H100: bytes.  At the DCRNN slice (N=50k, F=96,
 // bf16 tiles at ~10% occupancy) K1 moves ~38 MB of tiles for ~3.7 GFLOP,
@@ -23,8 +24,8 @@
 //  - The TPU grid ran steps in order and carried the output block across
 //    same-row steps (zeroed on a row's first step).  Blocks run in no order
 //    here, so one CTA owns one (row block, feature tile) and loops over that
-//    row's tiles (K1) or remainder chunks (K2) itself, from host-built row
-//    pointers over the row-sorted tile / chunk lists: no atomics, no
+//    row's tiles (K1) or remainder edges (K2) itself, from host-built row
+//    pointers over the row-sorted tile / edge lists: no atomics, no
 //    cross-CTA carry, deterministic sums.  K1 is launched over EVERY row
 //    block, so rows without tiles are written as zeros (the dummy slots and
 //    the `pack` layout of the TPU step lists are not needed).
@@ -237,16 +238,17 @@ tile_spmm_mma_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
-// K2.  Grid (number of row blocks with remainder chunks, ceil(F / 32));
+// K2.  Grid (number of row blocks with remainder edges, ceil(F / 32));
 // one warp, lane = feature.  The 128 x 32 output block lives in shared
-// memory; lane l only ever touches column l, so no barrier is needed.
+// memory (the whole block is read and written back, rows without an edge
+// included); lane l only ever touches column l, so no barrier is needed.
 template <typename T>
 __global__ void __launch_bounds__(32)
 rem_scatter_kernel(const int* __restrict__ rem_rbs,
                    const int* __restrict__ rem_ptr,
                    const int* __restrict__ rem_cols,
                    const float* __restrict__ rem_vals,
-                   const int* __restrict__ rem_lrows, int rem_k,
+                   const int* __restrict__ rem_lrows,
                    const T* __restrict__ x, float* __restrict__ out, int F) {
   __shared__ float acc[BLK][RFT];
   const int lane = threadIdx.x;
@@ -256,8 +258,8 @@ rem_scatter_kernel(const int* __restrict__ rem_rbs,
   for (int r = 0; r < BLK; ++r)
     acc[r][lane] = live ? orow[(size_t)r * F + f] : 0.f;
 
-  const int e_begin = rem_ptr[blockIdx.x] * rem_k;
-  const int e_end = rem_ptr[blockIdx.x + 1] * rem_k;
+  const int e_begin = rem_ptr[blockIdx.x];
+  const int e_end = rem_ptr[blockIdx.x + 1];
   for (int e0 = e_begin; e0 < e_end; e0 += 32) {
     const int e = e0 + lane;
     int col = 0, lrow = 0;
@@ -319,26 +321,25 @@ int pgtt_tile_spmm(const void* blocks, int is_bf16, const int* tile_ptr,
                             block_cols, x, out, num_row_blocks, F, s);
 }
 
-// K2.  rem_rbs (num_rbs) int32 row blocks that own remainder chunks,
-// ascending; rem_ptr (num_rbs + 1) int32 chunk pointers; rem_cols,
-// rem_vals (f32), rem_lrows: (num_chunks * rem_k) flat per-edge arrays,
-// padding edges val 0; x (num_cols, F) f32 or bf16 (is_bf16); out
-// (num_rows, F) f32, updated in place.
+// K2.  rem_rbs (num_rbs) int32 row blocks that own remainder edges,
+// ascending; rem_ptr (num_rbs + 1) int32 edge pointers; rem_cols,
+// rem_vals (f32), rem_lrows: (num_rem) per-edge arrays grouped by row
+// block; x (num_cols, F) f32 or bf16 (is_bf16); out (num_rows, F) f32,
+// updated in place.
 int pgtt_rem_scatter(const int* rem_rbs, const int* rem_ptr,
                      const int* rem_cols, const float* rem_vals,
-                     const int* rem_lrows, int rem_k, const void* x,
-                     int is_bf16, float* out, int num_rbs, int F,
-                     void* stream) {
+                     const int* rem_lrows, const void* x, int is_bf16,
+                     float* out, int num_rbs, int F, void* stream) {
   if (num_rbs == 0 || F == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(num_rbs, (F + RFT - 1) / RFT);
   if (is_bf16) {
     rem_scatter_kernel<__nv_bfloat16><<<grid, 32, 0, s>>>(
-        rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows, rem_k,
+        rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows,
         static_cast<const __nv_bfloat16*>(x), out, F);
   } else {
     rem_scatter_kernel<float><<<grid, 32, 0, s>>>(
-        rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows, rem_k,
+        rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows,
         static_cast<const float*>(x), out, F);
   }
   return (int)cudaGetLastError();

@@ -3,10 +3,11 @@
 Port of the JAX package's ``ops/bcsr.py``.  The aggregation matrix
 ``M[r, s] = w(s→r)`` of a large graph is cut into 128×128 tiles; tiles with
 at least ``min_block_edges`` edges are stored dense, and the edges of
-sparser tiles spill to a COO *remainder* grouped by row block into
-``rem_k``-edge chunks.  The host-side construction (:meth:`BCSRMatrix.from_graph`,
-``_build_half`` and its helpers) produces the same arrays as the JAX
-package's, so the two packages can be compared array by array.
+sparser tiles spill to a COO *remainder* grouped by row block.  The
+host-side construction (:meth:`BCSRMatrix.from_graph`, ``_build_half`` and
+its helpers) also produces the JAX package's arrays (the remainder padded
+to ``rem_k``-edge chunks there), so the two packages can be compared array
+by array; the kernels read the remainder without that padding.
 
 Two kernels apply one half of the operator (``csrc/bcsr_kernels.cu``):
 
@@ -16,8 +17,8 @@ Two kernels apply one half of the operator (``csrc/bcsr_kernels.cu``):
   out zero.
 - **K2, remainder scatter** (:func:`rem_scatter_`, replaces
   ``_rem_scatter_call`` and its ``x[rem_cols]`` gather):
-  ``out[rb·128 + lrow] += val · x[col]`` over each row block's chunks, in
-  place on K1's output.
+  ``out[rb·128 + lrow] += val · x[col]`` over each row block's remainder
+  edges, in place on K1's output.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch;
 for a CPU tensor it runs the plain PyTorch version beside it
@@ -41,7 +42,7 @@ import torch
 from .graph import Graph
 
 BLOCK = 128
-# remainder edges per chunk; per-row-block padding averages REM_K/2 edges
+# remainder edges per chunk of the JAX package's padded layout (``_host``)
 REM_K = 128
 
 
@@ -62,17 +63,15 @@ class _BCSRHalf:
     ``block_cols`` their row-sorted coordinates, and ``tile_ptr``
     (num_rows/128 + 1) the row pointers K1 walks.
 
-    Remainder fields (padded per row block to a multiple of ``rem_k``):
-    ``rem_cols`` (S_r·rem_k,) gather sources, ``rem_vals``/``rem_lrows``
-    (S_r, rem_k) edge values and rows within the row block,
-    ``rem_step_rb`` (S_r,) each chunk's row block, sorted; ``rem_rbs``
-    (R,) the distinct row blocks with chunks and ``rem_ptr`` (R+1,) their
-    chunk pointers, which K2 walks.  Padding edges have val 0, col 0,
-    lrow 0.
+    Remainder fields (the ``num_rem`` edges, sorted by (row block, col),
+    without padding): ``rem_cols`` gather sources, ``rem_vals`` edge values
+    and ``rem_lrows`` rows within the row block, all (num_rem,);
+    ``rem_rbs`` (R,) the distinct row blocks that own remainder edges and
+    ``rem_ptr`` (R+1,) their edge pointers, which K2 walks.
 
     Index tensors are int32, the kernels' type.  ``_host`` keeps the numpy
     arrays of the JAX package's ``_host`` dict (``blocks`` before the cast
-    to the tile dtype).
+    to the tile dtype, the remainder padded to ``rem_k``-edge chunks).
     """
 
     blocks: torch.Tensor
@@ -82,7 +81,6 @@ class _BCSRHalf:
     rem_cols: torch.Tensor
     rem_vals: torch.Tensor
     rem_lrows: torch.Tensor
-    rem_step_rb: torch.Tensor
     rem_rbs: torch.Tensor
     rem_ptr: torch.Tensor
     num_rows: int
@@ -93,9 +91,10 @@ class _BCSRHalf:
 
     @property
     def rem_rows(self) -> torch.Tensor:
-        """(S_r·rem_k,) global row of each remainder slot."""
-        return (self.rem_step_rb.long()[:, None] * BLOCK
-                + self.rem_lrows.long()).reshape(-1)
+        """(num_rem,) global row of each remainder edge."""
+        rbs = torch.repeat_interleave(self.rem_rbs.long(),
+                                      torch.diff(self.rem_ptr).long())
+        return rbs * BLOCK + self.rem_lrows.long()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,31 +247,37 @@ def _reorder_pays_off(r0, s0, r1, s1, n, block, dtype, expected_f,
     return cost1 + gather_ns < cost0
 
 
-def _build_remainder(rows, cols, vals, nb, block, rem_k=REM_K):
-    """Group remainder edges by row block into rem_k-edge padded chunks,
-    sorted by (row block, col); returns (rem_cols, rem_vals, rem_lrows,
+def _build_remainder(rows, cols, vals, block, rem_k=REM_K):
+    """Group remainder edges by row block, sorted by (row block, col).
+
+    Returns ``(compact, padded)``.  ``compact`` is what K2 walks: (rbs,
+    ptr, cols, vals, lrows) — the row blocks that own edges, their edge
+    pointers, and the edges.  ``padded`` is the JAX package's layout of the
+    same edges in rem_k-edge chunks per row block (padding val 0, col 0,
+    lrow 0), kept for builder parity: (rem_cols, rem_vals, rem_lrows,
     rem_step_rb)."""
     order = np.lexsort((cols, rows // block))
     rows, cols, vals = rows[order], cols[order], vals[order]
     rb_of_edge = rows // block
+    lrows = (rows - rb_of_edge * block).astype(np.int32)
     rbs, counts = np.unique(rb_of_edge, return_counts=True)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
     chunks_per_rb = -(-counts // rem_k)
     s_r = int(chunks_per_rb.sum())
-    p = s_r * rem_k
-    rem_cols = np.zeros((p,), np.int32)
-    rem_vals = np.zeros((p,), np.float32)
-    rem_lrows = np.zeros((p,), np.int32)
-    rem_step_rb = np.repeat(rbs, chunks_per_rb).astype(np.int32)
-    src = 0
-    dst = 0
-    for rb, cnt, nch in zip(rbs, counts, chunks_per_rb):
-        rem_cols[dst:dst + cnt] = cols[src:src + cnt]
-        rem_vals[dst:dst + cnt] = vals[src:src + cnt]
-        rem_lrows[dst:dst + cnt] = rows[src:src + cnt] - rb * block
-        src += cnt
-        dst += nch * rem_k
-    return (rem_cols, rem_vals.reshape(s_r, rem_k),
-            rem_lrows.reshape(s_r, rem_k), rem_step_rb)
+    chunk_start = np.concatenate([[0], np.cumsum(chunks_per_rb)[:-1]])
+    slot = np.repeat(chunk_start * rem_k - ptr[:-1], counts) \
+        + np.arange(len(rows))
+    padded = []
+    for a, dtype in ((cols, np.int32), (vals, np.float32),
+                     (lrows, np.int32)):
+        p = np.zeros((s_r * rem_k,), dtype)
+        p[slot] = a
+        padded.append(p)
+    compact = (rbs.astype(np.int32), ptr, cols.astype(np.int32),
+               vals.astype(np.float32), lrows)
+    return compact, (padded[0], padded[1].reshape(s_r, rem_k),
+                     padded[2].reshape(s_r, rem_k),
+                     np.repeat(rbs, chunks_per_rb).astype(np.int32))
 
 
 def _build_steps(block_rows, block_cols, nb, pack: int = 1):
@@ -323,19 +328,22 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
     nnzb, block_of_edge, block_rows, block_cols = bcsr_structure(
         cols, rows, block, grid_cols)
 
-    rem = (np.zeros((0,), np.int32), np.zeros((0, rem_k), np.float32),
-           np.zeros((0, rem_k), np.int32), np.zeros((0,), np.int32))
+    compact = (np.zeros((0,), np.int32), np.zeros((1,), np.int64),
+               np.zeros((0,), np.int32), np.zeros((0,), np.float32),
+               np.zeros((0,), np.int32))
+    padded = (np.zeros((0,), np.int32), np.zeros((0, rem_k), np.float32),
+              np.zeros((0, rem_k), np.int32), np.zeros((0,), np.int32))
     num_rem = 0
     if min_block_edges > 1 and nnzb > 0:
         cnt = np.bincount(block_of_edge, minlength=nnzb)
         edge_is_sparse = (cnt < min_block_edges)[block_of_edge]
         num_rem = int(edge_is_sparse.sum())
         if num_rem:
-            rem = _build_remainder(
+            compact, padded = _build_remainder(
                 rows[edge_is_sparse].astype(np.int32),
                 cols[edge_is_sparse].astype(np.int32),
                 vals[edge_is_sparse].astype(np.float32),
-                nb, block, rem_k,
+                block, rem_k,
             )
             keep = ~edge_is_sparse
             rows, cols, vals = rows[keep], cols[keep], vals[keep]
@@ -357,15 +365,14 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         pack = tune_pack(tile_cnt)
     step_rows, step_cols, step_bidx = _build_steps(
         block_rows, block_cols, nb, pack)
-    rem_cols, rem_vals, rem_lrows, rem_step_rb = rem
-    rem_rbs, rem_counts = np.unique(rem_step_rb, return_counts=True)
     host = {
         "blocks": blocks, "block_rows": block_rows,
         "block_cols": block_cols, "step_rows": step_rows,
         "step_cols": step_cols, "step_bidx": step_bidx,
-        "rem_cols": rem_cols, "rem_vals": rem_vals,
-        "rem_lrows": rem_lrows, "rem_step_rb": rem_step_rb,
+        **dict(zip(("rem_cols", "rem_vals", "rem_lrows", "rem_step_rb"),
+                   padded)),
     }
+    rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows = compact
 
     def put(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
@@ -378,9 +385,8 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         rem_cols=put(rem_cols),
         rem_vals=put(rem_vals, torch.float32),
         rem_lrows=put(rem_lrows),
-        rem_step_rb=put(rem_step_rb),
         rem_rbs=put(rem_rbs),
-        rem_ptr=put(np.concatenate([[0], np.cumsum(rem_counts)])),
+        rem_ptr=put(rem_ptr),
         num_rows=n_pad,
         num_cols=n_pad,
         nnzb=int(nnzb),
@@ -506,7 +512,7 @@ def rem_scatter_plain(half: _BCSRHalf, x: torch.Tensor,
     values rounded to the tile dtype, sums in f32."""
     if half.num_rem == 0:
         return out
-    vals = half.rem_vals.reshape(-1).to(half.blocks.dtype).float()
+    vals = half.rem_vals.to(half.blocks.dtype).float()
     msgs = x[half.rem_cols.long()].float() * vals[:, None]
     return out.index_add_(0, half.rem_rows, msgs)
 
@@ -535,8 +541,7 @@ def rem_scatter_(half: _BCSRHalf, x: torch.Tensor,
         rc = lib.pgtt_rem_scatter(
             half.rem_rbs.data_ptr(), half.rem_ptr.data_ptr(),
             half.rem_cols.data_ptr(), half.rem_vals.data_ptr(),
-            half.rem_lrows.data_ptr(), int(half.rem_vals.shape[1]),
-            x.data_ptr(), int(_is_bf16(x.dtype)), out.data_ptr(),
+            half.rem_lrows.data_ptr(), x.data_ptr(), int(_is_bf16(x.dtype)), out.data_ptr(),
             int(half.rem_rbs.shape[0]), x.shape[1],
             torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -62,15 +62,26 @@ def assert_half_equal(jh, th, bf16):
     np.testing.assert_array_equal(th.blocks.float().numpy(), want)
     assert (th.nnzb, th.num_rem, th.pack, th.num_rows) == (
         jh.nnzb, jh.num_rem, jh.pack, jh.num_rows)
-    # the device tensors the kernels read agree with the host arrays
-    for k in ("block_rows", "block_cols", "rem_cols", "rem_lrows",
-              "rem_step_rb"):
+    # the device tensors the kernels read agree with the host arrays: tile
+    # coordinates as they are, the remainder without its chunk padding
+    for k in ("block_rows", "block_cols"):
         np.testing.assert_array_equal(getattr(th, k).numpy(), jhost[k])
     nb = th.num_rows // 128
     cnt = np.bincount(jhost["block_rows"], minlength=nb)
     np.testing.assert_array_equal(th.tile_ptr.numpy(),
                                   np.concatenate([[0], np.cumsum(cnt)]))
-    rbs, per = np.unique(jhost["rem_step_rb"], return_counts=True)
+    # padding slots hold val 0; every test graph's weights are >= 0.1
+    vals = jhost["rem_vals"].reshape(-1)
+    real = vals != 0
+    assert int(real.sum()) == th.num_rem
+    lrows = jhost["rem_lrows"].reshape(-1)[real]
+    np.testing.assert_array_equal(th.rem_cols.numpy(), jhost["rem_cols"][real])
+    np.testing.assert_array_equal(th.rem_vals.numpy(), vals[real])
+    np.testing.assert_array_equal(th.rem_lrows.numpy(), lrows)
+    rem_k = jhost["rem_vals"].shape[-1]
+    rows = np.repeat(jhost["rem_step_rb"], rem_k)[real] * 128 + lrows
+    np.testing.assert_array_equal(th.rem_rows.numpy(), rows)
+    rbs, per = np.unique(rows // 128, return_counts=True)
     np.testing.assert_array_equal(th.rem_rbs.numpy(), rbs)
     np.testing.assert_array_equal(th.rem_ptr.numpy(),
                                   np.concatenate([[0], np.cumsum(per)]))
