@@ -6,19 +6,24 @@
 Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, and the
-   nvcc build of the kernels (``csrc/bcsr_kernels.cu``) with its time;
-2. kernels against their plain PyTorch versions on the card: K1 (tile
-   SpMM) and K2 (remainder scatter) on f32 and bf16 tiles, both halves,
-   F in {32, 96, 200}, an all-tiles operator, an all-remainder operator and
-   a graph with empty row blocks; then at the slice's own shapes, where
-   each kernel is also timed (CUDA events, L2 flushed before each launch)
-   beside its byte/op bound, its plain version and one ``torch.sparse.mm``
-   over the same operator as CSR (a yardstick the port never calls);
+   nvcc build of the kernels (``csrc/*.cu``, one nvcc per source, in
+   parallel) with its time;
+2. kernels against their plain PyTorch versions on the card: the fused
+   hybrid SpMM (the main path) and its baseline pair K1 (tile SpMM) and K2
+   (remainder scatter) on f32 and bf16 tiles, both halves, F in {8, 32,
+   36, 96, 200} (36 ragged), a hybrid operator, an all-tiles operator, an
+   all-remainder operator and a graph with empty row blocks; then at the
+   slice's own shapes, where each kernel is also timed (CUDA events, L2
+   flushed before each launch) beside its byte/op bound, its plain version
+   and one ``torch.sparse.mm`` over the same operator as CSR (a yardstick
+   the port never calls), and K1 + K2 are timed as a pair;
 3. the slice: DCRNNSeq(hidden 64, K=2) training (MSE, Adam 1e-3) over
    bf16-tile BCSR diffusion operators of a 50,000-node, 2,000,000-edge
    banded+random graph (F=32, T=4, B=1), checked against the segment path
-   on the card, then a few timed steps with every kernel launch counted;
-4. the dense path: one METR-LA-shape step (B=64, T=12, N=207, F=2, K=3).
+   on the card, then a few timed steps with every kernel launch counted
+   (the fused kernel once per aggregation, K1 and K2 never);
+4. the dense path: one METR-LA-shape step (B=64, T=12, N=207, F=2, K=3),
+   which launches no BCSR kernel.
 
 Exits non-zero, and prints no result, without CUDA or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -83,17 +88,25 @@ def tol_for(ref):
 
 
 def check_kernels(torch, bcsr, half, x):
-    """K1 and K2 against their plain versions on one (half, x); returns
-    (err_k1, tol_k1, err_k2, tol_k2)."""
-    k1 = bcsr.tile_spmm(half, x)
+    """The fused kernel, K1 and K2 against their plain versions on one
+    (half, x); returns {name: (err, tol)}."""
+    def err(got, want):
+        torch.cuda.synchronize()
+        return float((got - want).abs().max()), tol_for(want)
+
     p1 = bcsr.tile_spmm_plain(half, x)
-    torch.cuda.synchronize()
-    e1, t1 = float((k1 - p1).abs().max()), tol_for(p1)
-    k2 = bcsr.rem_scatter_(half, x, p1.clone())
-    p2 = bcsr.rem_scatter_plain(half, x, p1.clone())
-    torch.cuda.synchronize()
-    e2, t2 = float((k2 - p2).abs().max()), tol_for(p2)
-    return e1, t1, e2, t2
+    return {
+        "fused": err(bcsr.hybrid_spmm(half, x),
+                     bcsr.hybrid_spmm_plain(half, x)),
+        "K1": err(bcsr.tile_spmm(half, x), p1),
+        "K2": err(bcsr.rem_scatter_(half, x, p1.clone()),
+                  bcsr.rem_scatter_plain(half, x, p1.clone())),
+    }
+
+
+def fmt_errs(errs):
+    return "  ".join(f"{k} err {e:.2e} (tol {t:.1e})"
+                     for k, (e, t) in errs.items())
 
 
 def phase_card(torch):
@@ -139,19 +152,17 @@ def phase_kernel_cases(torch):
             mat = BCSRMatrix.from_graph(g, dtype=dtype, min_block_edges=mbe)
             for side in ("fwd", "bwd"):
                 half = getattr(mat, side)
-                for f in (32, 96, 200):
+                for f in (8, 32, 36, 96, 200):
                     x = torch.randn(half.num_cols, f, device="cuda")
                     x = x.to(dtype)
-                    e1, t1, e2, t2 = check_kernels(torch, bcsr, half, x)
-                    ok = e1 <= t1 and e2 <= t2
+                    errs = check_kernels(torch, bcsr, half, x)
+                    ok = all(e <= t for e, t in errs.values())
                     log(f"  {name:13s} {str(dtype)[6:]:8s} {side} F={f:3d} "
                         f"nnzb={half.nnzb:3d} rem={half.num_rem:5d} "
-                        f"K1 err {e1:.2e} (tol {t1:.1e})  "
-                        f"K2 err {e2:.2e} (tol {t2:.1e})"
-                        f"{'' if ok else '  FAIL'}")
+                        f"{fmt_errs(errs)}{'' if ok else '  FAIL'}")
                     if not ok:
                         raise SystemExit(f"kernel mismatch: {name}")
-                    worst = max(worst, e1 / t1, e2 / t2)
+                    worst = max([worst] + [e / t for e, t in errs.values()])
     log(f"kernel cases: all within tolerance (worst err/tol {worst:.3f})")
 
 
@@ -169,27 +180,35 @@ def tile_operator_coo(torch, half):
     return rows, cols, vals
 
 
+def bound_of(n_bytes, ops_by_type):
+    """(bound ms, what binds): bytes at the HBM rate against the operations
+    at each type's peak rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in ops_by_type.items())
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def phase_slice_kernels(torch, ops, f):
-    """Both kernels at the slice's shapes: checked on all four halves,
+    """The three kernels at the slice's shapes: checked on all four halves,
     timed on the forward operator's forward half."""
     from pytorch_geometric_temporal_tpu_torch.ops import bcsr
 
-    errs = {"K1": 0.0, "K2": 0.0}
+    errs = {"fused": 0.0, "K1": 0.0, "K2": 0.0}
     for op_name in ("p_fwd", "p_bwd"):
         mat = getattr(ops, op_name)
         for side in ("fwd", "bwd"):
             half = getattr(mat, side)
             x = torch.randn(half.num_cols, f, device="cuda").to(
                 half.blocks.dtype)
-            e1, t1, e2, t2 = check_kernels(torch, bcsr, half, x)
+            case = check_kernels(torch, bcsr, half, x)
             log(f"  slice {op_name}.{side} F={f} nnzb={half.nnzb} "
                 f"rem={half.num_rem} rem_rbs={half.rem_rbs.numel()} "
-                f"K1 err {e1:.2e} (tol {t1:.1e}) K2 err {e2:.2e} "
-                f"(tol {t2:.1e})")
-            if e1 > t1 or e2 > t2:
+                f"{fmt_errs(case)}")
+            if any(e > t for e, t in case.values()):
                 raise SystemExit(f"slice kernel mismatch on {op_name}.{side}")
-            errs["K1"] = max(errs["K1"], e1)
-            errs["K2"] = max(errs["K2"], e2)
+            for k, (e, _) in case.items():
+                errs[k] = max(errs[k], e)
 
     half = ops.p_fwd.fwd
     x = torch.randn(half.num_cols, f, device="cuda").to(half.blocks.dtype)
@@ -204,9 +223,7 @@ def phase_slice_kernels(torch, ops, f):
     k1_bytes = (half.nnzb * 128 * 128 * s_t + ucols * 128 * f * s_x
                 + half.num_rows * f * 4 + (nb + 1 + half.nnzb) * 4)
     k1_ops = 2 * half.nnzb * 128 * 128 * f
-    k1_t = (k1_bytes / H100_BYTES_PER_S, k1_ops / PEAK_FLOPS[dt])
-    k1_bound, k1_by = max(k1_t), ("bytes" if k1_t[0] >= k1_t[1]
-                                  else "operations")
+    k1_bound, k1_by = bound_of(k1_bytes, {dt: k1_ops})
     rows, cols, vals = tile_operator_coo(torch, half)
     tiles_csr = _csr_of(torch, rows, cols, vals, shape)
     k1 = {
@@ -214,7 +231,7 @@ def phase_slice_kernels(torch, ops, f):
         "plain_ms": cold_ms(torch, lambda: bcsr.tile_spmm_plain(half, x)),
         "library_ms": cold_ms(torch,
                               lambda: torch.sparse.mm(tiles_csr, x)),
-        "bound_ms": k1_bound * 1e3, "bound_by": k1_by,
+        "bound_ms": k1_bound, "bound_by": k1_by,
         "bytes": k1_bytes, "ops": k1_ops,
     }
 
@@ -227,9 +244,7 @@ def phase_slice_kernels(torch, ops, f):
     out_rows = int(torch.unique(rrows).numel())
     k2_bytes = half.num_rem * 12 + x_rows * f * s_x + out_rows * f * 4 * 2
     k2_ops = 2 * half.num_rem * f
-    k2_t = (k2_bytes / H100_BYTES_PER_S, k2_ops / PEAK_FLOPS["f32"])
-    k2_bound, k2_by = max(k2_t), ("bytes" if k2_t[0] >= k2_t[1]
-                                  else "operations")
+    k2_bound, k2_by = bound_of(k2_bytes, {"f32": k2_ops})
     log(f"  K2 bound counts {half.num_rem} edges, {x_rows} x rows, "
         f"{out_rows} output rows (of {half.rem_rbs.numel() * 128} in the "
         f"row blocks the kernel reads and writes)")
@@ -240,36 +255,65 @@ def phase_slice_kernels(torch, ops, f):
         "ms": cold_ms(torch, lambda: bcsr.rem_scatter_(half, x, base)),
         "plain_ms": cold_ms(torch,
                             lambda: bcsr.rem_scatter_plain(half, x, base)),
+        # computes less than K2: writes new bf16 rows, adds into nothing
         "library_ms": cold_ms(torch, lambda: torch.sparse.mm(rem_csr, x)),
-        "bound_ms": k2_bound * 1e3, "bound_by": k2_by,
+        "bound_ms": k2_bound, "bound_by": k2_by,
         "bytes": k2_bytes, "ops": k2_ops,
     }
-    for name, k in (("K1 tile_spmm", k1), ("K2 rem_scatter_", k2)):
+
+    # fused: each input once — the tiles and their pointers, the x rows of
+    # the referenced column blocks and of the remainder columns (a union),
+    # 8 B per remainder edge (column, value) and the row pointers — and the
+    # f32 output written once
+    x_used = torch.zeros(half.num_cols, dtype=torch.bool, device="cuda")
+    x_used.view(nb, 128)[half.block_cols.long()] = True
+    x_used[half.rem_row_cols.long()] = True
+    x_rows_h = int(x_used.sum())
+    h_bytes = (half.nnzb * 128 * 128 * s_t + (nb + 1 + half.nnzb) * 4
+               + x_rows_h * f * s_x + half.num_rem * 8
+               + (half.num_rows + 1) * 4 + half.num_rows * f * 4)
+    h_ops = {dt: k1_ops, "f32": k2_ops}
+    h_bound, h_by = bound_of(h_bytes, h_ops)
+    whole_csr = _csr_of(torch, torch.cat([rows, rrows]),
+                        torch.cat([cols, half.rem_cols.long()]),
+                        torch.cat([vals, rvals]), shape)
+    h = {
+        "ms": cold_ms(torch, lambda: bcsr.hybrid_spmm(half, x)),
+        "plain_ms": cold_ms(torch,
+                            lambda: bcsr.hybrid_spmm_plain(half, x)),
+        "library_ms": cold_ms(torch, lambda: torch.sparse.mm(whole_csr, x)),
+        "bound_ms": h_bound, "bound_by": h_by,
+        "bytes": h_bytes, "ops": sum(h_ops.values()),
+    }
+    pair_ms = cold_ms(
+        torch, lambda: bcsr.rem_scatter_(half, x, bcsr.tile_spmm(half, x)))
+    for name, k in (("fused hybrid_spmm", h), ("K1 tile_spmm", k1),
+                    ("K2 rem_scatter_", k2)):
         log(f"  {name}: {k['ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}, {k['bytes']} B, {k['ops']} flop)  "
-            f"plain {k['plain_ms']:.4f} ms  torch.sparse.mm "
-            f"({dt} CSR) {k['library_ms']:.4f} ms")
+            f"({k['bound_by']}, {k['bytes']} B, {k['ops']} flop; share "
+            f"{k['bound_ms'] / k['ms']:.3f})  plain {k['plain_ms']:.4f} ms  "
+            f"torch.sparse.mm ({dt} CSR) {k['library_ms']:.4f} ms")
+    log(f"  fused counts {x_rows_h} x rows; K1 then K2 as a pair "
+        f"{pair_ms:.4f} ms (sum of singles {k1['ms'] + k2['ms']:.4f}); "
+        f"fused / pair {h['ms'] / pair_ms:.3f}; fused / torch.sparse.mm "
+        f"over the whole half {h['ms'] / h['library_ms']:.3f}")
+    h["max_abs_err"] = errs["fused"]
     k1["max_abs_err"], k2["max_abs_err"] = errs["K1"], errs["K2"]
-    return k1, k2
+    return h, k1, k2
 
 
-def expected_launches(ops, T, K, steps):
-    """Kernel launches of ``steps`` training steps of DCRNNSeq over BCSR
-    diffusion operators.
+def expected_launches(T, K, steps):
+    """Fused-kernel launches of ``steps`` training steps of DCRNNSeq over
+    BCSR diffusion operators: one per bcsr_matmul.
 
-    Forward: per time step 2 diffusion bases x 2 directions x (K-1) hops,
-    one bcsr_matmul each (K1, plus K2 where the half has a remainder).
+    Forward: per time step 2 diffusion bases x 2 directions x (K-1) hops.
     Backward: one bcsr_matmul on the transposed half per forward product
     whose input needs a gradient — all but the first basis at t=0, whose
     input concat([x, h0]) holds no parameter (K-1 products per direction).
     """
-    k1 = k2 = 0
-    for mat in (ops.p_fwd, ops.p_bwd):
-        n_fwd = T * 2 * (K - 1)
-        n_bwd = n_fwd - (K - 1)
-        k1 += n_fwd + n_bwd
-        k2 += n_fwd * bool(mat.fwd.num_rem) + n_bwd * bool(mat.bwd.num_rem)
-    return k1 * steps, k2 * steps
+    n_fwd = T * 2 * (K - 1)
+    n_bwd = n_fwd - (K - 1)
+    return 2 * (n_fwd + n_bwd) * steps
 
 
 def phase_slice(torch, kernel_report):
@@ -297,8 +341,8 @@ def phase_slice(torch, kernel_report):
                     for o in ("p_fwd", "p_bwd") for s in ("fwd", "bwd")))
 
     f_basis = c["f"] + c["hidden"]   # spmm input width: concat([x, h])
-    k1, k2 = phase_slice_kernels(torch, ops, f_basis)
-    kernel_report.update(K1=k1, K2=k2)
+    h, k1, k2 = phase_slice_kernels(torch, ops, f_basis)
+    kernel_report.update(H=h, K1=k1, K2=k2)
 
     x = torch.from_numpy(x_np).cuda()
     y = torch.from_numpy(y_np).cuda()
@@ -333,12 +377,13 @@ def phase_slice(torch, kernel_report):
 
     bcsr.reset_launch_counts()
     losses = [float(trainer.train_step(x, y)) for _ in range(STEPS)]
-    launches = {"K1": bcsr.tile_spmm.launches,
+    launches = {"H": bcsr.hybrid_spmm.launches,
+                "K1": bcsr.tile_spmm.launches,
                 "K2": bcsr.rem_scatter_.launches}
-    want_k1, want_k2 = expected_launches(ops, c["t"], 2, STEPS)
-    log(f"  launches over {STEPS} steps: K1 {launches['K1']} (expected "
-        f"{want_k1}), K2 {launches['K2']} (expected {want_k2})")
-    if launches["K1"] != want_k1 or launches["K2"] != want_k2:
+    want = expected_launches(c["t"], 2, STEPS)
+    log(f"  launches over {STEPS} steps: fused {launches['H']} (expected "
+        f"{want}), K1 {launches['K1']} and K2 {launches['K2']} (expected 0)")
+    if launches != {"H": want, "K1": 0, "K2": 0}:
         raise SystemExit("launch counts differ from the model's count")
     if not all(np.isfinite(losses)):
         raise SystemExit(f"non-finite loss: {losses}")
@@ -355,7 +400,8 @@ def phase_slice(torch, kernel_report):
         f"{max(step_s) * 1e3:.3f} ms; {e * c['t'] * 4 / med:.4e} edges/s "
         f"(E*T*4/step); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    k1["launches"], k2["launches"] = launches["K1"], launches["K2"]
+    for key in ("H", "K1", "K2"):
+        kernel_report[key]["launches"] = launches[key]
     profile_steps(torch, lambda: trainer.train_step(x, y), med * 1e3)
 
 
@@ -436,7 +482,8 @@ def phase_dense(torch):
         losses.append(float(trainer.train_step(x, y)))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    if bcsr.tile_spmm.launches or bcsr.rem_scatter_.launches:
+    if (bcsr.hybrid_spmm.launches or bcsr.tile_spmm.launches
+            or bcsr.rem_scatter_.launches):
         raise SystemExit("dense path launched a BCSR kernel")
     if not all(np.isfinite(losses)):
         raise SystemExit(f"non-finite loss: {losses}")
@@ -469,15 +516,17 @@ def main() -> int:
     phase_dense(torch)
 
     kernels = []
-    for key, name, fn, line in (
-            ("K1", "tile_spmm", "_tile_kernel_call", 546),
-            ("K2", "rem_scatter_", "_rem_scatter_call", 612)):
+    jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"
+    for key, name, src, replaces in (
+            ("H", "hybrid_spmm", "hybrid_spmm.cu",
+             f"{jax_bcsr}:546 and {jax_bcsr}:612"),
+            ("K1", "tile_spmm", "bcsr_kernels.cu", f"{jax_bcsr}:546"),
+            ("K2", "rem_scatter_", "bcsr_kernels.cu", f"{jax_bcsr}:612")):
         k = report[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "pytorch_geometric_temporal_tpu_torch/csrc/"
-                      "bcsr_kernels.cu",
-            "replaces": f"pytorch_geometric_temporal_tpu/ops/bcsr.py:{line}",
+            "source": f"pytorch_geometric_temporal_tpu_torch/csrc/{src}",
+            "replaces": replaces,
             "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

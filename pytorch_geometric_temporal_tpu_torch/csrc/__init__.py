@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``*.cu`` beside this file).
 
-The sources are compiled with nvcc for Hopper (``sm_90a``) into one shared
+The sources are compiled with nvcc for Hopper (``sm_90a``), one nvcc
+process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes.  The build runs at
 first use, into ``build/kernels/`` beside the package (listed in
 ``.gitignore``), under a file name keyed by a hash of the sources and the
@@ -23,7 +24,7 @@ from typing import Optional
 SOURCES = sorted(Path(__file__).parent.glob("*.cu"))
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build (or cache hit) reported: seconds and nvcc's output
@@ -50,23 +51,38 @@ def _lib_path() -> Path:
 
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-            capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs, failed = [], []
+        try:
+            for src, proc in zip(SOURCES, procs):
+                stdout, stderr = proc.communicate(timeout=600)
+                logs.append(stdout + stderr)
+                if proc.returncode != 0:
+                    failed.append(f"{src.name} ({proc.returncode}):\n{stderr}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                               *objs], capture_output=True, text=True,
+                              timeout=600)
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(lib, out)
     build_info.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr, path=str(out))
+                      log="".join(logs), path=str(out))
 
 
 def load() -> ctypes.CDLL:
@@ -85,5 +101,8 @@ def load() -> ctypes.CDLL:
     lib.pgtt_tile_spmm.restype = i
     lib.pgtt_rem_scatter.argtypes = [p, p, p, p, p, p, i, p, i, i, p]
     lib.pgtt_rem_scatter.restype = i
+    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, p, p, i, p, i, i,
+                                     p]
+    lib.pgtt_hybrid_spmm.restype = i
     _LIB = lib
     return lib

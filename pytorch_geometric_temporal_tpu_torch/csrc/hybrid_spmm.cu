@@ -1,0 +1,740 @@
+// Fused hybrid block-sparse SpMM for Hopper (sm_90a), C ABI for ctypes.
+//
+// pgtt_hybrid_spmm computes one half of the BCSR aggregation operator in one
+// launch:  out (num_rows, F) f32 = tiles @ x + remainder, written once.  It
+// replaces both Pallas kernels of the JAX package's ops/bcsr.py:
+//   - the tile kernel _tile_kernel_call (:546, pallas_call :602), and
+//   - the remainder kernel _rem_scatter_call (:612, pallas_call :663) with
+//     its XLA row gather x[rem_cols] (:685-686),
+// which the port first carried over as two kernels (bcsr_kernels.cu, K1 and
+// K2; they stay there as the baseline, off the main path).
+//
+// Numerics are those of that pair: bf16 tiles take bf16 x, products are
+// exact in f32 and summed in f32; in the bf16 path the remainder values are
+// rounded to bf16 (the Pallas one-hot is cast to the activation dtype,
+// ops/bcsr.py:642).  For each output row the tile products come first, then
+// the row's remainder edges one by one in ascending column order.
+//
+// What bounds it on an H100: bytes.  At the DCRNN slice (N=50k, F=96, bf16
+// tiles) it moves ~68 MB (38 MB of tiles, 10 MB of x, 19 MB of f32 output)
+// for ~3.7 GFLOP, ~55 flop/byte, far under the ~295 flop/byte at which the
+// bf16 tensor cores would bind.  What the design does about it:
+//  - Persistent CTAs, one per SM (as many as fit), each walking work items
+//    (row block, feature tile) item = blockIdx.x, += gridDim.x.  No tail
+//    wave; the load pipeline runs on across item boundaries, so one row
+//    block's epilogue overlaps the next one's loads.
+//  - Warp specialisation and TMA: a producer thread keeps a ring of up to
+//    six ~33 KB stages (as many as shared memory holds beside the epilogue
+//    block: five at F=96) full with 2-D tensor-map copies
+//    (cp.async.bulk.tensor, 128-byte swizzle): per stage one 16 KB box of a
+//    tile (a 128-byte-wide K chunk of its 128 rows) and the boxes of the 64
+//    matching x rows (64 features each; features past F come in as zeros).
+//    A stage costs a handful of instructions; 16-byte cp.async, or one
+//    bulk copy per row, issued by producer warps were bound by the
+//    producers' instruction issue.  The producers arrive on the stage's
+//    "full" mbarrier with the bytes they expect (mbarrier.arrive.expect_tx)
+//    and the copies complete it; the consumers hand a stage back through
+//    an "empty" mbarrier.
+//  - Eight consumer warps (two warpgroups), warp w owning rows 16w..16w+15
+//    of the 128-row block: bf16 tiles multiply on the tensor cores with
+//    mma.sync m16n8k16 (f32 accumulate) fed by ldmatrix (x by
+//    ldmatrix.trans) from the ring, addressed through the same 128-byte
+//    swizzle, so ldmatrix is free of bank conflicts.  mma.sync rather than
+//    wgmma: the kernel is byte bound (3.7 GFLOP is ~6-12 us at mma.sync
+//    rates against a ~20 us byte bound), so the tensor-core rate is not
+//    what limits it.  The feature tile is F rounded up to 8 (no padding of
+//    F to 128), F > 128 takes several feature tiles.  f32 tiles use FMA on
+//    CUDA cores, which keeps f32 products exact (held to correctness only).
+//  - Remainder in the epilogue: the accumulator goes to a shared-memory
+//    block (128 x FT f32) and each warp adds the remainder edges of its own
+//    16 rows there (rem_row_ptr over the (row, col)-sorted edges), each lane
+//    on (row, 16-byte feature unit) pairs: no atomics, no second pass over
+//    the output, deterministic sums.  The x rows those edges gather travel
+//    through the same ring: after a row block's tile stages the producer
+//    warps fill remainder stages of up to 128 edges (one bulk copy per
+//    gathered x row over the whole stage, the values after it), with the
+//    indices of up to EDGE_BATCH edges loaded before the row block's
+//    tiles, so the gathers are in flight while the consumers still
+//    multiply.  (cp.async for these gathers measured slower.)  The block
+//    is then written once with coalesced 16-byte stores.
+//  - A ragged F (x rows not 16-byte aligned, which a tensor map cannot
+//    describe) has the producer warps store x element by element into the
+//    same swizzled layout, zero past F; nothing is copied to pad F.
+//
+// The entry point launches on the given stream, allocates nothing, does not
+// synchronise and returns a CUDA error code (0 on success).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int BLK = 128;          // tile edge (ops/bcsr.py BLOCK)
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
+constexpr int MAX_STAGES = 6;     // ring depth, where shared memory allows
+constexpr int CONSUMER_WARPS = 8; // warp w owns rows 16w .. 16w + 15
+// producer threads: thread 0 issues the tensor-map copies, all of them the
+// remainder's row copies (four warps measured faster than one or two)
+constexpr int NP = 4 * 32;
+constexpr int THREADS = CONSUMER_WARPS * 32 + NP;
+constexpr int UNIT = 16;          // bytes per vector access
+constexpr int SW = 128;           // bytes per swizzled row (TMA box width)
+// remainder edges whose indices a producer thread holds at once
+constexpr int EDGE_BATCH = 512;
+constexpr int EDGE_SLOTS = EDGE_BATCH / NP;
+
+constexpr int pow2_floor(int v) {
+  int p = 1;
+  while (2 * p <= v) p *= 2;
+  return p;
+}
+
+template <typename T, int NT>
+struct Cfg {
+  static constexpr int FT = NT * 8;                   // feature tile
+  static constexpr int VEC = UNIT / (int)sizeof(T);   // x elements per unit
+  static constexpr int KC = SW / (int)sizeof(T);      // K chunk: one 128 B row
+  static constexpr int CHUNKS = BLK / KC;             // stages per tile
+  static constexpr int NBOX = (FT * (int)sizeof(T) + SW - 1) / SW;  // x boxes
+  static constexpr int A_BYTES = BLK * SW;            // one tile box
+  static constexpr int B_BOX = KC * SW;               // one x box
+  static constexpr int B_BYTES = NBOX * B_BOX;
+  // a remainder stage: RE gathered x rows of RROW bytes over the tile and
+  // x boxes' space, then their RE values
+  static constexpr int RROW = (FT * (int)sizeof(T) + UNIT - 1) / UNIT * UNIT;
+  static constexpr int RE =
+      pow2_floor((A_BYTES + B_BYTES) / RROW < 128 ? (A_BYTES + B_BYTES) / RROW
+                                                  : 128);
+  static constexpr int V_BYTES = RE * 4;
+  static constexpr int STAGE_BYTES =
+      (A_BYTES + B_BYTES + V_BYTES + 1023) / 1024 * 1024;  // swizzle atoms
+  static constexpr int CS = FT + 8;                   // f32 stride of the epilogue block
+  static constexpr int C_BYTES = BLK * CS * 4;
+  static constexpr int FIXED = 1024 /* alignment */ + C_BYTES +
+                               2 * MAX_STAGES * 8 /* barriers */ +
+                               CONSUMER_WARPS * 17 * 4 /* row pointers */;
+  // as deep a ring as shared memory holds
+  static constexpr int STAGES =
+      (SMEM_MAX - FIXED) / STAGE_BYTES < MAX_STAGES
+          ? (SMEM_MAX - FIXED) / STAGE_BYTES
+          : MAX_STAGES;
+  static constexpr int SMEM = FIXED + STAGES * STAGE_BYTES;
+  static_assert(STAGES >= 2, "a ring of two stages at least");
+  static_assert(EDGE_BATCH % RE == 0, "a stage never straddles two batches");
+};
+
+// byte offset of (row, byte) in rows of 128 B under the 128-byte swizzle
+// (16-byte unit u of row r sits at unit u ^ (r % 8)); 1024-byte aligned base
+__device__ __forceinline__ uint32_t swz(int row, int byte) {
+  return row * SW + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of asynchronous copies in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\n"
+      "bra.uni LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// 2-D tensor-map copy of one box at (c0 inner, c1 outer) into shared memory
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr)
+      : "memory");
+}
+
+// d[0..4) += A (16x16, a0..a3) @ B (16x8, b0, b1)
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// remainder value in the activation dtype (bf16 path rounds, f32 keeps)
+__device__ __forceinline__ float rem_val(float v, const float*) { return v; }
+__device__ __forceinline__ float rem_val(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a[0..VEC) += v * (16 bytes of x)
+__device__ __forceinline__ void fma_unit(float (&a)[8], float v, uint4 q,
+                                         const __nv_bfloat16*) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<uint32_t*>(&h) = w[i];
+    const float2 p = __bfloat1622float2(h);
+    a[2 * i] = fmaf(v, p.x, a[2 * i]);
+    a[2 * i + 1] = fmaf(v, p.y, a[2 * i + 1]);
+  }
+}
+__device__ __forceinline__ void fma_unit(float (&a)[8], float v, uint4 q,
+                                         const float*) {
+  a[0] = fmaf(v, __uint_as_float(q.x), a[0]);
+  a[1] = fmaf(v, __uint_as_float(q.y), a[1]);
+  a[2] = fmaf(v, __uint_as_float(q.z), a[2]);
+  a[3] = fmaf(v, __uint_as_float(q.w), a[3]);
+}
+
+template <typename T, int NT>
+__device__ __forceinline__ void produce(
+    unsigned char* smem, uint32_t full0, uint32_t empty0,
+    const CUtensorMap* map_a, const CUtensorMap* map_x,
+    const int* __restrict__ tile_ptr, const int* __restrict__ block_cols,
+    const int* __restrict__ rem_row_ptr, const int* __restrict__ rem_cols,
+    const float* __restrict__ rem_vals, const T* __restrict__ x,
+    int num_row_blocks, int num_items, int F, int x_vec) {
+  using C = Cfg<T, NT>;
+  // raw bits of one element: zero bits are +0.0 in both dtypes
+  using Raw = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
+  const int pt = threadIdx.x - CONSUMER_WARPS * 32;  // producer thread
+  const uint32_t smem0 = smem_u32(smem);
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  // the next item's remainder edge range, loaded one item ahead
+  int next_p0 = 0, next_p1 = 0;
+  if (blockIdx.x < num_items) {
+    const int rb = blockIdx.x % num_row_blocks;
+    next_p0 = rem_row_ptr[rb * BLK];
+    next_p1 = rem_row_ptr[rb * BLK + BLK];
+  }
+  for (int item = blockIdx.x; item < num_items; item += gridDim.x) {
+    const int ft = item / num_row_blocks;
+    const int rb = item - ft * num_row_blocks;
+    const int f0 = ft * C::FT;
+    const int nf = min(C::FT, F - f0);
+    const uint32_t x_bytes = nf * sizeof(T);  // one x row of this tile
+    const int p0 = next_p0, p1 = next_p1;
+    if (item + gridDim.x < num_items) {
+      const int nrb = (item + gridDim.x) % num_row_blocks;
+      next_p0 = rem_row_ptr[nrb * BLK];
+      next_p1 = rem_row_ptr[nrb * BLK + BLK];
+    }
+    // a batch of EDGE_BATCH remainder edges (this thread's slots: edge
+    // batch0 + pt + NP q), loaded before the tiles so that the indices of
+    // the gathers are at hand when their stages come
+    int bcol[EDGE_SLOTS];
+    float bval[EDGE_SLOTS];
+    int batch0 = p0;
+    auto load_batch = [&](int b0) {
+      batch0 = b0;
+#pragma unroll
+      for (int q = 0; q < EDGE_SLOTS; ++q) {
+        const int e = b0 + pt + NP * q;
+        bcol[q] = e < p1 ? rem_cols[e] : 0;
+        bval[q] = e < p1 ? rem_val(rem_vals[e], x) : 0.f;
+      }
+    };
+    load_batch(p0);
+
+    const int t_end = tile_ptr[rb + 1];
+    for (int t = tile_ptr[rb]; t < t_end; ++t) {
+      const int xrow0 = block_cols[t] * BLK;
+      for (int kc = 0; kc < C::CHUNKS; ++kc) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t a_s = smem0 + stage * C::STAGE_BYTES;
+        const uint32_t b_s = a_s + C::A_BYTES;
+        const uint32_t full = full0 + 8 * stage;
+        if (!x_vec) {  // x rows element by element, swizzled, zero past F
+          unsigned char* bs = smem + stage * C::STAGE_BYTES + C::A_BYTES;
+          const Raw* xr = reinterpret_cast<const Raw*>(
+              x + (size_t)(xrow0 + kc * C::KC) * F + f0);
+          for (int i = pt; i < C::KC * C::NBOX * C::KC; i += NP) {
+            const int k = i / (C::NBOX * C::KC), j = i - k * (C::NBOX * C::KC);
+            *reinterpret_cast<Raw*>(
+                bs + (j / C::KC) * C::B_BOX +
+                swz(k, (j % C::KC) * (int)sizeof(T))) =
+                j < nf ? xr[(size_t)k * F + j] : Raw(0);
+          }
+        }
+        if (pt == 0) {
+          mbar_arrive_expect_tx(full, C::A_BYTES + (x_vec ? C::B_BYTES : 0));
+          tma_2d(a_s, map_a, kc * C::KC, t * BLK, full);
+          if (x_vec)
+#pragma unroll
+            for (int b = 0; b < C::NBOX; ++b)
+              tma_2d(b_s + b * C::B_BOX, map_x, f0 + b * C::KC,
+                     xrow0 + kc * C::KC, full);
+        } else {
+          mbar_arrive(full);
+        }
+        advance();
+      }
+    }
+
+    // remainder stages: RE edges each, the gathered x rows from the stage's
+    // start (edge i at i * RROW, unswizzled) and the values after the boxes
+    for (int e0 = p0; e0 < p1; e0 += C::RE) {
+      if (e0 >= batch0 + EDGE_BATCH) load_batch(e0);
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      const uint32_t r_s = smem0 + stage * C::STAGE_BYTES;
+      const uint32_t full = full0 + 8 * stage;
+      unsigned char* rs = smem + stage * C::STAGE_BYTES;
+      float* vs = reinterpret_cast<float*>(rs + C::A_BYTES + C::B_BYTES);
+      const int e1 = min(e0 + C::RE, p1);
+      uint32_t bytes = 0;
+#pragma unroll
+      for (int q = 0; q < EDGE_SLOTS; ++q) {
+        const int e = batch0 + pt + NP * q;
+        if (e < e0 || e >= e1) continue;
+        vs[e - e0] = bval[q];
+        if (x_vec) {
+          bytes += x_bytes;
+        } else {
+          Raw* row = reinterpret_cast<Raw*>(rs + (e - e0) * C::RROW);
+          const Raw* xr = reinterpret_cast<const Raw*>(
+              x + (size_t)bcol[q] * F + f0);
+          for (int j = 0; j < C::FT; ++j) row[j] = j < nf ? xr[j] : Raw(0);
+        }
+      }
+      mbar_arrive_expect_tx(full, bytes);
+      if (x_vec) {
+#pragma unroll
+        for (int q = 0; q < EDGE_SLOTS; ++q) {
+          const int e = batch0 + pt + NP * q;
+          if (e < e0 || e >= e1) continue;
+          bulk_copy(r_s + (e - e0) * C::RROW, x + (size_t)bcol[q] * F + f0,
+                    x_bytes, full);
+        }
+      }
+      advance();
+    }
+  }
+}
+
+template <typename T, int NT>
+__device__ __forceinline__ void consume(
+    unsigned char* smem, float* cblk, int* wptr, uint32_t full0,
+    uint32_t empty0, const int* __restrict__ tile_ptr,
+    const int* __restrict__ rem_row_ptr, float* __restrict__ out,
+    int num_row_blocks, int num_items, int F, int out_vec) {
+  using C = Cfg<T, NT>;
+  constexpr bool MMA = sizeof(T) == 2;
+  constexpr int NACC = MMA ? NT * 4 : C::FT / 2;
+  constexpr int NCH = C::FT / C::VEC;  // 16-byte x units per feature tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  int* wp = wptr + warp * 17;  // this warp's 17 row pointers
+  const uint32_t smem0 = smem_u32(smem);
+  // ldmatrix rows of this lane (bf16 path): A row r0 + lrow, x row lrow
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int hi = lane >> 4;  // second 8-column half of the x4 load
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  for (int item = blockIdx.x; item < num_items; item += gridDim.x) {
+    const int ft = item / num_row_blocks;
+    const int rb = item - ft * num_row_blocks;
+    const int f0 = ft * C::FT;
+    const int row_base = rb * BLK + r0;
+    // row pointers, loaded now and used after the tiles
+    const int my_ptr = lane <= 16 ? rem_row_ptr[row_base + lane] : 0;
+    const int p0 = rem_row_ptr[rb * BLK], p1 = rem_row_ptr[rb * BLK + BLK];
+    float acc[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    const int n_stages = (tile_ptr[rb + 1] - tile_ptr[rb]) * C::CHUNKS;
+    for (int c = 0; c < n_stages; ++c) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t a_s = smem0 + stage * C::STAGE_BYTES;
+      const uint32_t b_s = a_s + C::A_BYTES;
+      if constexpr (MMA) {
+#pragma unroll
+        for (int kk = 0; kk < C::KC; kk += 16) {
+          uint32_t a0, a1, a2, a3;
+          ldsm_x4(a_s + swz(r0 + lrow, (kk + 8 * hi) * 2), a0, a1, a2, a3);
+          const uint32_t b_k = b_s + (kk + lrow) * SW;
+#pragma unroll
+          for (int j = 0; j + 1 < NT; j += 2) {
+            const int n = 8 * (j + hi);  // this lane's 8 features
+            uint32_t b0, b1, b2, b3;
+            ldsm_x4_t(b_k + (n / 64) * C::B_BOX +
+                          (((((n % 64) >> 3) ^ lrow) & 7) << 4),
+                      b0, b1, b2, b3);
+            mma_bf16(&acc[4 * j], a0, a1, a2, a3, b0, b1);
+            mma_bf16(&acc[4 * j + 4], a0, a1, a2, a3, b2, b3);
+          }
+          if constexpr (NT & 1) {
+            const int n = 8 * (NT - 1);
+            uint32_t b0, b1;
+            ldsm_x2_t(b_k + (n / 64) * C::B_BOX +
+                          (((((n % 64) >> 3) ^ lrow) & 7) << 4),
+                      b0, b1);
+            mma_bf16(&acc[4 * (NT - 1)], a0, a1, a2, a3, b0, b1);
+          }
+        }
+      } else {
+        // lane: row r0 + (lane & 15), features h + 2j
+        const unsigned char* as = smem + stage * C::STAGE_BYTES;
+        const unsigned char* bs = as + C::A_BYTES;
+        const int r = r0 + (lane & 15), h = lane >> 4;
+#pragma unroll 4
+        for (int k = 0; k < C::KC; ++k) {
+          const float a = *reinterpret_cast<const float*>(as + swz(r, 4 * k));
+#pragma unroll
+          for (int j = 0; j < NACC; ++j) {
+            const int n = h + 2 * j;
+            acc[j] = fmaf(a,
+                          *reinterpret_cast<const float*>(
+                              bs + (n / C::KC) * C::B_BOX +
+                              swz(k, 4 * (n % C::KC))),
+                          acc[j]);
+          }
+        }
+      }
+      advance();
+    }
+
+    // epilogue: accumulator -> shared block (this warp's 16 rows)
+    if constexpr (MMA) {
+      const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        *reinterpret_cast<float2*>(&cblk[(r0 + g) * C::CS + 8 * j + 2 * t4]) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(
+            &cblk[(r0 + g + 8) * C::CS + 8 * j + 2 * t4]) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    } else {
+      float* crow = cblk + (r0 + (lane & 15)) * C::CS + (lane >> 4);
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) crow[2 * j] = acc[j];
+    }
+    if (lane <= 16) wp[lane] = my_ptr;
+    __syncwarp();
+    const int nf = min(C::FT, F - f0);
+
+    // remainder stages: each lane adds, for its (row, 16-byte unit) pairs,
+    // the row's edges that lie in the stage, in edge order
+    for (int e0 = p0; e0 < p1; e0 += C::RE) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const int e1 = min(e0 + C::RE, p1);
+      const unsigned char* xs = smem + stage * C::STAGE_BYTES;
+      const float* vs =
+          reinterpret_cast<const float*>(xs + C::A_BYTES + C::B_BYTES);
+      for (int s = lane; s < 16 * NCH; s += 32) {
+        const int lr = s / NCH, fc = (s - lr * NCH) * C::VEC;
+        const int lo = max(wp[lr], e0), hi_e = min(wp[lr + 1], e1);
+        if (fc >= nf || lo >= hi_e) continue;
+        float* cp = cblk + (r0 + lr) * C::CS + fc;
+        float a[8];
+#pragma unroll
+        for (int q = 0; q < C::VEC; q += 4)
+          *reinterpret_cast<float4*>(&a[q]) =
+              *reinterpret_cast<const float4*>(cp + q);
+        for (int e = lo; e < hi_e; ++e)
+          fma_unit(a, vs[e - e0],
+                   *reinterpret_cast<const uint4*>(
+                       xs + (e - e0) * C::RROW + fc * sizeof(T)),
+                   static_cast<const T*>(nullptr));
+#pragma unroll
+        for (int q = 0; q < C::VEC; q += 4)
+          *reinterpret_cast<float4*>(cp + q) =
+              *reinterpret_cast<const float4*>(&a[q]);
+      }
+      advance();
+    }
+
+    // one write of the block's 16 rows
+    float* orow = out + (size_t)row_base * F + f0;
+    if (out_vec) {  // F % 4 == 0: rows and f0 are 16-byte aligned
+      constexpr int U4 = C::FT / 4;
+      for (int s = lane; s < 16 * U4; s += 32) {
+        const int lr = s / U4, u = s - lr * U4;
+        if (u * 4 < nf)
+          *reinterpret_cast<float4*>(orow + (size_t)lr * F + u * 4) =
+              *reinterpret_cast<const float4*>(
+                  &cblk[(r0 + lr) * C::CS + u * 4]);
+      }
+    } else {
+      for (int s = lane; s < 16 * C::FT; s += 32) {
+        const int lr = s / C::FT, j = s - lr * C::FT;
+        if (j < nf) orow[(size_t)lr * F + j] = cblk[(r0 + lr) * C::CS + j];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+hybrid_spmm_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_x,
+                   const int* __restrict__ tile_ptr,
+                   const int* __restrict__ block_cols,
+                   const int* __restrict__ rem_row_ptr,
+                   const int* __restrict__ rem_cols,
+                   const float* __restrict__ rem_vals,
+                   const T* __restrict__ x, float* __restrict__ out,
+                   int num_row_blocks, int num_items, int F, int x_vec,
+                   int out_vec) {
+  using C = Cfg<T, NT>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* cblk = reinterpret_cast<float*>(smem + C::STAGES * C::STAGE_BYTES);
+  unsigned char* bars = smem + C::STAGES * C::STAGE_BYTES + C::C_BYTES;
+  int* wptr = reinterpret_cast<int*>(bars + 2 * C::STAGES * 8);
+  const uint32_t full0 = smem_u32(bars);
+  const uint32_t empty0 = full0 + C::STAGES * 8;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, NP);  // one arrival per producer thread
+      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if ((threadIdx.x >> 5) >= CONSUMER_WARPS)
+    produce<T, NT>(smem, full0, empty0, &map_a, &map_x, tile_ptr, block_cols,
+                   rem_row_ptr, rem_cols, rem_vals, x, num_row_blocks,
+                   num_items, F, x_vec);
+  else
+    consume<T, NT>(smem, cblk, wptr, full0, empty0, tile_ptr, rem_row_ptr,
+                   out, num_row_blocks, num_items, F, out_vec);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) matrix read in (box_rows, 128-byte) boxes with
+// the 128-byte swizzle; elements outside the matrix arrive as zeros
+template <typename T>
+bool encode(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+            uint32_t box_rows) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(SW / sizeof(T)), box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map,
+            sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int NT>
+int launch(const void* blocks, int num_tiles, const int* tile_ptr,
+           const int* block_cols, const int* rem_row_ptr, const int* rem_cols,
+           const float* rem_vals, const void* x, int num_cols, float* out,
+           int num_row_blocks, int F, cudaStream_t s) {
+  using C = Cfg<T, NT>;
+  auto kern = hybrid_spmm_kernel<T, NT>;
+  static int cached_dev = -1, max_ctas = 0;  // CTAs resident at once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != cached_dev) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
+                                                        C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    max_ctas = sms * per_sm;
+    cached_dev = dev;
+  }
+  const int nft = (F + C::FT - 1) / C::FT;
+  const int items = num_row_blocks * nft;
+  // x rows as tensor-map boxes and bulk copies need 16-byte alignment
+  const int x_vec = (F % C::VEC == 0) &&
+                    (reinterpret_cast<uintptr_t>(x) % UNIT == 0);
+  const int out_vec = (F % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(out) % UNIT == 0);
+  CUtensorMap map_a{}, map_x{};
+  if (!encode<T>(&map_a, blocks, (uint64_t)num_tiles * BLK, BLK, BLK) ||
+      (x_vec && !encode<T>(&map_x, x, num_cols, F, C::KC)))
+    return (int)cudaErrorInvalidValue;
+  kern<<<items < max_ctas ? items : max_ctas, THREADS, C::SMEM, s>>>(
+      map_a, map_x, tile_ptr, block_cols, rem_row_ptr, rem_cols, rem_vals,
+      static_cast<const T*>(x), out, num_row_blocks, items, F, x_vec, out_vec);
+  return (int)cudaGetLastError();
+}
+
+// smallest instantiated n-tile count that covers `width` features
+int pick_nt(int width) {
+  static const int nts[] = {1, 2, 4, 5, 6, 8, 12, 16};
+  for (int nt : nts)
+    if (nt * 8 >= width) return nt;
+  return 16;
+}
+
+template <typename T>
+int dispatch(int nt, const void* blocks, int num_tiles, const int* tile_ptr,
+             const int* block_cols, const int* rem_row_ptr,
+             const int* rem_cols, const float* rem_vals, const void* x,
+             int num_cols, float* out, int num_row_blocks, int F,
+             cudaStream_t s) {
+#define PGTT_NT(N)                                                         \
+  case N:                                                                  \
+    return launch<T, N>(blocks, num_tiles, tile_ptr, block_cols,           \
+                        rem_row_ptr, rem_cols, rem_vals, x, num_cols, out, \
+                        num_row_blocks, F, s);
+  switch (nt) {
+    PGTT_NT(1)
+    PGTT_NT(2)
+    PGTT_NT(4)
+    PGTT_NT(5)
+    PGTT_NT(6)
+    PGTT_NT(8)
+    PGTT_NT(12)
+    PGTT_NT(16)
+  }
+#undef PGTT_NT
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// blocks (num_tiles >= nnzb, 128, 128) f32 or bf16 (is_bf16); tile_ptr
+// (num_row_blocks + 1) int32 row pointers over the row-sorted tiles;
+// block_cols (nnzb) int32; rem_row_ptr (num_row_blocks * 128 + 1) int32 row
+// pointers over the remainder edges sorted by (row, col), whose columns and
+// f32 values are rem_cols, rem_vals; x (num_cols, F) in the tiles' dtype;
+// out (num_row_blocks * 128, F) f32, fully written.
+int pgtt_hybrid_spmm(const void* blocks, int num_tiles, int is_bf16,
+                     const int* tile_ptr, const int* block_cols,
+                     const int* rem_row_ptr, const int* rem_cols,
+                     const float* rem_vals, const void* x, int num_cols,
+                     float* out, int num_row_blocks, int F, void* stream) {
+  if (num_row_blocks == 0 || F == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nft = (F + 127) / 128;
+  const int nt = pick_nt((F + nft - 1) / nft);
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(nt, blocks, num_tiles, tile_ptr,
+                                   block_cols, rem_row_ptr, rem_cols,
+                                   rem_vals, x, num_cols, out,
+                                   num_row_blocks, F, s);
+  return dispatch<float>(nt, blocks, num_tiles, tile_ptr, block_cols,
+                         rem_row_ptr, rem_cols, rem_vals, x, num_cols, out,
+                         num_row_blocks, F, s);
+}
+
+}  // extern "C"

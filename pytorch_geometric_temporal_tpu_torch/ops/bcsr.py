@@ -9,26 +9,34 @@ its helpers) also produces the JAX package's arrays (the remainder padded
 to ``rem_k``-edge chunks there), so the two packages can be compared array
 by array; the kernels read the remainder without that padding.
 
-Two kernels apply one half of the operator (``csrc/bcsr_kernels.cu``):
+One fused kernel applies one half of the operator
+(``csrc/hybrid_spmm.cu``, replaces both ``_tile_kernel_call`` and
+``_rem_scatter_call`` with its ``x[rem_cols]`` gather):
 
-- **K1, tile SpMM** (:func:`tile_spmm`, replaces ``_tile_kernel_call``):
-  ``out[rb] = Σ_t blocks[t] @ x[block_cols[t]]`` over the row-sorted tiles
-  of each row block, f32 accumulation and output; rows without tiles come
-  out zero.
-- **K2, remainder scatter** (:func:`rem_scatter_`, replaces
-  ``_rem_scatter_call`` and its ``x[rem_cols]`` gather):
+- **hybrid SpMM** (:func:`hybrid_spmm`): ``out = tiles @ x + remainder``,
+  the tile products of each row block and then each row's remainder edges
+  in ascending column order, summed in f32 and written once; rows without
+  tiles or edges come out zero.
+
+The port's first two kernels (``csrc/bcsr_kernels.cu``) stay beside it as
+its baseline, off the main path:
+
+- **K1, tile SpMM** (:func:`tile_spmm`): ``out[rb] = Σ_t blocks[t] @
+  x[block_cols[t]]`` over the row-sorted tiles of each row block.
+- **K2, remainder scatter** (:func:`rem_scatter_`):
   ``out[rb·128 + lrow] += val · x[col]`` over each row block's remainder
   edges, in place on K1's output.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch;
 for a CPU tensor it runs the plain PyTorch version beside it
-(:func:`tile_spmm_plain`, :func:`rem_scatter_plain`), which the tests and
-``chip_smoke.py`` hold the kernels against.  In the bf16 path x is cast to
-bf16 and the remainder values are rounded to bf16, as in the Pallas kernels.
+(:func:`hybrid_spmm_plain`, :func:`tile_spmm_plain`,
+:func:`rem_scatter_plain`), which the tests and ``chip_smoke.py`` hold the
+kernels against.  In the bf16 path x is cast to bf16 and the remainder
+values are rounded to bf16, as in the Pallas kernels.
 
 Gradients (:class:`_BCSRSpmm`): ``d/dX spmm(M, X) = spmm(Mᵀ, ḡ)`` runs the
-same two kernels on the transposed half built with the operator.  Block
-values are constants.
+same kernel on the transposed half built with the operator.  Block values
+are constants.
 """
 
 from __future__ import annotations
@@ -67,7 +75,10 @@ class _BCSRHalf:
     without padding): ``rem_cols`` gather sources, ``rem_vals`` edge values
     and ``rem_lrows`` rows within the row block, all (num_rem,);
     ``rem_rbs`` (R,) the distinct row blocks that own remainder edges and
-    ``rem_ptr`` (R+1,) their edge pointers, which K2 walks.
+    ``rem_ptr`` (R+1,) their edge pointers, which K2 walks.  The same edges
+    sorted by (row, col) — a stable re-sort, so each row keeps its edge
+    order — are what the fused kernel walks: ``rem_row_cols``,
+    ``rem_row_vals`` (num_rem,) and ``rem_row_ptr`` (num_rows + 1,).
 
     Index tensors are int32, the kernels' type.  ``_host`` keeps the numpy
     arrays of the JAX package's ``_host`` dict (``blocks`` before the cast
@@ -83,6 +94,9 @@ class _BCSRHalf:
     rem_lrows: torch.Tensor
     rem_rbs: torch.Tensor
     rem_ptr: torch.Tensor
+    rem_row_cols: torch.Tensor
+    rem_row_vals: torch.Tensor
+    rem_row_ptr: torch.Tensor
     num_rows: int
     num_cols: int
     nnzb: int
@@ -373,6 +387,13 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
                    padded)),
     }
     rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows = compact
+    # the remainder by (row, col): a stable re-sort of the (row block, col)
+    # order, for the fused kernel's per-row walk
+    rem_rows = np.repeat(rem_rbs.astype(np.int64) * block,
+                         np.diff(rem_ptr)) + rem_lrows
+    by_row = np.argsort(rem_rows, kind="stable")
+    rem_row_ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(rem_rows, minlength=n_pad))])
 
     def put(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
@@ -387,6 +408,9 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         rem_lrows=put(rem_lrows),
         rem_rbs=put(rem_rbs),
         rem_ptr=put(rem_ptr),
+        rem_row_cols=put(rem_cols[by_row]),
+        rem_row_vals=put(rem_vals[by_row], torch.float32),
+        rem_row_ptr=put(rem_row_ptr),
         num_rows=n_pad,
         num_cols=n_pad,
         nnzb=int(nnzb),
@@ -436,7 +460,8 @@ def hybrid_hbm_bytes(half: _BCSRHalf, f: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Kernels: K1 tile SpMM, K2 remainder scatter (csrc/bcsr_kernels.cu)
+# Kernels: the fused hybrid SpMM (csrc/hybrid_spmm.cu, the main path) and
+# its baseline pair K1 tile SpMM, K2 remainder scatter (csrc/bcsr_kernels.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -457,6 +482,21 @@ def _require_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
+
+
+def _launch(wrapper, kernel: str, x: torch.Tensor, *args) -> None:
+    """Call ``kernel`` of the CUDA library with ``args`` and x's current
+    stream, on x's device; raise if the launch failed, else count it on
+    ``wrapper``."""
+    from .. import csrc
+
+    fn = getattr(csrc.load(), kernel)
+    with torch.cuda.device(x.device):
+        rc = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed, CUDA "
+                           f"error {rc}")
+    wrapper.launches += 1
 
 
 def tile_spmm_plain(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
@@ -482,24 +522,14 @@ def tile_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return tile_spmm_plain(half, x)
     _require_cuda(x, "tile_spmm")
-    from .. import csrc
-
-    lib = csrc.load()
     f = x.shape[1]
     out = torch.empty((half.num_rows, f), dtype=torch.float32,
                       device=x.device)
-    if f == 0:
-        return out
-    with torch.cuda.device(x.device):
-        rc = lib.pgtt_tile_spmm(
-            half.blocks.data_ptr(), int(_is_bf16(half.blocks.dtype)),
-            half.tile_ptr.data_ptr(), half.block_cols.data_ptr(),
-            x.data_ptr(), out.data_ptr(), half.num_rows // BLOCK, f,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc:
-        raise RuntimeError(f"tile_spmm: kernel launch failed, CUDA error {rc}")
-    tile_spmm.launches += 1
+    if f:
+        _launch(tile_spmm, "pgtt_tile_spmm", x, half.blocks.data_ptr(),
+                int(_is_bf16(half.blocks.dtype)), half.tile_ptr.data_ptr(),
+                half.block_cols.data_ptr(), x.data_ptr(), out.data_ptr(),
+                half.num_rows // BLOCK, f)
     return out
 
 
@@ -534,40 +564,59 @@ def rem_scatter_(half: _BCSRHalf, x: torch.Tensor,
         return out
     if not out.is_contiguous():
         raise ValueError("rem_scatter_: out must be contiguous")
-    from .. import csrc
-
-    lib = csrc.load()
-    with torch.cuda.device(x.device):
-        rc = lib.pgtt_rem_scatter(
-            half.rem_rbs.data_ptr(), half.rem_ptr.data_ptr(),
-            half.rem_cols.data_ptr(), half.rem_vals.data_ptr(),
-            half.rem_lrows.data_ptr(), x.data_ptr(), int(_is_bf16(x.dtype)), out.data_ptr(),
-            int(half.rem_rbs.shape[0]), x.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc:
-        raise RuntimeError(
-            f"rem_scatter_: kernel launch failed, CUDA error {rc}")
-    rem_scatter_.launches += 1
+    _launch(rem_scatter_, "pgtt_rem_scatter", x, half.rem_rbs.data_ptr(),
+            half.rem_ptr.data_ptr(), half.rem_cols.data_ptr(),
+            half.rem_vals.data_ptr(), half.rem_lrows.data_ptr(),
+            x.data_ptr(), int(_is_bf16(x.dtype)), out.data_ptr(),
+            int(half.rem_rbs.shape[0]), x.shape[1])
     return out
 
 
 rem_scatter_.launches = 0
 
 
+def hybrid_spmm_plain(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch fused kernel: :func:`tile_spmm_plain`, then
+    :func:`rem_scatter_plain` on its output."""
+    return rem_scatter_plain(half, x, tile_spmm_plain(half, x))
+
+
+def hybrid_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
+    """Fused kernel: out (num_rows, F) f32 = tiles @ x + remainder.
+
+    ``x`` is (num_cols, F) in the tiles' dtype.  A CPU tensor takes
+    :func:`hybrid_spmm_plain`; a CUDA tensor launches the kernel."""
+    _check_x(half, x)
+    if x.device.type == "cpu":
+        return hybrid_spmm_plain(half, x)
+    _require_cuda(x, "hybrid_spmm")
+    f = x.shape[1]
+    out = torch.empty((half.num_rows, f), dtype=torch.float32,
+                      device=x.device)
+    if f:
+        _launch(hybrid_spmm, "pgtt_hybrid_spmm", x, half.blocks.data_ptr(),
+                half.blocks.shape[0], int(_is_bf16(half.blocks.dtype)),
+                half.tile_ptr.data_ptr(), half.block_cols.data_ptr(),
+                half.rem_row_ptr.data_ptr(), half.rem_row_cols.data_ptr(),
+                half.rem_row_vals.data_ptr(), x.data_ptr(), half.num_cols,
+                out.data_ptr(), half.num_rows // BLOCK, f)
+    return out
+
+
+hybrid_spmm.launches = 0
+
+
 def reset_launch_counts() -> None:
+    hybrid_spmm.launches = 0
     tile_spmm.launches = 0
     rem_scatter_.launches = 0
 
 
 def bcsr_matmul(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
-    """out (num_rows, F) f32 = tiles @ x + remainder; x (num_cols, F) is
-    cast to the tiles' dtype first (bf16 tiles take bf16 x)."""
-    x = x.to(half.blocks.dtype).contiguous()
-    out = tile_spmm(half, x)
-    if half.num_rem:
-        rem_scatter_(half, x, out)
-    return out
+    """out (num_rows, F) f32 = tiles @ x + remainder, one fused kernel
+    launch; x (num_cols, F) is cast to the tiles' dtype first (bf16 tiles
+    take bf16 x)."""
+    return hybrid_spmm(half, x.to(half.blocks.dtype).contiguous())
 
 
 class _BCSRSpmm(torch.autograd.Function):
@@ -589,7 +638,7 @@ class _BCSRSpmm(torch.autograd.Function):
 def bcsr_spmm(mat: BCSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Aggregate (..., N, F) features through the block-sparse operator.
 
-    Leading dims fold into the feature axis (one kernel pair per call);
+    Leading dims fold into the feature axis (one kernel launch per call);
     nodes are padded to the tile multiple and permuted when the operator
     was reordered.  Returns f32, like the kernels."""
     n = mat.num_nodes

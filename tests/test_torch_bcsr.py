@@ -1,5 +1,6 @@
-"""Port parity: the BCSR construction, the plain versions of both kernels
-and the autograd wrapper against the JAX package (``ops/bcsr.py``).
+"""Port parity: the BCSR construction, the plain versions of the kernels
+(the fused hybrid SpMM and its baseline pair K1/K2) and the autograd
+wrapper against the JAX package (``ops/bcsr.py``).
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: constructed arrays must be EQUAL; the kernels' plain versions sum
@@ -85,6 +86,37 @@ def assert_half_equal(jh, th, bf16):
     np.testing.assert_array_equal(th.rem_rbs.numpy(), rbs)
     np.testing.assert_array_equal(th.rem_ptr.numpy(),
                                   np.concatenate([[0], np.cumsum(per)]))
+    assert_row_sorted_remainder(th, rows, jhost["rem_cols"][real],
+                                vals[real])
+
+
+def assert_row_sorted_remainder(th, rows, cols, vals):
+    """The fused kernel's (row, col)-sorted remainder with its row pointer
+    holds exactly the edges (rows, cols, vals) of the JAX package's padded
+    remainder with the padding removed, each row in the same edge order."""
+    ptr = th.rem_row_ptr.numpy()
+    assert ptr.shape == (th.num_rows + 1,) and ptr[0] == 0
+    assert ptr[-1] == th.num_rem and np.all(np.diff(ptr) >= 0)
+    got_rows = np.repeat(np.arange(th.num_rows), np.diff(ptr))
+    got_cols, got_vals = th.rem_row_cols.numpy(), th.rem_row_vals.numpy()
+    order = np.argsort(rows, kind="stable")
+    np.testing.assert_array_equal(got_rows, rows[order])
+    np.testing.assert_array_equal(got_cols, cols[order])
+    np.testing.assert_array_equal(got_vals, vals[order])
+    # ascending columns within each row (a repeated edge keeps its place)
+    same_row = got_rows[1:] == got_rows[:-1]
+    assert np.all(got_cols[1:][same_row] >= got_cols[:-1][same_row])
+    # the same edges as the compact arrays K2 walks, with the same rows
+    want_rows = th.rem_rows.numpy()
+    key = np.lexsort((vals, cols, rows))
+    got = np.lexsort((got_vals, got_cols, got_rows))
+    compact = np.lexsort((th.rem_vals.numpy(), th.rem_cols.numpy(),
+                          want_rows))
+    for a, b, c in ((rows, got_rows, want_rows),
+                    (cols, got_cols, th.rem_cols.numpy()),
+                    (vals, got_vals, th.rem_vals.numpy())):
+        np.testing.assert_array_equal(b[got], a[key])
+        np.testing.assert_array_equal(c[compact], a[key])
 
 
 @pytest.mark.parametrize("n,e,mbe,pack,bf16", [
@@ -117,6 +149,22 @@ def test_from_graph_matches_jax(reorder, mbe):
         np.testing.assert_array_equal(tm.iperm.numpy(), np.asarray(jm.iperm))
     assert_half_equal(jm.fwd, tm.fwd, False)
     assert_half_equal(jm.bwd, tm.bwd, False)
+
+
+@pytest.mark.parametrize("case", ["hybrid", "all-remainder", "reordered"])
+def test_row_sorted_remainder_matches_jax(case):
+    n = 1100
+    ei, w = banded(12, n, 14000, scramble=case == "reordered")
+    jg, tg = both_graphs(ei, w, n)
+    kw = {"hybrid": dict(min_block_edges=32),
+          "all-remainder": dict(min_block_edges=10**6),
+          "reordered": dict(min_block_edges=32, reorder="rcm")}[case]
+    jm = jb.BCSRMatrix.from_graph(jg, **kw)
+    tm = tb.BCSRMatrix.from_graph(tg, **kw)
+    assert (tm.perm is not None) == (case == "reordered")
+    for jh, th in ((jm.fwd, tm.fwd), (jm.bwd, tm.bwd)):
+        assert th.num_rem > 0 and (th.nnzb == 0) == (case == "all-remainder")
+        assert_half_equal(jh, th, False)
 
 
 def test_tuners_match_jax():
@@ -214,6 +262,53 @@ def test_remainder_values_round_to_bf16():
     out = tb.bcsr_matmul(tm.fwd, x)
     assert float(out[200, 0]) == float(torch.tensor(0.1234567).to(
         torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("side", ["fwd", "bwd"])
+def test_hybrid_plain_matches_pallas_ragged_f(bf16, side):
+    """The fused kernel's plain version against the Pallas pair at a ragged
+    F (36: not a multiple of 8), both halves, both tile dtypes."""
+    n = 800
+    ei, w = banded(13, n, 10000, frac_local=0.9)
+    jg, tg = both_graphs(ei, w, n)
+    jm = jb.BCSRMatrix.from_graph(jg, dtype=j_dtype(bf16), min_block_edges=32)
+    tm = tb.BCSRMatrix.from_graph(tg, dtype=t_dtype(bf16), min_block_edges=32)
+    jh, th = getattr(jm, side), getattr(tm, side)
+    assert th.nnzb > 0 and th.num_rem > 0
+    x = np.random.default_rng(14).normal(
+        size=(th.num_cols, 36)).astype(np.float32)
+    want = np.asarray(jb._bcsr_matmul_pallas(jh, jnp.asarray(x),
+                                             interpret=True))
+    got = tb.hybrid_spmm_plain(th, torch.from_numpy(x).to(th.blocks.dtype))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=1e-5 * max(1.0, np.abs(want).max()),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("f", [8, 36])
+def test_hybrid_cpu_wrapper_takes_plain_and_counts_nothing(bf16, f):
+    n = 600
+    ei, w = banded(15, n, 6000)
+    tg = TGraph.from_edge_index(ei, w, num_nodes=n, device="cpu")
+    tm = tb.BCSRMatrix.from_graph(tg, dtype=t_dtype(bf16))
+    assert tm.fwd.num_rem > 0
+    tb.reset_launch_counts()
+    x = torch.randn(tm.fwd.num_cols, f).to(tm.fwd.blocks.dtype)
+    out = tb.hybrid_spmm(tm.fwd, x)
+    torch.testing.assert_close(out, tb.hybrid_spmm_plain(tm.fwd, x),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, tb.bcsr_matmul(tm.fwd, x), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(
+        out, tb.rem_scatter_plain(tm.fwd, x, tb.tile_spmm_plain(tm.fwd, x)),
+        rtol=0, atol=0)
+    assert (tb.hybrid_spmm.launches, tb.tile_spmm.launches,
+            tb.rem_scatter_.launches) == (0, 0, 0)
+    with pytest.raises(TypeError):
+        tb.hybrid_spmm(tm.fwd, x.double())
 
 
 def test_cpu_wrapper_takes_plain_and_counts_nothing():

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions: the
+fused hybrid SpMM (the main path) and its baseline pair K1/K2.
 
 Marked ``cuda``: each test skips without an NVIDIA card (decided inside
 the fixture, never at import).  Run on the card with
@@ -54,6 +55,52 @@ def test_kernels_match_plain(cuda, dtype, f):
                                    atol=1e-4 * float(ref.abs().max()))
         assert (bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches) == (
             before[0] + 1, before[1] + 1)
+
+
+def operator_shape(name):
+    """(edge_index, weights, n, min_block_edges) of the four operator
+    shapes: tiles and a remainder, tiles only, remainder only, and a graph
+    whose row blocks 3 and 4 (nodes 384..639) receive no edge."""
+    n = 1000
+    ei, w = banded(n, 20000, seed=4)
+    if name == "empty-rows":
+        keep = ~((ei[1] >= 384) & (ei[1] < 640))
+        ei, w = ei[:, keep], w[keep]
+    mbe = {"hybrid": 32, "all-tiles": 0, "all-remainder": 10**6,
+           "empty-rows": 32}[name]
+    return ei, w, n, mbe
+
+
+@pytest.mark.parametrize("shape", ["hybrid", "all-tiles", "all-remainder",
+                                   "empty-rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [8, 36, 96, 200])
+def test_fused_kernel_matches_plain(cuda, shape, dtype, f):
+    ei, w, n, mbe = operator_shape(shape)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    mat = bcsr.BCSRMatrix.from_graph(g, dtype=dtype, min_block_edges=mbe)
+    for half in (mat.fwd, mat.bwd):
+        x = torch.randn(half.num_cols, f, device=cuda).to(dtype)
+        before = bcsr.hybrid_spmm.launches
+        out = bcsr.hybrid_spmm(half, x)
+        ref = bcsr.hybrid_spmm_plain(half, x)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * max(1.0, float(ref.abs().max())))
+        assert bcsr.hybrid_spmm.launches == before + 1
+
+
+def test_one_fused_launch_per_bcsr_matmul(cuda):
+    ei, w, n, mbe = operator_shape("hybrid")
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    mat = bcsr.BCSRMatrix.from_graph(g, dtype=torch.bfloat16,
+                                     min_block_edges=mbe)
+    x = torch.randn(3, n, 16, device=cuda, requires_grad=True)
+    bcsr.reset_launch_counts()
+    out = bcsr.bcsr_spmm(mat, x)            # one forward bcsr_matmul
+    out.sum().backward()                    # one on the transposed half
+    torch.cuda.synchronize()
+    assert (bcsr.hybrid_spmm.launches, bcsr.tile_spmm.launches,
+            bcsr.rem_scatter_.launches) == (2, 0, 0)
 
 
 def test_model_on_card_matches_cpu(cuda):

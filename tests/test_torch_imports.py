@@ -83,3 +83,12 @@ def test_kernel_wrappers_refuse_other_devices():
     x = torch.zeros(half.num_cols, 3, device="meta")
     with pytest.raises(ValueError):
         bcsr.tile_spmm(half, x)
+
+
+def test_fused_wrapper_refuses_other_devices():
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    g = Graph.from_edge_index(np.array([[0, 1], [1, 0]]), device="cpu")
+    half = bcsr.BCSRMatrix.from_graph(g).fwd
+    with pytest.raises(ValueError):
+        bcsr.hybrid_spmm(half, torch.zeros(half.num_cols, 3, device="meta"))
