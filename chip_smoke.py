@@ -10,9 +10,10 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    parallel) with its time;
 2. kernels against their plain PyTorch versions on the card: the fused
    hybrid SpMM (the main path) and its baseline pair K1 (tile SpMM) and K2
-   (remainder scatter) on f32 and bf16 tiles, both halves, F in {8, 32,
-   36, 96, 200} (36 ragged), a hybrid operator, an all-tiles operator, an
-   all-remainder operator and a graph with empty row blocks; then at the
+   (remainder scatter) on f32 and bf16 tiles, both halves, F in {1, 8,
+   14, 32, 36, 64, 96, 200} (1, 14 and 36 ragged), a hybrid operator, an
+   all-tiles operator, an all-remainder operator and a graph with empty
+   row blocks; then at the
    slice's own shapes, where each kernel is also timed (CUDA events, L2
    flushed before each launch) beside its byte/op bound, its plain version
    and one ``torch.sparse.mm`` over the same operator as CSR (a yardstick
@@ -23,11 +24,30 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    on the card, then a few timed steps with every kernel launch counted
    (the fused kernel once per aggregation, K1 and K2 never);
 4. the dense path: one METR-LA-shape step (B=64, T=12, N=207, F=2, K=3),
-   which launches no BCSR kernel.
+   which launches no BCSR kernel;
+5. the snapshot pipeline on Chickenpox: loader, split, stacked signal,
+   GConvGRU(4->32, K=1) + relu + Linear(32->1) through ``SnapshotTrainer``
+   (MSE over snapshots, Adam 1e-2, 200 epochs), test MSE and MAE; no BCSR
+   kernel is launched;
+6. GConvGRU(14->32, K=2) + relu + Linear(32->1) with the hidden state
+   threaded through ``SnapshotTrainer`` over the bf16-tile BCSR Chebyshev
+   operator of the 50,000-node graph (T=8 snapshots): forward and
+   parameter gradients against the f32 segment path, ``cheb_basis`` at
+   K=3 too, then epochs with every launch counted (5T-1 fused launches an
+   epoch), the device's busy time by kernel, and the fused kernel timed at
+   F=14 and F=32 on this operator beside its bound and ``torch.sparse.mm``;
+7. a dynamic-edge sequence over ``stack_bcsr``: T=4 operators of 20,000
+   nodes and 600,000 edges each, ``h <- tanh(bcsr_spmm(mat_t, h))`` at
+   F=64, the fused kernel against its plain version on every step's two
+   halves at that width, every step against ``spmm_segment`` on that
+   step's graph and the gradient to h0 against the segment path's, T + T
+   fused launches.
 
 Exits non-zero, and prints no result, without CUDA or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line before
-it holds the per-kernel JSON record.
+it holds the per-kernel JSON record, its launch counts summed over phases
+3, 6 and 7; the fused kernel's time and share of its bound at each path's
+own width stand on the line before the total.
 """
 
 import json
@@ -44,6 +64,18 @@ PEAK_FLOPS = {"bf16": 989e12,     # dense tensor-core rate
 SLICE = dict(n=50_000, deg=40, f=32, hidden=64, t=4, band=96, seed=3)
 STEPS = 5          # counted training steps (the main path)
 TIMED_STEPS = 20   # further steps timed on the host clock
+CHICKENPOX_EPOCHS = 200
+CHEB = dict(lags=14, hidden=32, K=2, t=8, epochs=5, timed_epochs=10)
+DYNAMIC = dict(n=20_000, deg=30, t=4, f=64, band=64, seed=0)
+# bf16 tiles and bf16-cast activations in every hop, ~2^-9 relative
+# rounding per product term, against the f32 segment path
+FWD_TOL, GRAD_TOL = 2e-2, 3e-2
+# phases 6 and 7: about three times the errors read on an H100 (phase 6:
+# forward 1.8e-3, basis 1.9e-3 of its largest value, parameter gradients
+# 8.8e-3 relative; phase 7: steps 1.5e-3 to 2.7e-3 of each step's largest
+# value, gradient to h0 2.1e-3 relative)
+CHEB_FWD_TOL, CHEB_BASIS_TOL, CHEB_GRAD_TOL = 5e-3, 6e-3, 2e-2
+DYN_STEP_TOL, DYN_GRAD_TOL = 1e-2, 6e-3
 
 
 def log(*a):
@@ -60,6 +92,12 @@ def banded_graph(rng, n, e, band, frac_local=0.95):
     r = np.concatenate([r, rng.integers(0, n, size=e - e_loc)])
     w = rng.uniform(0.1, 1.0, e).astype(np.float32)
     return np.stack([s, r]), w
+
+
+def slice_graph(rng):
+    """The large-N graph of phases 3 and 6 (the first draws of ``rng``)."""
+    c = SLICE
+    return banded_graph(rng, c["n"], c["n"] * c["deg"], c["band"])
 
 
 def cold_ms(torch, fn, reps=30, warmup=3):
@@ -152,7 +190,7 @@ def phase_kernel_cases(torch):
             mat = BCSRMatrix.from_graph(g, dtype=dtype, min_block_edges=mbe)
             for side in ("fwd", "bwd"):
                 half = getattr(mat, side)
-                for f in (8, 32, 36, 96, 200):
+                for f in (1, 8, 14, 32, 36, 64, 96, 200):
                     x = torch.randn(half.num_cols, f, device="cuda")
                     x = x.to(dtype)
                     errs = check_kernels(torch, bcsr, half, x)
@@ -187,6 +225,59 @@ def bound_of(n_bytes, ops_by_type):
     t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in ops_by_type.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def fused_report(torch, half, x):
+    """The fused kernel on (half, x): error against its plain version, cold
+    time, the plain version's and ``torch.sparse.mm``'s over the whole half
+    as one CSR in the tiles' type, and the bound.  The bound counts each
+    input once — the tiles and their pointers, the x rows of the
+    referenced column blocks and of the remainder columns (a union), 8 B
+    per remainder edge (column, value) and the row pointers — and the f32
+    output written once."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    f = x.shape[1]
+    dt = "bf16" if half.blocks.dtype == torch.bfloat16 else "f32"
+    s_t, s_x = half.blocks.element_size(), x.element_size()
+    nb = half.num_rows // 128
+    x_used = torch.zeros(half.num_cols, dtype=torch.bool, device="cuda")
+    x_used.view(nb, 128)[half.block_cols.long()] = True
+    x_used[half.rem_row_cols.long()] = True
+    x_rows = int(x_used.sum())
+    n_bytes = (half.nnzb * 128 * 128 * s_t + (nb + 1 + half.nnzb) * 4
+               + x_rows * f * s_x + half.num_rem * 8
+               + (half.num_rows + 1) * 4 + half.num_rows * f * 4)
+    ops = {dt: 2 * half.nnzb * 128 * 128 * f, "f32": 2 * half.num_rem * f}
+    bound, by = bound_of(n_bytes, ops)
+    rows, cols, vals = tile_operator_coo(torch, half)
+    whole_csr = _csr_of(
+        torch, torch.cat([rows, half.rem_rows]),
+        torch.cat([cols, half.rem_cols.long()]),
+        torch.cat([vals, half.rem_vals.to(half.blocks.dtype)]),
+        (half.num_rows, half.num_cols))
+    got = bcsr.hybrid_spmm(half, x)
+    want = bcsr.hybrid_spmm_plain(half, x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > tol_for(want):
+        raise SystemExit(f"fused kernel mismatch at F={f}: {err:.3e}")
+    return {
+        "ms": cold_ms(torch, lambda: bcsr.hybrid_spmm(half, x)),
+        "plain_ms": cold_ms(torch,
+                            lambda: bcsr.hybrid_spmm_plain(half, x)),
+        "library_ms": cold_ms(torch, lambda: torch.sparse.mm(whole_csr, x)),
+        "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+        "ops": sum(ops.values()), "x_rows": x_rows, "max_abs_err": err,
+        "dtype": dt,
+    }
+
+
+def log_kernel(name, k):
+    log(f"  {name}: {k['ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
+        f"({k['bound_by']}, {k['bytes']} B, {k['ops']} flop; share "
+        f"{k['bound_ms'] / k['ms']:.3f})  plain {k['plain_ms']:.4f} ms  "
+        f"torch.sparse.mm ({k['dtype']} CSR) {k['library_ms']:.4f} ms")
 
 
 def phase_slice_kernels(torch, ops, f):
@@ -261,43 +352,18 @@ def phase_slice_kernels(torch, ops, f):
         "bytes": k2_bytes, "ops": k2_ops,
     }
 
-    # fused: each input once — the tiles and their pointers, the x rows of
-    # the referenced column blocks and of the remainder columns (a union),
-    # 8 B per remainder edge (column, value) and the row pointers — and the
-    # f32 output written once
-    x_used = torch.zeros(half.num_cols, dtype=torch.bool, device="cuda")
-    x_used.view(nb, 128)[half.block_cols.long()] = True
-    x_used[half.rem_row_cols.long()] = True
-    x_rows_h = int(x_used.sum())
-    h_bytes = (half.nnzb * 128 * 128 * s_t + (nb + 1 + half.nnzb) * 4
-               + x_rows_h * f * s_x + half.num_rem * 8
-               + (half.num_rows + 1) * 4 + half.num_rows * f * 4)
-    h_ops = {dt: k1_ops, "f32": k2_ops}
-    h_bound, h_by = bound_of(h_bytes, h_ops)
-    whole_csr = _csr_of(torch, torch.cat([rows, rrows]),
-                        torch.cat([cols, half.rem_cols.long()]),
-                        torch.cat([vals, rvals]), shape)
-    h = {
-        "ms": cold_ms(torch, lambda: bcsr.hybrid_spmm(half, x)),
-        "plain_ms": cold_ms(torch,
-                            lambda: bcsr.hybrid_spmm_plain(half, x)),
-        "library_ms": cold_ms(torch, lambda: torch.sparse.mm(whole_csr, x)),
-        "bound_ms": h_bound, "bound_by": h_by,
-        "bytes": h_bytes, "ops": sum(h_ops.values()),
-    }
+    h = fused_report(torch, half, x)
     pair_ms = cold_ms(
         torch, lambda: bcsr.rem_scatter_(half, x, bcsr.tile_spmm(half, x)))
     for name, k in (("fused hybrid_spmm", h), ("K1 tile_spmm", k1),
                     ("K2 rem_scatter_", k2)):
-        log(f"  {name}: {k['ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}, {k['bytes']} B, {k['ops']} flop; share "
-            f"{k['bound_ms'] / k['ms']:.3f})  plain {k['plain_ms']:.4f} ms  "
-            f"torch.sparse.mm ({dt} CSR) {k['library_ms']:.4f} ms")
-    log(f"  fused counts {x_rows_h} x rows; K1 then K2 as a pair "
+        k["dtype"] = dt
+        log_kernel(name, k)
+    log(f"  fused counts {h['x_rows']} x rows; K1 then K2 as a pair "
         f"{pair_ms:.4f} ms (sum of singles {k1['ms'] + k2['ms']:.4f}); "
         f"fused / pair {h['ms'] / pair_ms:.3f}; fused / torch.sparse.mm "
         f"over the whole half {h['ms'] / h['library_ms']:.3f}")
-    h["max_abs_err"] = errs["fused"]
+    h["max_abs_err"] = max(h["max_abs_err"], errs["fused"])
     k1["max_abs_err"], k2["max_abs_err"] = errs["K1"], errs["K2"]
     return h, k1, k2
 
@@ -327,7 +393,7 @@ def phase_slice(torch, kernel_report):
     rng = np.random.default_rng(c["seed"])
     e = c["n"] * c["deg"]
     t0 = time.perf_counter()
-    ei, w = banded_graph(rng, c["n"], e, c["band"])
+    ei, w = slice_graph(rng)
     g = Graph.from_edge_index(ei, w, num_nodes=c["n"])
     x_np = rng.normal(size=(1, c["t"], c["n"], c["f"])).astype(np.float32)
     y_np = rng.normal(size=(1, c["t"], c["n"], c["hidden"])).astype(
@@ -342,7 +408,8 @@ def phase_slice(torch, kernel_report):
 
     f_basis = c["f"] + c["hidden"]   # spmm input width: concat([x, h])
     h, k1, k2 = phase_slice_kernels(torch, ops, f_basis)
-    kernel_report.update(H=h, K1=k1, K2=k2)
+    kernel_report.update(H=h, K1=k1, K2=k2,
+                         paths=[(f"diffusion F={f_basis}", h)])
 
     x = torch.from_numpy(x_np).cuda()
     y = torch.from_numpy(y_np).cuda()
@@ -362,12 +429,9 @@ def phase_slice(torch, kernel_report):
     torch.cuda.synchronize()
     fwd_err = float((out_b - out_s).abs().max())
     grad_rel = float((gx_b - gx_s).abs().max() / gx_s.abs().max())
-    # bf16 tiles and bf16-cast activations in every hop: ~2^-9 relative
-    # rounding per product term
-    fwd_tol, grad_tol = 2e-2, 3e-2
     log(f"  vs segment path: forward max abs err {fwd_err:.3e} (tol "
-        f"{fwd_tol}), input-grad max rel err {grad_rel:.3e} (tol {grad_tol})")
-    if not (fwd_err <= fwd_tol and grad_rel <= grad_tol):
+        f"{FWD_TOL}), input-grad max rel err {grad_rel:.3e} (tol {GRAD_TOL})")
+    if not (fwd_err <= FWD_TOL and grad_rel <= GRAD_TOL):
         raise SystemExit("slice does not match the segment path")
 
     trainer = BatchTrainer(model, lambda xb: model(xb, ops), lr=1e-3,
@@ -377,9 +441,7 @@ def phase_slice(torch, kernel_report):
 
     bcsr.reset_launch_counts()
     losses = [float(trainer.train_step(x, y)) for _ in range(STEPS)]
-    launches = {"H": bcsr.hybrid_spmm.launches,
-                "K1": bcsr.tile_spmm.launches,
-                "K2": bcsr.rem_scatter_.launches}
+    launches = launch_counts(bcsr)
     want = expected_launches(c["t"], 2, STEPS)
     log(f"  launches over {STEPS} steps: fused {launches['H']} (expected "
         f"{want}), K1 {launches['K1']} and K2 {launches['K2']} (expected 0)")
@@ -405,11 +467,9 @@ def phase_slice(torch, kernel_report):
     profile_steps(torch, lambda: trainer.train_step(x, y), med * 1e3)
 
 
-def profile_steps(torch, step, step_ms, n=2, top=12):
-    """Device time by kernel over ``n`` training steps (torch.profiler's
-    device-side events only), and the device's busy share of the
-    unprofiled median step ``step_ms`` (one stream, so kernel times do not
-    overlap)."""
+def device_time_by_kernel(torch, fn, n):
+    """({kernel name: (device us, count)}, wall us) over ``n`` calls of
+    ``fn`` under torch.profiler: device-side kernels and copies only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -418,32 +478,65 @@ def profile_steps(torch, step, step_ms, n=2, top=12):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step()
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     agg = {}
     for ev in prof.events():
-        # device-side kernels and copies; GPU user annotations (the
-        # optimizer's range) overlap them and are left out
+        # GPU user annotations (the optimizer's range) overlap the kernels
+        # and are left out
         if (ev.device_type == DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)
                 and not ev.name.startswith("Optimizer.")):
             us, cnt = agg.get(ev.name, (0.0, 0))
             agg[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    return agg, wall_us
+
+
+def profile_steps(torch, step, step_ms, n=2, top=12, unit="step"):
+    """Device time by kernel over ``n`` training steps, and the device's
+    busy share of the unprofiled median step ``step_ms`` (one stream, so
+    kernel times do not overlap).  Returns the busy ms per step, None if
+    no device time was recorded."""
+    agg, wall_us = device_time_by_kernel(torch, step, n)
     rows = sorted(((us, cnt, name) for name, (us, cnt) in agg.items()),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         log("  profile: no device time recorded (not measured)")
-        return
+        return None
     busy_ms = busy / n / 1e3
-    log(f"  profile over {n} steps: device busy {busy_ms:.3f} ms per step "
-        f"({wall_us / n / 1e3:.3f} ms wall under the profiler); busy share "
-        f"of the unprofiled median step {busy_ms / step_ms:.3f}; top "
-        f"kernels by device time:")
+    log(f"  profile over {n} {unit}s: device busy {busy_ms:.3f} ms per "
+        f"{unit} ({wall_us / n / 1e3:.3f} ms wall under the profiler); busy "
+        f"share of the unprofiled median {unit} {busy_ms / step_ms:.3f}; "
+        f"top kernels by device time:")
     for dev, count, key in rows[:top]:
-        log(f"    {dev / n / 1e3:8.3f} ms/step {count // n:5d}x/step  "
+        log(f"    {dev / n / 1e3:8.3f} ms/{unit} {count // n:5d}x/{unit}  "
             f"{100 * dev / busy:5.1f}%  {key[:90]}")
+    return busy_ms
+
+
+def around_kernel_ms(torch, mat, f, backward, n=20):
+    """Device ms per ``bcsr_spmm`` call at width ``f`` (forward, or forward
+    and backward) spent outside the fused kernel: the node-padding copy,
+    the cast to bf16 and, backward, the zero-padded gradient of the output
+    slice and its cast.  Returns (outside ms, kernel ms)."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr_spmm
+
+    x = torch.randn(mat.num_nodes, f, device="cuda", requires_grad=backward)
+    g = torch.randn(mat.num_nodes, f, device="cuda")
+
+    def call():
+        out = bcsr_spmm(mat, x)
+        if backward:
+            out.backward(g)
+
+    call()
+    agg, _ = device_time_by_kernel(torch, call, n)
+    kernel = sum(us for name, (us, _) in agg.items()
+                 if "hybrid_spmm_kernel" in name)
+    total = sum(us for us, _ in agg.values())
+    return (total - kernel) / n / 1e3, kernel / n / 1e3
 
 
 def phase_dense(torch):
@@ -482,14 +575,370 @@ def phase_dense(torch):
         losses.append(float(trainer.train_step(x, y)))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    if (bcsr.hybrid_spmm.launches or bcsr.tile_spmm.launches
-            or bcsr.rem_scatter_.launches):
+    if any(launch_counts(bcsr).values()):
         raise SystemExit("dense path launched a BCSR kernel")
     if not all(np.isfinite(losses)):
         raise SystemExit(f"non-finite loss: {losses}")
     log(f"  METR-LA shape: masked-MAE losses "
         f"{['%.4f' % v for v in losses]}, step times (s) "
         f"{['%.4f' % v for v in step_s]}")
+
+
+def launch_counts(bcsr):
+    return {"H": bcsr.hybrid_spmm.launches, "K1": bcsr.tile_spmm.launches,
+            "K2": bcsr.rem_scatter_.launches}
+
+
+def make_net(torch, in_channels, hidden, K, seed):
+    """GConvGRU + relu + Linear(hidden -> 1), the reference examples'
+    network; returns (prediction (N,), hidden state).  Weights from
+    ``seed``."""
+    from pytorch_geometric_temporal_tpu_torch.models import GConvGRU
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            self.recurrent = GConvGRU(in_channels, hidden, K, generator=gen)
+            torch.manual_seed(seed)
+            self.linear = torch.nn.Linear(hidden, 1)
+
+        def forward(self, x, graph, h=None):
+            h = self.recurrent(x, graph, h)
+            return self.linear(torch.relu(h))[..., 0], h
+
+    return Net().to("cuda")
+
+
+def phase_chickenpox(torch):
+    """The Chickenpox accuracy protocol (hidden state reset every
+    snapshot, as the reference example never threads it)."""
+    from pytorch_geometric_temporal_tpu_torch.data import (
+        ChickenpoxDatasetLoader)
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        StackedSignal, temporal_signal_split)
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        SnapshotTrainer, mae, mse)
+
+    dataset = ChickenpoxDatasetLoader().get_dataset(lags=4)
+    train_sig, test_sig = temporal_signal_split(dataset, 0.2)
+    train = StackedSignal.from_signal(train_sig)
+    test = StackedSignal.from_signal(test_sig)
+    if train.features.device.type != "cuda":
+        raise SystemExit("the signal is not on the card")
+    net = make_net(torch, 4, 32, K=1, seed=42)
+
+    def loss_and_state(carry, x, y, g):
+        return mse(net(x, g)[0], y), carry
+
+    def mae_and_state(carry, x, y, g):
+        return mae(net(x, g)[0], y), carry
+
+    trainer = SnapshotTrainer(net, loss_and_state, lr=1e-2)
+    losses = []
+    bcsr.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(train, CHICKENPOX_EPOCHS,
+                callback=lambda epoch, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    test_mse = float(trainer.evaluate(test))
+    test_mae = float(SnapshotTrainer(net, mae_and_state).evaluate(test))
+    log(f"  N={train.num_nodes} E={train.num_edges}, "
+        f"{train.snapshot_count} training and {test.snapshot_count} test "
+        f"snapshots; {CHICKENPOX_EPOCHS} epochs in {seconds:.2f} s "
+        f"({seconds / CHICKENPOX_EPOCHS:.4f} s per epoch, host clock); "
+        f"training MSE {losses[0]:.4f} -> {losses[-1]:.4f}; test MSE "
+        f"{test_mse:.4f}, test MAE {test_mae:.4f}")
+    if any(launch_counts(bcsr).values()):
+        raise SystemExit("the Chickenpox path launched a BCSR kernel")
+    if not (len(losses) == CHICKENPOX_EPOCHS and all(np.isfinite(losses))
+            and np.isfinite([test_mse, test_mae]).all()):
+        raise SystemExit(f"non-finite loss: {losses[-3:]}, {test_mse}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit("the training loss did not fall")
+
+
+def cheb_launches(T, K, epochs):
+    """Fused-kernel launches of ``epochs`` epochs of GConvGRU with the
+    hidden state threaded over a BCSR Chebyshev operator.
+
+    Forward: per snapshot three bases (X, H, H·R) of K-1 hops each.
+    Backward: one launch on the transposed half per forward hop whose input
+    needs a gradient: never X's; at t=0 only H·R's (H is the zero state, R
+    depends on the parameters); H's and H·R's after.
+    """
+    n_fwd = 3 * (K - 1) * T
+    n_bwd = (K - 1) * (1 + 2 * (T - 1))
+    return (n_fwd + n_bwd) * epochs
+
+
+def phase_cheb(torch, kernel_report):
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import cheb_basis
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        Graph, Prenormalized, bcsr, host_cheb_norm, prenormalize_cheb)
+    from pytorch_geometric_temporal_tpu_torch.signal import StackedSignal
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        SnapshotTrainer, mse)
+
+    c, n = CHEB, SLICE["n"]
+    T, lags = c["t"], c["lags"]
+    rng = np.random.default_rng(SLICE["seed"])
+    t0 = time.perf_counter()
+    ei, w = slice_graph(rng)
+    g = Graph.from_edge_index(ei, w, num_nodes=n)
+    op = prenormalize_cheb(g, "sym", bcsr=True, dtype=torch.bfloat16)
+    seg = Prenormalized(host_cheb_norm(g))
+    signal = StackedSignal.from_arrays(
+        rng.normal(size=(T, n, lags)).astype(np.float32),
+        rng.normal(size=(T, n)).astype(np.float32), ei, w)
+    log(f"  graph N={n} E={ei.shape[1]}: Chebyshev operator "
+        f"({seg.op.num_edges} entries) built in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"{s}: nnzb={getattr(op.op, s).nnzb} "
+                    f"rem={getattr(op.op, s).num_rem}"
+                    for s in ("fwd", "bwd")))
+
+    # the fused kernel at this path's two widths on this operator
+    half = op.op.fwd
+    for f in (lags, c["hidden"]):
+        x = torch.randn(half.num_cols, f, device="cuda").to(
+            half.blocks.dtype)
+        k = fused_report(torch, half, x)
+        log_kernel(f"fused hybrid_spmm F={f}", k)
+        log(f"    fused / torch.sparse.mm {k['ms'] / k['library_ms']:.3f}; "
+            f"err {k['max_abs_err']:.2e}")
+        kernel_report["H"]["max_abs_err"] = max(
+            kernel_report["H"]["max_abs_err"], k["max_abs_err"])
+        kernel_report["paths"].append((f"Chebyshev F={f}", k))
+
+    # cheb_basis at K=3 (the recurrence 2·L̂·T1 − T0), forward only
+    xb = signal.features[0]
+    b_op = cheb_basis(op, xb, 3)
+    with config_override(spmm_backend="segment"):
+        b_seg = cheb_basis(seg, xb, 3)
+    torch.cuda.synchronize()
+    basis_err = float((b_op - b_seg).abs().max() / b_seg.abs().max())
+    log(f"  cheb_basis K=3 vs segment path: max abs err {basis_err:.3e} of "
+        f"the basis' largest value {float(b_seg.abs().max()):.3f} (tol "
+        f"{CHEB_BASIS_TOL})")
+    if not basis_err <= CHEB_BASIS_TOL:
+        raise SystemExit("cheb_basis over BCSR does not match the segment "
+                         "path")
+
+    net = make_net(torch, lags, c["hidden"], c["K"], seed=1)
+
+    def loss_and_state(carry, x, y, graph):
+        out, h = net(x, op, carry)
+        return mse(out, y), h
+
+    # forward and parameter gradients against the f32 segment path
+    def outputs_and_grads(operator):
+        def step(carry, x, y, graph):
+            h, acc = carry
+            out, h = net(x, operator, h)
+            return (h, acc + mse(out, y)), out
+
+        zero = torch.zeros((), device="cuda")
+        (_, total), outs = signal.scan(step, (None, zero))
+        grads = torch.autograd.grad(total / T, list(net.parameters()))
+        return outs.detach(), grads
+
+    out_b, grads_b = outputs_and_grads(op)
+    with config_override(spmm_backend="segment"):
+        out_s, grads_s = outputs_and_grads(seg)
+    torch.cuda.synchronize()
+    fwd_err = float((out_b - out_s).abs().max())
+    grad_rel = max(float((gb - gs).abs().max() / gs.abs().max())
+                   for gb, gs in zip(grads_b, grads_s))
+    log(f"  vs segment path over T={T} threaded snapshots: forward max abs "
+        f"err {fwd_err:.3e} (tol {CHEB_FWD_TOL}), parameter-gradient max "
+        f"rel err {grad_rel:.3e} (tol {CHEB_GRAD_TOL})")
+    if not (fwd_err <= CHEB_FWD_TOL and grad_rel <= CHEB_GRAD_TOL):
+        raise SystemExit("GConvGRU over BCSR does not match the segment "
+                         "path")
+
+    trainer = SnapshotTrainer(net, loss_and_state, lr=1e-2)
+    trainer.train_epoch(signal, None)   # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    bcsr.reset_launch_counts()
+    losses = [float(trainer.train_epoch(signal, None))
+              for _ in range(c["epochs"])]
+    launches = launch_counts(bcsr)
+    want = cheb_launches(T, c["K"], c["epochs"])
+    log(f"  launches over {c['epochs']} epochs: fused {launches['H']} "
+        f"(expected {want}: {want // c['epochs']} an epoch), K1 "
+        f"{launches['K1']} and K2 {launches['K2']} (expected 0)")
+    if launches != {"H": want, "K1": 0, "K2": 0}:
+        raise SystemExit("launch counts differ from the model's count")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"losses not finite or not falling: {losses}")
+    log(f"  losses {['%.6f' % v for v in losses]}")
+    kernel_report["H"]["launches"] += launches["H"]
+    epoch_s = []
+    for _ in range(c["timed_epochs"]):
+        t0 = time.perf_counter()
+        trainer.train_epoch(signal, None)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    med = statistics.median(epoch_s)
+    log(f"  epoch time over {len(epoch_s)} epochs (host clock, "
+        f"synchronized): median {med * 1e3:.3f} ms, min "
+        f"{min(epoch_s) * 1e3:.3f} ms, max {max(epoch_s) * 1e3:.3f} ms; "
+        f"{ei.shape[1] * T * 3 / med:.4e} edges/s (E*T*3/epoch, forward "
+        f"aggregations); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_ms = profile_steps(torch, lambda: trainer.train_epoch(signal, None),
+                            med * 1e3, unit="epoch")
+
+    # the copies around each aggregation in bcsr_spmm (node padding, cast
+    # to bf16, and backward the padded gradient of the output slice),
+    # profiled alone and summed over an epoch's launches: X's basis runs
+    # forward only, H's and H·R's forward and backward but for H's at t=0
+    if busy_ms:
+        x_fwd, _ = around_kernel_ms(torch, op.op, lags, backward=False)
+        h_fwd, k_fwd = around_kernel_ms(torch, op.op, c["hidden"],
+                                        backward=False)
+        h_both, k_both = around_kernel_ms(torch, op.op, c["hidden"],
+                                          backward=True)
+        per_epoch = T * x_fwd + (2 * T - 1) * h_both + h_fwd
+        log(f"  device time outside the kernel per bcsr_spmm: F={lags} "
+            f"forward {x_fwd:.4f} ms; F={c['hidden']} forward {h_fwd:.4f} ms "
+            f"(kernel {k_fwd:.4f}), forward and backward {h_both:.4f} ms "
+            f"(kernel {k_both:.4f}); padding and cast copies {per_epoch:.3f} "
+            f"ms an epoch, {per_epoch / busy_ms:.3f} of the device's busy "
+            f"time")
+
+
+def operator_bytes(mat):
+    return sum(v.numel() * v.element_size()
+               for half in (mat.fwd, mat.bwd)
+               for v in vars(half).values() if hasattr(v, "element_size"))
+
+
+def phase_dynamic(torch, kernel_report):
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        BCSRMatrix, Graph, bcsr, bcsr_spmm, spmm_segment, stack_bcsr)
+
+    c = DYNAMIC
+    n, T, f = c["n"], c["t"], c["f"]
+    e = n * c["deg"]
+    rng = np.random.default_rng(c["seed"])
+    t0 = time.perf_counter()
+    graphs = []
+    for _ in range(T):
+        s = rng.integers(0, n, size=e)
+        r = np.clip(s + rng.integers(-c["band"], c["band"] + 1, size=e),
+                    0, n - 1)
+        w = rng.uniform(0.1, 1.0, e).astype(np.float32)
+        d = np.bincount(r, weights=w, minlength=n).astype(np.float32)
+        graphs.append(Graph.from_edge_index(
+            np.stack([s, r]), w / np.maximum(d[r], 1e-6), num_nodes=n))
+    stacked = stack_bcsr([
+        BCSRMatrix.from_graph(g, dtype=torch.bfloat16,
+                              min_block_edges="auto", pack=3)
+        for g in graphs])
+    sizes = [operator_bytes(m) for m in stacked]
+    log(f"  T={T} graphs of N={n}, E={e} each: operators built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{[round(b / 2**20, 1) for b in sizes]} MiB on the card "
+        f"({sum(sizes) / 2**20:.1f} MiB in all, unpadded); "
+        + ", ".join(f"t={t}: nnzb={m.fwd.nnzb} rem={m.fwd.num_rem}"
+                    for t, m in enumerate(stacked)))
+    h0 = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
+
+    # the fused kernel against its plain version on every step's operator,
+    # both halves, at this path's width; timed beside its bound
+    reports = []
+    for t, mat in enumerate(stacked):
+        for side in ("fwd", "bwd"):
+            half = getattr(mat, side)
+            x = torch.randn(half.num_cols, f, device="cuda").to(
+                half.blocks.dtype)
+            k = fused_report(torch, half, x)
+            log_kernel(f"fused hybrid_spmm t={t} {side} F={f}", k)
+            log(f"    fused / torch.sparse.mm "
+                f"{k['ms'] / k['library_ms']:.3f}; err "
+                f"{k['max_abs_err']:.2e}")
+            kernel_report["H"]["max_abs_err"] = max(
+                kernel_report["H"]["max_abs_err"], k["max_abs_err"])
+            reports.append((k["ms"], len(reports), k, half, x))
+    # the halves hold equal work; the slowest is timed again to tell a slow
+    # half from a slow moment
+    _, _, worst, half, x = max(reports)
+    again = cold_ms(torch, lambda: bcsr.hybrid_spmm(half, x))
+    log(f"  fused over the {len(reports)} halves: {min(reports)[0]:.4f} to "
+        f"{worst['ms']:.4f} ms; the slowest timed again: {again:.4f} ms")
+    kernel_report["paths"].append(
+        (f"dynamic F={f} (slowest of {len(reports)} halves)", worst))
+
+    def run(h, aggregate, operators):
+        outs = []
+        for op_t in operators:
+            outs.append(aggregate(op_t, h))
+            h = torch.tanh(outs[-1])
+        return h, outs
+
+    bcsr.reset_launch_counts()
+    hb = h0.clone().requires_grad_()
+    h_last, outs = run(hb, bcsr_spmm, stacked)
+    fwd_launches = launch_counts(bcsr)
+    (grad_b,) = torch.autograd.grad((h_last ** 2).sum(), hb)
+    torch.cuda.synchronize()
+    launches = launch_counts(bcsr)
+    log(f"  launches: fused {fwd_launches['H']} forward, "
+        f"{launches['H'] - fwd_launches['H']} backward (expected {T} and "
+        f"{T}), K1 {launches['K1']} and K2 {launches['K2']} (expected 0)")
+    if (fwd_launches["H"], launches) != (T, {"H": 2 * T, "K1": 0, "K2": 0}):
+        raise SystemExit("launch counts differ from T forward + T backward")
+    kernel_report["H"]["launches"] += launches["H"]
+
+    # every step against spmm_segment on that step's graph and the same
+    # input, then the gradient to h0 against the all-segment chain
+    h = h0
+    for t, g in enumerate(graphs):
+        want = spmm_segment(g, h)
+        scale = float(want.abs().max())
+        err = float((outs[t].detach() - want).abs().max()) / scale
+        log(f"  step {t}: max abs err vs spmm_segment {err:.3e} of the "
+            f"step's largest value {scale:.4f} (tol {DYN_STEP_TOL})")
+        if not err <= DYN_STEP_TOL:
+            raise SystemExit(f"dynamic step {t} does not match spmm_segment")
+        h = torch.tanh(outs[t].detach())
+    hs = h0.clone().requires_grad_()
+    h_seg, _ = run(hs, spmm_segment, graphs)
+    (grad_s,) = torch.autograd.grad((h_seg ** 2).sum(), hs)
+    grad_rel = float((grad_b - grad_s).abs().max() / grad_s.abs().max())
+    log(f"  gradient to h0 vs the segment path: max rel err {grad_rel:.3e} "
+        f"(tol {DYN_GRAD_TOL})")
+    if not grad_rel <= DYN_GRAD_TOL:
+        raise SystemExit("dynamic gradient does not match the segment path")
+
+    def sequence_ms(aggregate, operators, reps=20):
+        times = []
+        with torch.no_grad():
+            run(h0, aggregate, operators)
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                run(h0, aggregate, operators)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+        return times
+
+    for name, times in (("bcsr", sequence_ms(bcsr_spmm, stacked)),
+                        ("segment", sequence_ms(spmm_segment, graphs))):
+        rates = sorted(T * e / (ms * 1e-3) for ms in times)
+        log(f"  forward sequence ({name}, CUDA events, 20 runs): median "
+            f"{statistics.median(times):.4f} ms; edges/s min "
+            f"{rates[0]:.4e}, median {statistics.median(rates):.4e}, max "
+            f"{rates[-1]:.4e}")
 
 
 def main() -> int:
@@ -514,6 +963,13 @@ def main() -> int:
     phase_slice(torch, report)
     log("== phase 4: dense path (METR-LA shape)")
     phase_dense(torch)
+    log("== phase 5: snapshot pipeline on Chickenpox (GConvGRU, K=1)")
+    phase_chickenpox(torch)
+    log("== phase 6: GConvGRU training at N=50k over a Chebyshev BCSR "
+        "operator")
+    phase_cheb(torch, report)
+    log("== phase 7: dynamic-edge sequence over stack_bcsr")
+    phase_dynamic(torch, report)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"
@@ -532,6 +988,9 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+    log("fused kernel by path (cold ms, share of its bound): " + "; ".join(
+        f"{label} {k['ms']:.4f} ms, {k['bound_ms'] / k['ms']:.3f}"
+        for label, k in report["paths"]))
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

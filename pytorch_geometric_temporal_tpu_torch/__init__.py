@@ -5,9 +5,13 @@ to find; the JAX package is the reference the port is tested against.  This
 package imports torch and numpy only — never JAX, flax, optax or the JAX
 package.  Entry points build on CUDA unless given ``device="cpu"``.
 
-The hybrid block-sparse aggregation (``ops/bcsr.py``) runs through two CUDA
-kernels written for Hopper (``csrc/bcsr_kernels.cu``), compiled with nvcc
-at first use.
+Sub-packages: ``ops`` (graphs, normalizations, spmm, BCSR operators),
+``models`` (DCRNN family, ChebConv/GCNConv, GConvGRU), ``signal`` (snapshot
+iterators and the stacked signal), ``data`` (loaders; Chickenpox from the
+package's own bundle) and ``train`` (snapshot and batch trainers).  The
+hybrid block-sparse aggregation (``ops/bcsr.py``) runs through a CUDA
+kernel written for Hopper (``csrc/hybrid_spmm.cu``), compiled with nvcc at
+first use.
 """
 
 from .config import Config, config_override, get_config

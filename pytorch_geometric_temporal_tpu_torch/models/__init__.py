@@ -1,5 +1,7 @@
-"""Model zoo (this slice: the DCRNN family)."""
+"""Model zoo (so far: the DCRNN family, ChebConv/GCNConv and GConvGRU)."""
 
-from .recurrent import DCRNN, DCRNNSeq, DConv, diffusion_basis
+from .conv import ChebConv, GCNConv, cheb_basis, gcn_conv_fixed_w
+from .recurrent import DCRNN, DCRNNSeq, DConv, GConvGRU, diffusion_basis
 
-__all__ = ["DCRNN", "DCRNNSeq", "DConv", "diffusion_basis"]
+__all__ = ["ChebConv", "DCRNN", "DCRNNSeq", "DConv", "GCNConv", "GConvGRU",
+           "cheb_basis", "diffusion_basis", "gcn_conv_fixed_w"]

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -21,7 +20,7 @@ from ...ops.graph import diffusion_norms
 from ...ops.operators import DiffusionOperators
 from ...ops.spmm import spmm
 from .._validate import check_node_axis
-from ..conv import glorot, zeros
+from ..conv import cat_features, flax_params, glorot, load_param, zeros
 
 
 def diffusion_basis(graph, x: torch.Tensor, K: int) -> torch.Tensor:
@@ -45,23 +44,7 @@ def diffusion_basis(graph, x: torch.Tensor, K: int) -> torch.Tensor:
         for _ in range(2, K):
             tx.append(2.0 * spmm(p, tx[-1]) - tx[-2])
         out.extend(tx)
-    dtype = out[0].dtype
-    for t in out[1:]:
-        dtype = torch.promote_types(dtype, t.dtype)
-    return torch.cat([t.to(dtype) for t in out], dim=-1)
-
-
-def _load(param: nn.Parameter, value) -> None:
-    value = torch.from_numpy(np.array(value, np.float32))
-    if tuple(value.shape) != tuple(param.shape):
-        raise ValueError(f"shape {tuple(value.shape)} does not match the "
-                         f"parameter's {tuple(param.shape)}")
-    with torch.no_grad():
-        param.copy_(value.to(param.device, param.dtype))
-
-
-def _flax_params(tree):
-    return tree["params"] if "params" in tree else tree
+    return cat_features(out)
 
 
 class DConv(nn.Module):
@@ -87,10 +70,10 @@ class DConv(nn.Module):
         return out
 
     def params_from_flax(self, tree) -> "DConv":
-        p = _flax_params(tree)
-        _load(self.weight, p["weight"])
+        p = flax_params(tree)
+        load_param(self.weight, p["weight"])
         if self.bias is not None:
-            _load(self.bias, p["bias"])
+            load_param(self.bias, p["bias"])
         return self
 
 
@@ -137,12 +120,12 @@ class DCRNN(nn.Module):
         return z * h + (1.0 - z) * h_tilde
 
     def params_from_flax(self, tree) -> "DCRNN":
-        p = _flax_params(tree)
-        _load(self.w_zr, p["w_zr"])
-        _load(self.w_h, p["w_h"])
+        p = flax_params(tree)
+        load_param(self.w_zr, p["w_zr"])
+        load_param(self.w_h, p["w_h"])
         if self.b_zr is not None:
-            _load(self.b_zr, p["b_zr"])
-            _load(self.b_h, p["b_h"])
+            load_param(self.b_zr, p["b_zr"])
+            load_param(self.b_h, p["b_h"])
         return self
 
 
@@ -178,6 +161,6 @@ class DCRNNSeq(nn.Module):
         return torch.stack(hs, dim=1)
 
     def params_from_flax(self, tree) -> "DCRNNSeq":
-        self.cell.params_from_flax(_flax_params(tree)["cell"])
+        self.cell.params_from_flax(flax_params(tree)["cell"])
         return self
 

@@ -1,18 +1,53 @@
-"""Graph operators: Graph, diffusion norms, spmm backends, BCSR kernels."""
+"""Graph operators: Graph, normalizations, spmm backends, BCSR kernels."""
 
-from .bcsr import BCSRMatrix, bcsr_spmm
-from .graph import Graph, diffusion_norms
-from .operators import DiffusionOperators, host_diffusion_norms
+from .bcsr import BCSRMatrix, StackedBCSR, bcsr_spmm, stack_bcsr
+from .graph import (
+    Graph,
+    cheb_norm,
+    diffusion_norms,
+    gcn_norm,
+    lambda_max,
+    laplacian,
+    pad_graphs,
+    stack_graphs,
+)
+from .operators import (
+    DiffusionOperators,
+    Prenormalized,
+    PreparedGraph,
+    host_cheb_norm,
+    host_diffusion_norms,
+    host_gcn_norm,
+    prenormalize_cheb,
+    prenormalize_gcn,
+    prepare_graph,
+    stack_bcsr_gcn,
+)
 from .spmm import spmm, spmm_dense, spmm_segment
 
 __all__ = [
     "BCSRMatrix",
     "DiffusionOperators",
     "Graph",
+    "Prenormalized",
+    "PreparedGraph",
+    "StackedBCSR",
     "bcsr_spmm",
+    "cheb_norm",
     "diffusion_norms",
+    "gcn_norm",
+    "host_cheb_norm",
     "host_diffusion_norms",
+    "host_gcn_norm",
+    "lambda_max",
+    "laplacian",
+    "pad_graphs",
+    "prenormalize_cheb",
+    "prenormalize_gcn",
+    "prepare_graph",
     "spmm",
     "spmm_dense",
     "spmm_segment",
+    "stack_bcsr",
+    "stack_bcsr_gcn",
 ]

@@ -657,3 +657,72 @@ def bcsr_spmm(mat: BCSRMatrix, x: torch.Tensor) -> torch.Tensor:
         out = out[mat.iperm]
     out = out[:n].reshape(n, b, f).permute(1, 0, 2)
     return out.reshape(lead + (n, f))
+
+
+class StackedBCSR:
+    """Per-step operators of a dynamic-edge sequence (see
+    :func:`stack_bcsr`): a sequence of length T whose item ``t`` is step
+    t's :class:`BCSRMatrix`."""
+
+    def __init__(self, mats):
+        self.mats = tuple(mats)
+        self.num_nodes = self.mats[0].num_nodes
+
+    def __len__(self) -> int:
+        return len(self.mats)
+
+    def __getitem__(self, t):
+        return self.mats[t]
+
+    def __iter__(self):
+        return iter(self.mats)
+
+
+def stack_bcsr(mats) -> StackedBCSR:
+    """Per-snapshot BCSR operators as one sequence over time — the tiled
+    path for **dynamic-edge sequences**::
+
+        mats = [BCSRMatrix.from_graph(g_t, dtype=torch.bfloat16, pack=4)
+                for g_t in graphs]           # same N, same pack
+        h = h0
+        for mat_t in stack_bcsr(mats):       # one fused launch per step
+            h = f(bcsr_spmm(mat_t, h))
+
+    The JAX package pads every step's tiles, steps and remainder chunks
+    to common shapes and stacks them for ``lax.scan``; here the time loop
+    runs in Python, so the steps stay as they were built, without padding
+    or copies, and the kernel reads each step's own arrays.  The same
+    operators are accepted and refused: all must share ``num_nodes``,
+    ``pack``, ``rem_k``, the tile dtype and the ``reorder=`` setting.
+    """
+    mats = list(mats)
+    if not mats:
+        raise ValueError("stack_bcsr needs at least one operator")
+    m0 = mats[0]
+
+    def rem_k(half):
+        return half._host["rem_vals"].shape[-1]
+
+    for m in mats:
+        if m.num_nodes != m0.num_nodes:
+            raise ValueError("stack_bcsr: operators must share num_nodes")
+        if (m.fwd.pack, m.bwd.pack) != (m0.fwd.pack, m0.bwd.pack):
+            raise ValueError(
+                "stack_bcsr: operators must share pack (pass an explicit "
+                "pack= to BCSRMatrix.from_graph)")
+        if (rem_k(m.fwd), rem_k(m.bwd)) != (rem_k(m0.fwd), rem_k(m0.bwd)):
+            raise ValueError(
+                "stack_bcsr: operators must share rem_k (pass an "
+                "explicit rem_k= to BCSRMatrix.from_graph)")
+        if m.fwd.blocks.dtype != m0.fwd.blocks.dtype:
+            raise ValueError(
+                "stack_bcsr: operators must share tile dtype (a sequence "
+                "that mixes them would run some steps off the bf16 kernel "
+                "path) — pass the same dtype= to every "
+                "BCSRMatrix.from_graph")
+    with_perm = [m.perm is not None for m in mats]
+    if any(with_perm) and not all(with_perm):
+        raise ValueError(
+            "stack_bcsr: operators mix reordered and plain layouts — "
+            "build every snapshot with the same reorder= setting")
+    return StackedBCSR(mats)

@@ -1,10 +1,12 @@
-"""Static graph representation and the diffusion normalization.
+"""Static graph representation and normalization transforms.
 
-Port of the JAX package's ``ops/graph.py`` (``Graph`` and
-``diffusion_norms``).  A :class:`Graph` holds padded edge tensors
-(``senders``, ``receivers``, ``weights``) on one device plus static
-metadata; padded edges carry weight 0 and are masked out by
-:meth:`Graph.masked_weights`.
+Port of the JAX package's ``ops/graph.py``.  A :class:`Graph` holds padded
+edge tensors (``senders``, ``receivers``, ``weights``) on one device plus
+static metadata; padded edges carry weight 0 and are masked out by
+:meth:`Graph.masked_weights`.  The normalizations (:func:`gcn_norm`,
+:func:`cheb_norm`, :func:`diffusion_norms`) are ``Graph -> Graph``
+functions on tensors, memoized on the source graph, and return a prebuilt
+operator when handed a :class:`~.operators.PreparedGraph` that holds one.
 
 Conventions match PyG: ``edge_index[0]`` is the message *source* and
 ``edge_index[1]`` the *target*; aggregation happens at the target.
@@ -147,6 +149,34 @@ class Graph:
             num_src=None if self.num_src is None else self.num_nodes,
         )
 
+    def remove_self_loops(self) -> "Graph":
+        """Zero the weight of every self-loop edge (shape preserved), so the
+        loops contribute to no aggregation, degree or Laplacian entry."""
+        keep = (self.senders != self.receivers).to(self.weights.dtype)
+        return self.with_weights(self.weights * keep)
+
+    def add_self_loops(self, fill_value: float = 1.0) -> "Graph":
+        """Append one self-loop per node with the given weight
+        (E_pad -> E_pad + N)."""
+        loops = self.weights.new_full((self.num_nodes,), fill_value)
+        return self.with_loop_block(self.weights, loops)
+
+    def with_loop_block(self, weights, loop_weights) -> "Graph":
+        """These edges under ``weights`` plus one (i, i) entry per node
+        weighted ``loop_weights``.  The loop block goes at offset
+        ``num_edges``, so the padding stays trailing with weight 0."""
+        n, e = self.num_nodes, self.num_edges
+        loop = torch.arange(n, dtype=self.senders.dtype, device=self.device)
+        return Graph(
+            senders=torch.cat([self.senders[:e], loop, self.senders[e:]]),
+            receivers=torch.cat([self.receivers[:e], loop,
+                                 self.receivers[e:]]),
+            weights=torch.cat([weights[:e], loop_weights,
+                               torch.zeros_like(weights[e:])]),
+            num_nodes=n,
+            num_edges=e + n,
+        )
+
     # -- degrees -----------------------------------------------------------
 
     def out_degree(self, weighted: bool = True) -> torch.Tensor:
@@ -168,6 +198,60 @@ class Graph:
                         device=self.device)
         return m.index_put_((self.receivers, self.senders),
                             self.masked_weights().to(dtype), accumulate=True)
+
+
+def pad_graphs(graphs, pad_to: Optional[int] = None):
+    """Pad a list of Graphs to a common edge count (dynamic-edge
+    sequences); padded edges are (0, 0) with weight 0."""
+    if pad_to is None:
+        pad_to = max(g.num_edges for g in graphs)
+    out = []
+    for g in graphs:
+        ep = g.edge_pad
+        if ep == pad_to:
+            out.append(g)
+            continue
+        if ep > pad_to:
+            raise ValueError("pad_to smaller than an existing edge_pad")
+        pad = (0, pad_to - ep)
+        out.append(Graph(
+            senders=torch.nn.functional.pad(g.senders, pad),
+            receivers=torch.nn.functional.pad(g.receivers, pad),
+            weights=torch.nn.functional.pad(g.masked_weights(), pad),
+            num_nodes=g.num_nodes,
+            num_edges=g.num_edges,
+        ))
+    return out
+
+
+def stack_graphs(graphs) -> Graph:
+    """Stack equally padded Graphs along a new leading (time) axis.
+
+    The result's edge tensors are (T, E_pad); slice per step.
+    ``num_edges`` becomes the max; per-step masking relies on the zeroed
+    padded weights from :func:`pad_graphs`.
+    """
+    graphs = pad_graphs(graphs)
+    n = graphs[0].num_nodes
+    if any(g.num_nodes != n for g in graphs):
+        raise ValueError("all graphs must share num_nodes")
+    return Graph(
+        senders=torch.stack([g.senders for g in graphs]),
+        receivers=torch.stack([g.receivers for g in graphs]),
+        weights=torch.stack([g.masked_weights() for g in graphs]),
+        num_nodes=n,
+        num_edges=max(g.num_edges for g in graphs),
+    )
+
+
+def _prepared_lookup(graph, key):
+    """(op_or_None, raw_graph): the prebuilt operator a
+    :class:`~.operators.PreparedGraph` holds under ``key``, if any
+    (duck-typed on its ``ops`` dict to avoid a circular import)."""
+    ops = getattr(graph, "ops", None)
+    if ops is None:
+        return None, graph
+    return ops.get(key), graph.graph
 
 
 def _memo(graph: Graph, key, build):
@@ -195,6 +279,98 @@ def _safe_inv(x: torch.Tensor) -> torch.Tensor:
                        1.0 / torch.where(x == 0, torch.ones_like(x), x))
 
 
+def _safe_inv_sqrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x <= 0, torch.zeros_like(x),
+                       torch.rsqrt(torch.where(x <= 0, torch.ones_like(x),
+                                               x)))
+
+
+def gcn_norm(graph: Graph, improved: bool = False,
+             add_self_loops: bool = True) -> Graph:
+    """Symmetric GCN normalization D̃^{-1/2} Ã D̃^{-1/2} (PyG ``gcn_norm``).
+    Zero degrees produce 0."""
+    key = ("gcn_norm", improved, add_self_loops)
+    op, graph = _prepared_lookup(graph, key)
+    if op is not None:
+        return op
+
+    def build():
+        fill = 2.0 if improved else 1.0
+        g = graph.add_self_loops(fill) if add_self_loops else graph
+        dis = _safe_inv_sqrt(g.in_degree(weighted=True))
+        return g.with_weights(
+            dis[g.senders] * g.masked_weights() * dis[g.receivers])
+
+    return _memo(graph, key, build)
+
+
+def laplacian(graph: Graph, normalization: Optional[str] = "sym") -> Graph:
+    """Graph Laplacian as an edge list (PyG ``get_laplacian``).
+
+    - 'sym':  L = I - D^{-1/2} A D^{-1/2}
+    - 'rw':   L = I - D^{-1} A
+    - None:   L = D - A
+
+    Degrees are scattered over the *source* node, as PyG does.
+    """
+    w = graph.masked_weights()
+    deg = graph.out_degree(weighted=True)
+    if normalization == "sym":
+        dis = _safe_inv_sqrt(deg)
+        off = -dis[graph.senders] * w * dis[graph.receivers]
+        diag = torch.ones_like(deg)
+    elif normalization == "rw":
+        off = -_safe_inv(deg)[graph.senders] * w
+        diag = torch.ones_like(deg)
+    elif normalization is None:
+        off = -w
+        diag = deg
+    else:
+        raise ValueError(f"unknown normalization {normalization!r}")
+    return graph.with_loop_block(off, diag)
+
+
+def cheb_norm(graph: Graph, normalization: Optional[str] = "sym",
+              lambda_max=None) -> Graph:
+    """Scaled Laplacian L̂ = 2 L / λ_max − I of Chebyshev convolution.
+
+    PyG ``ChebConv.__norm__`` semantics: input self-loops removed before
+    the Laplacian, λ_max defaults to 2.0, self-loop fill −1.0, inf → 0.
+    ``lambda_max`` may be a number or a 0-dim tensor (then not memoized).
+    """
+    if lambda_max is None:
+        lambda_max = 2.0
+    fixed = isinstance(lambda_max, (int, float))
+    key = ("cheb_norm", normalization, float(lambda_max)) if fixed else None
+    if fixed:
+        op, graph = _prepared_lookup(graph, key)
+        if op is not None:
+            return op
+
+    def build():
+        lap = laplacian(graph.remove_self_loops(), normalization)
+        w = lap.weights * (2.0 / lambda_max)
+        w = torch.where(torch.isinf(w), torch.zeros_like(w), w)
+        return lap.with_weights(w).add_self_loops(fill_value=-1.0)
+
+    return _memo(graph, key, build) if fixed else build()
+
+
+def lambda_max(graph: Graph, normalization: Optional[str] = "sym",
+               iters: int = 64) -> torch.Tensor:
+    """Largest Laplacian eigenvalue by power iteration (0-dim tensor)."""
+    from .spmm import spmm  # local import to avoid a cycle
+
+    lap = laplacian(graph.remove_self_loops(), normalization)
+    n = graph.num_nodes
+    v = lap.weights.new_full((n, 1), 1.0 / np.sqrt(n))
+    for _ in range(iters):
+        v = spmm(lap, v).to(v.dtype)
+        v = v / (torch.linalg.norm(v) + 1e-12)
+    lv = spmm(lap, v).to(v.dtype)
+    return (v * lv).sum() / ((v * v).sum() + 1e-12)
+
+
 def diffusion_norms(graph: Graph) -> Tuple[Graph, Graph]:
     """Forward/backward random-walk transition operators for diffusion conv.
 
@@ -202,6 +378,9 @@ def diffusion_norms(graph: Graph) -> Tuple[Graph, Graph]:
     ``spmm(P_fwd, X)[i] = (1/deg_out(i)) Σ_j W[i,j] X[j]`` and
     P_bwd = D_I^{-1} Wᵀ, per the DCRNN paper (arXiv 1707.01926).
     """
+    op, graph = _prepared_lookup(graph, ("diffusion_norms",))
+    if op is not None:
+        return op
 
     def build():
         w = graph.masked_weights()

@@ -1,13 +1,14 @@
-"""Training: losses, dtype policies, scaler, per-batch trainer."""
+"""Training: losses, dtype policies, scaler, trainers."""
 
 from .losses import mae, masked_mae_loss, masked_mse_loss, mse
 from .precision import Policy, bf16_policy, f32_policy
 from .scaler import ZScoreScaler
-from .trainer import BatchTrainer
+from .trainer import BatchTrainer, SnapshotTrainer
 
 __all__ = [
     "BatchTrainer",
     "Policy",
+    "SnapshotTrainer",
     "ZScoreScaler",
     "bf16_policy",
     "f32_policy",

@@ -1,9 +1,17 @@
-"""Per-batch seq2seq training (port of the JAX package's ``BatchTrainer``).
+"""Training loops (port of the JAX package's ``train/trainer.py``).
 
-The index-batching protocol: one Adam update per batch, MSE by default, or
-masked MAE on z-score de-normalized values when a scaler is given.  The
-optimizer is ``torch.optim.Adam`` with optax's ``adam`` defaults
-(betas 0.9/0.999, eps 1e-8), so a step matches the JAX trainer's update.
+- :class:`SnapshotTrainer` — the snapshot-loop protocol: loss accumulated
+  over ALL snapshots of a :class:`~..signal.StackedSignal`, one optimizer
+  update per epoch on the mean loss (full-sequence BPTT), optional
+  rematerialization per snapshot.
+- :class:`BatchTrainer` — the index-batching protocol: one update per
+  batch, MSE by default, or masked MAE on z-score de-normalized values
+  when a scaler is given.
+
+The optimizer is ``torch.optim.Adam`` with optax's ``adam`` defaults
+(betas 0.9/0.999, eps 1e-8, no weight decay), so an update matches the JAX
+trainers'.  Every operation of an epoch is dispatched from Python, one
+snapshot after the other.
 """
 
 from __future__ import annotations
@@ -11,9 +19,81 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import losses as losses_lib
+
+
+def _adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+class SnapshotTrainer:
+    """Full-BPTT snapshot-loop training, one Adam update per epoch.
+
+    Args:
+        model: the module whose parameters are trained; moved to ``device``.
+        loss_and_state_fn: ``(carry, x, y, graph) -> (loss, carry)`` called
+            per snapshot; ``carry`` threads recurrent state across
+            snapshots (``()`` or None if stateless).
+        lr: Adam learning rate.
+        remat: run each snapshot under ``torch.utils.checkpoint`` so the
+            backward pass recomputes its activations (memory O(1) in T).
+        device: where the model lives (CUDA unless given "cpu").
+    """
+
+    def __init__(self, model: torch.nn.Module, loss_and_state_fn: Callable,
+                 lr: float = 1e-2, remat: bool = False, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.optimizer = _adam(self.model, lr)
+        if remat:
+            def step(carry, x, y, g):
+                return checkpoint(loss_and_state_fn, carry, x, y, g,
+                                  use_reentrant=False)
+        else:
+            step = loss_and_state_fn
+        self._step = step
+
+    def _epoch_loss(self, signal, init_carry):
+        def body(carry, x, y, g):
+            state, acc = carry
+            loss, state = self._step(state, x, y, g)
+            return (state, acc + loss), ()
+
+        zero = torch.zeros((), device=self.device)
+        (state, total), _ = signal.scan(body, (init_carry, zero))
+        return total / signal.snapshot_count, state
+
+    def train_epoch(self, signal, init_carry=()) -> torch.Tensor:
+        """One update on the mean loss over the signal's snapshots;
+        returns that (detached, on-device) loss."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, _ = self._epoch_loss(signal, init_carry)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def evaluate(self, signal, init_carry=()) -> torch.Tensor:
+        """Mean loss over the signal's snapshots, no update."""
+        loss, _ = self._epoch_loss(signal, init_carry)
+        return loss
+
+    def fit(self, signal, epochs: int, init_carry=(),
+            callback: Optional[Callable] = None, log_every: int = 1):
+        """Run ``epochs`` updates.  The callback receives, every
+        ``log_every`` epochs, the index of the last epoch and its
+        on-device loss — ``float()`` it only if you want to block."""
+        log_every = max(log_every, 1)
+        for epoch in range(epochs):
+            loss = self.train_epoch(signal, init_carry)
+            if callback is not None and (
+                    (epoch + 1) % log_every == 0 or epoch + 1 == epochs):
+                callback(epoch, loss)
+        return self.model
 
 
 class BatchTrainer:
@@ -37,8 +117,7 @@ class BatchTrainer:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.apply_fn = apply_fn if apply_fn is not None else self.model
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.optimizer = _adam(self.model, lr)
         if loss_fn is None:
             if scaler is not None:
                 def loss_fn(pred, target):

@@ -12,9 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
-from pytorch_geometric_temporal_tpu_torch.ops import DiffusionOperators, Graph
-from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+from pytorch_geometric_temporal_tpu_torch import config_override
+from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq, GConvGRU
+from pytorch_geometric_temporal_tpu_torch.ops import (
+    DiffusionOperators, Graph, Prenormalized, bcsr, host_cheb_norm,
+    lambda_max, prenormalize_cheb, spmm_segment, stack_bcsr)
+from pytorch_geometric_temporal_tpu_torch.signal import StackedSignal
+from pytorch_geometric_temporal_tpu_torch.train import SnapshotTrainer, mse
 
 pytestmark = pytest.mark.cuda
 
@@ -74,7 +78,7 @@ def operator_shape(name):
 @pytest.mark.parametrize("shape", ["hybrid", "all-tiles", "all-remainder",
                                    "empty-rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [8, 36, 96, 200])
+@pytest.mark.parametrize("f", [8, 36, 64, 96, 200])
 def test_fused_kernel_matches_plain(cuda, shape, dtype, f):
     ei, w, n, mbe = operator_shape(shape)
     g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
@@ -117,3 +121,117 @@ def test_model_on_card_matches_cpu(cuda):
         with torch.no_grad():
             outs.append(model(x, ops).cpu())
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [14, 1])
+def test_fused_kernel_on_the_chebyshev_operator(cuda, dtype, f):
+    """The snapshot pipeline's ragged widths (F=14: 28-byte bf16 rows;
+    F=1: the power iteration's single column) over an operator with
+    negative weights and cancelling +1/−1 self-loop entries."""
+    ei, w, n, mbe = operator_shape("hybrid")
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    mat = prenormalize_cheb(g, bcsr=True, dtype=dtype,
+                            min_block_edges=mbe).op
+    for half in (mat.fwd, mat.bwd):
+        assert half.nnzb and half.num_rem
+        x = torch.randn(half.num_cols, f, device=cuda).to(dtype)
+        before = bcsr.hybrid_spmm.launches
+        out = bcsr.hybrid_spmm(half, x)
+        ref = bcsr.hybrid_spmm_plain(half, x)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * max(1.0, float(ref.abs().max())))
+        assert bcsr.hybrid_spmm.launches == before + 1
+
+
+def test_one_fused_launch_per_step_of_a_stacked_operator(cuda):
+    rng = np.random.default_rng(5)
+    n, t, f = 1200, 3, 32
+    graphs = []
+    for i in range(t):
+        ei, w = banded(n, 15000 + 2000 * i, seed=10 + i)
+        graphs.append(Graph.from_edge_index(ei, w / 20.0, num_nodes=n,
+                                            device=cuda))
+    stacked = stack_bcsr([bcsr.BCSRMatrix.from_graph(
+        g, dtype=torch.bfloat16, pack=3) for g in graphs])
+    h0 = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(
+        cuda).requires_grad_()
+    bcsr.reset_launch_counts()
+    h = h0
+    for step, (mat_t, g) in enumerate(zip(stacked, graphs)):
+        out = bcsr.bcsr_spmm(mat_t, h)
+        assert bcsr.hybrid_spmm.launches == step + 1
+        # bf16 tiles and bf16-cast activations against the f32 segment
+        # path: 1e-2 of the step's largest value (the values shrink as the
+        # sequence goes on)
+        want = spmm_segment(g, h)
+        torch.testing.assert_close(out, want, rtol=0,
+                                   atol=1e-2 * float(want.abs().max()))
+        h = torch.tanh(out)
+    h.sum().backward()
+    torch.cuda.synchronize()
+    assert (bcsr.hybrid_spmm.launches, bcsr.tile_spmm.launches,
+            bcsr.rem_scatter_.launches) == (2 * t, 0, 0)
+    assert torch.isfinite(h0.grad).all()
+
+
+def test_gconv_gru_over_bcsr_matches_the_segment_path(cuda):
+    n, f = 5000, 14
+    ei, w = banded(n, 100_000, seed=6)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    op = prenormalize_cheb(g, bcsr=True, dtype=torch.bfloat16)
+    seg = Prenormalized(host_cheb_norm(g))
+    cell = GConvGRU(f, 32, 2, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
+    h = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)).to(
+        cuda)
+    bcsr.reset_launch_counts()
+    with torch.no_grad():
+        got = cell(x, op, h)
+        assert bcsr.hybrid_spmm.launches == 3       # bx, bh, bhr
+        with config_override(spmm_backend="segment"):
+            want = cell(x, seg, h)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+def test_snapshot_trainer_launches_with_and_without_remat(cuda):
+    n, f, t = 2000, 6, 3
+    ei, w = banded(n, 30_000, seed=8)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    op = prenormalize_cheb(g, bcsr=True, dtype=torch.bfloat16)
+    rng = np.random.default_rng(9)
+    sig = StackedSignal.from_arrays(rng.normal(size=(t, n, f)),
+                                    rng.normal(size=(t, n)), ei, w)
+    for remat, want in ((False, 5 * t - 1), (True, 8 * t - 1)):
+        cell = GConvGRU(f, 8, 2, generator=torch.Generator().manual_seed(0))
+
+        def loss_and_state(carry, x, y, graph):
+            h = cell(x, op, carry)
+            return mse(h.sum(-1), y), h
+
+        trainer = SnapshotTrainer(cell, loss_and_state, remat=remat)
+        bcsr.reset_launch_counts()
+        loss = trainer.train_epoch(sig, None)
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert bcsr.hybrid_spmm.launches == want
+
+
+def test_lambda_max_through_the_kernel_matches_the_segment_path(cuda):
+    """Above the dense threshold the power iteration aggregates a single
+    column (F=1) through the fused kernel (f32 tiles)."""
+    n = 5000
+    rng = np.random.default_rng(11)
+    s = rng.integers(0, n, size=40_000)
+    r = np.clip(s + rng.integers(1, 30, size=40_000), 0, n - 1)
+    keep = s != r
+    ei = np.stack([np.concatenate([s[keep], r[keep]]),
+                   np.concatenate([r[keep], s[keep]])])
+    g = Graph.from_edge_index(ei, num_nodes=n, device=cuda)
+    bcsr.reset_launch_counts()
+    got = lambda_max(g, iters=16)
+    assert bcsr.hybrid_spmm.launches == 17
+    with config_override(spmm_backend="segment"):
+        want = lambda_max(g, iters=16)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)

@@ -2,6 +2,7 @@
 and its entry points build on CUDA unless given ``device="cpu"``."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -10,40 +11,69 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq, DConv
-from pytorch_geometric_temporal_tpu_torch.ops import DiffusionOperators, Graph
+from pytorch_geometric_temporal_tpu_torch.data import ChickenpoxDatasetLoader
+from pytorch_geometric_temporal_tpu_torch.models import (
+    ChebConv, DCRNNSeq, DConv, GCNConv, GConvGRU)
+from pytorch_geometric_temporal_tpu_torch.ops import (
+    DiffusionOperators, Graph, prenormalize_cheb, prenormalize_gcn,
+    prepare_graph, stack_bcsr_gcn)
+from pytorch_geometric_temporal_tpu_torch.signal import (
+    StackedSignal, StaticGraphTemporalSignal)
 from pytorch_geometric_temporal_tpu_torch.train import (
-    BatchTrainer, ZScoreScaler)
+    BatchTrainer, SnapshotTrainer, ZScoreScaler)
 
 REPO = Path(__file__).parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_temporal_tpu")
 
 PROBE = """
 import json, pkgutil, sys, importlib
+opened = []
+sys.addaudithook(lambda event, args: opened.append(str(args[0]))
+                 if event == "open" else None)
 import pytorch_geometric_temporal_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"modules": sorted(sys.modules), "walked": names}))
+from pytorch_geometric_temporal_tpu_torch.data import ChickenpoxDatasetLoader, _io
+ChickenpoxDatasetLoader().get_dataset(lags=4, device="cpu")[0]
+print(json.dumps({"modules": sorted(sys.modules), "walked": names,
+                  "bundled": str(_io._BUNDLED), "opened": opened}))
 """
 
 
-def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
+def test_port_imports_no_jax(tmp_path):
+    # an empty data search path: the loader must find its file in the
+    # port's own bundle
+    env = dict(os.environ, PGT_TPU_DATA=str(tmp_path), HOME=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, check=True,
                          timeout=120)
     info = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in info["modules"]
            if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
     assert not bad, f"port imported {bad}"
-    for sub in ("ops.bcsr", "csrc", "native", "train.trainer",
-                "models.recurrent.dcrnn"):
+    for sub in ("ops.bcsr", "ops.operators", "csrc", "native",
+                "train.trainer", "models.conv", "models.recurrent.dcrnn",
+                "models.recurrent.gconv_gru", "signal.base",
+                "signal.homogeneous", "signal.snapshot", "signal.split",
+                "signal.stacked", "data._io", "data._common",
+                "data.chickenpox"):
         assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
+    pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
+    # no file inside the JAX package was opened, the port's bundle was
+    jax_pkg = str(REPO / "pytorch_geometric_temporal_tpu") + os.sep
+    assert not [f for f in info["opened"] if f.startswith(jax_pkg)]
+    assert str(pkg / "data" / "bundled" / "chickenpox.json.gz") in info[
+        "opened"]
+    assert Path(info["bundled"]) == pkg / "data" / "bundled"
+    assert (pkg / "data" / "bundled" / "chickenpox.json.gz").is_file()
 
 
 def test_port_sources_name_no_jax_module():
     pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
-    for path in pkg.rglob("*.py"):
+    sources = list(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"signal", "data"} <= {p.parent.name for p in sources}
+    for path in sources:
         for line in path.read_text().splitlines():
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -61,9 +91,22 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Graph.from_edge_index(ei)
     g = Graph.from_edge_index(ei, device="cpu")
+    feats, targs = np.zeros((2, 3, 2)), np.zeros((2, 3))
     for build in (lambda: DiffusionOperators.from_graph(g),
+                  lambda: prenormalize_cheb(g),
+                  lambda: prenormalize_gcn(g),
+                  lambda: prepare_graph(g),
+                  lambda: stack_bcsr_gcn([g]),
                   lambda: DCRNNSeq(2, 4, 2),
                   lambda: DConv(2, 4, 2),
+                  lambda: ChebConv(2, 4, 2),
+                  lambda: GCNConv(2, 4),
+                  lambda: GConvGRU(2, 4, 2),
+                  lambda: StaticGraphTemporalSignal(ei, None, feats, targs),
+                  lambda: StackedSignal.from_arrays(feats, targs, ei),
+                  lambda: ChickenpoxDatasetLoader().get_dataset(),
+                  lambda: SnapshotTrainer(GConvGRU(2, 4, 2, device="cpu"),
+                                          lambda c, x, y, gr: (x.sum(), c)),
                   lambda: ZScoreScaler.fit(np.ones(3)),
                   lambda: BatchTrainer(DCRNNSeq(2, 4, 2, device="cpu"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
