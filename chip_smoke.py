@@ -11,9 +11,9 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
 2. kernels against their plain PyTorch versions on the card: the fused
    hybrid SpMM (the main path) and its baseline pair K1 (tile SpMM) and K2
    (remainder scatter) on f32 and bf16 tiles, both halves, F in {1, 8,
-   14, 32, 36, 64, 96, 200} (1, 14 and 36 ragged), a hybrid operator, an
-   all-tiles operator, an all-remainder operator and a graph with empty
-   row blocks; then at the
+   14, 16, 32, 36, 64, 96, 200} (1, 14 and 36 ragged), a hybrid operator, an
+   all-tiles operator, an all-remainder operator, a graph with empty row
+   blocks and a GCN-normalized operator (self-loop diagonal); then at the
    slice's own shapes, where each kernel is also timed (CUDA events, L2
    flushed before each launch) beside its byte/op bound, its plain version
    and one ``torch.sparse.mm`` over the same operator as CSR (a yardstick
@@ -41,13 +41,31 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    F=64, the fused kernel against its plain version on every step's two
    halves at that width, every step against ``spmm_segment`` on that
    step's graph and the gradient to h0 against the segment path's, T + T
-   fused launches.
+   fused launches;
+8. the eight bundled-data accuracy protocols at their full epoch counts
+   (PedalMe: DCRNN, TGCN, A3TGCN; TwitterTennis rg17: EvolveGCN-O,
+   EvolveGCN-H, DyGrEncoder; EnglandCovid: DCRNN; MontevideoBus:
+   GConvGRU): test MSE beside the JAX package's TPU v5e record, seconds
+   per epoch; small graphs on the dense branch, no BCSR kernel launched;
+9. TGCN(32->32) + relu + Linear(32->1) with the hidden state threaded
+   through ``SnapshotTrainer`` over the 50,000-node graph prepared once as
+   a bf16-tile GCN BCSR operator (``prepare_graph(kinds=("gcn",))``, which
+   ``gcn_norm`` hands to the cell's three ``GCNConv``s): forward and
+   parameter gradients against the f32 segment path, 6T fused launches an
+   epoch, the device's busy time by kernel, and the fused kernel timed at
+   F=32 on this operator;
+10. EvolveGCN-O and EvolveGCN-H as ``Seq`` models (``normalize=False``,
+   F=16) over ``stack_bcsr_gcn`` of phase 7's four graphs, against the
+   same models normalizing in the loop over ``stack_graphs`` on the f32
+   segment path (outputs per step, parameter gradients), T + T fused
+   launches a model, and the fused kernel against its plain version at
+   F=16 on every half, timed.
 
 Exits non-zero, and prints no result, without CUDA or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line before
 it holds the per-kernel JSON record, its launch counts summed over phases
-3, 6 and 7; the fused kernel's time and share of its bound at each path's
-own width stand on the line before the total.
+3, 6, 7, 9 and 10; the fused kernel's time and share of its bound at each
+path's own width stand on the line before the total.
 """
 
 import json
@@ -76,6 +94,26 @@ FWD_TOL, GRAD_TOL = 2e-2, 3e-2
 # value, gradient to h0 2.1e-3 relative)
 CHEB_FWD_TOL, CHEB_BASIS_TOL, CHEB_GRAD_TOL = 5e-3, 6e-3, 2e-2
 DYN_STEP_TOL, DYN_GRAD_TOL = 1e-2, 6e-3
+# phase 8: epochs of each protocol, and the JAX package's record of the same
+# protocol on a TPU v5e (another framework's initial draw)
+PROTOCOLS = {
+    "pedalme_dcrnn": (200, 0.6842),
+    "pedalme_tgcn": (50, 0.5911),
+    "pedalme_a3tgcn": (50, 0.5697),
+    "twittertennis_evolvegcno": (200, 0.2928),
+    "twittertennis_evolvegcnh": (200, 0.2769),
+    "twittertennis_dygrae": (200, 0.2448),
+    "englandcovid_dcrnn": (100, 0.9235),
+    "montevideobus_gconvgru": (50, 0.9251),
+}
+TGCN = dict(f=32, hidden=32, t=8, epochs=5, timed_epochs=10)
+EVOLVE = dict(f=16)
+# phases 9 and 10: about three times the errors read on an H100 (phase 9:
+# forward 4.9e-4, parameter gradients 3.3e-2 relative, the worst on the r
+# gate, whose gradient is ~1e-5 in size; phase 10: steps 3.9e-3 to 5.6e-3
+# of each step's largest value, parameter gradients 1.4e-4 relative)
+TGCN_FWD_TOL, TGCN_GRAD_TOL = 1.5e-3, 1e-1
+EVO_STEP_TOL, EVO_GRAD_TOL = 1.7e-2, 5e-4
 
 
 def log(*a):
@@ -169,28 +207,31 @@ def phase_card(torch):
 
 
 def phase_kernel_cases(torch):
-    from pytorch_geometric_temporal_tpu_torch.ops import Graph, bcsr
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        Graph, bcsr, host_gcn_norm)
     from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
 
     rng = np.random.default_rng(0)
     n = 1000
     ei, w = banded_graph(rng, n, 20_000, band=40, frac_local=0.96)
+    whole = Graph.from_edge_index(ei, w, num_nodes=n)
     # empty row blocks: nodes 384..639 (row blocks 3 and 4) get no edges
     keep = ~((ei[1] >= 384) & (ei[1] < 640))
     graphs = {
-        "hybrid": (ei, w, 32),
-        "all-tiles": (ei, w, 0),
-        "all-remainder": (ei, w, 10**6),
-        "empty-rows": (ei[:, keep], w[keep], 32),
+        "hybrid": (whole, 32),
+        "all-tiles": (whole, 0),
+        "all-remainder": (whole, 10**6),
+        "empty-rows": (Graph.from_edge_index(ei[:, keep], w[keep],
+                                             num_nodes=n), 32),
+        "gcn": (host_gcn_norm(whole), 32),
     }
     worst = 0.0
-    for name, (e_i, e_w, mbe) in graphs.items():
-        g = Graph.from_edge_index(e_i, e_w, num_nodes=n)
+    for name, (g, mbe) in graphs.items():
         for dtype in (torch.float32, torch.bfloat16):
             mat = BCSRMatrix.from_graph(g, dtype=dtype, min_block_edges=mbe)
             for side in ("fwd", "bwd"):
                 half = getattr(mat, side)
-                for f in (1, 8, 14, 32, 36, 64, 96, 200):
+                for f in (1, 8, 14, 16, 32, 36, 64, 96, 200):
                     x = torch.randn(half.num_cols, f, device="cuda")
                     x = x.to(dtype)
                     errs = check_kernels(torch, bcsr, half, x)
@@ -589,17 +630,15 @@ def launch_counts(bcsr):
             "K2": bcsr.rem_scatter_.launches}
 
 
-def make_net(torch, in_channels, hidden, K, seed):
-    """GConvGRU + relu + Linear(hidden -> 1), the reference examples'
-    network; returns (prediction (N,), hidden state).  Weights from
-    ``seed``."""
-    from pytorch_geometric_temporal_tpu_torch.models import GConvGRU
+def make_net(torch, make_cell, hidden, seed):
+    """cell + relu + Linear(hidden -> 1), the reference examples' network;
+    returns (prediction (N,), hidden state).  ``make_cell(generator)``
+    builds the recurrent cell; weights from ``seed``."""
 
     class Net(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            gen = torch.Generator().manual_seed(seed)
-            self.recurrent = GConvGRU(in_channels, hidden, K, generator=gen)
+            self.recurrent = make_cell(torch.Generator().manual_seed(seed))
             torch.manual_seed(seed)
             self.linear = torch.nn.Linear(hidden, 1)
 
@@ -608,6 +647,30 @@ def make_net(torch, in_channels, hidden, K, seed):
             return self.linear(torch.relu(h))[..., 0], h
 
     return Net().to("cuda")
+
+
+def gconv_gru_net(torch, in_channels, hidden, K, seed):
+    from pytorch_geometric_temporal_tpu_torch.models import GConvGRU
+
+    return make_net(torch, lambda gen: GConvGRU(in_channels, hidden, K,
+                                                generator=gen), hidden, seed)
+
+
+def threaded_outputs_and_grads(torch, net, signal, operator):
+    """Predictions of every snapshot with the hidden state threaded, and the
+    parameter gradients of the mean snapshot MSE, over ``operator``."""
+    from pytorch_geometric_temporal_tpu_torch.train import mse
+
+    def step(carry, x, y, graph):
+        h, acc = carry
+        out, h = net(x, operator, h)
+        return (h, acc + mse(out, y)), out
+
+    zero = torch.zeros((), device="cuda")
+    (_, total), outs = signal.scan(step, (None, zero))
+    grads = torch.autograd.grad(total / signal.snapshot_count,
+                                list(net.parameters()))
+    return outs.detach(), grads
 
 
 def phase_chickenpox(torch):
@@ -627,7 +690,7 @@ def phase_chickenpox(torch):
     test = StackedSignal.from_signal(test_sig)
     if train.features.device.type != "cuda":
         raise SystemExit("the signal is not on the card")
-    net = make_net(torch, 4, 32, K=1, seed=42)
+    net = gconv_gru_net(torch, 4, 32, K=1, seed=42)
 
     def loss_and_state(carry, x, y, g):
         return mse(net(x, g)[0], y), carry
@@ -676,11 +739,52 @@ def cheb_launches(T, K, epochs):
     return (n_fwd + n_bwd) * epochs
 
 
+def counted_epochs(torch, trainer, signal, c, kernel_report, want, edges):
+    """``c["epochs"]`` epochs of ``trainer`` over ``signal`` (hidden state
+    threaded from None) with every launch counted against ``want``, then
+    ``c["timed_epochs"]`` timed on the host clock and two under the
+    profiler.  Returns the device's busy ms per epoch (None if the profiler
+    recorded no device time)."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    T = signal.snapshot_count
+    trainer.train_epoch(signal, None)   # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    bcsr.reset_launch_counts()
+    losses = [float(trainer.train_epoch(signal, None))
+              for _ in range(c["epochs"])]
+    launches = launch_counts(bcsr)
+    log(f"  launches over {c['epochs']} epochs: fused {launches['H']} "
+        f"(expected {want}: {want // c['epochs']} an epoch), K1 "
+        f"{launches['K1']} and K2 {launches['K2']} (expected 0)")
+    if launches != {"H": want, "K1": 0, "K2": 0}:
+        raise SystemExit("launch counts differ from the model's count")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"losses not finite or not falling: {losses}")
+    log(f"  losses {['%.6f' % v for v in losses]}")
+    kernel_report["H"]["launches"] += launches["H"]
+    epoch_s = []
+    for _ in range(c["timed_epochs"]):
+        t0 = time.perf_counter()
+        trainer.train_epoch(signal, None)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    med = statistics.median(epoch_s)
+    log(f"  epoch time over {len(epoch_s)} epochs (host clock, "
+        f"synchronized): median {med * 1e3:.3f} ms, min "
+        f"{min(epoch_s) * 1e3:.3f} ms, max {max(epoch_s) * 1e3:.3f} ms; "
+        f"{edges * T * 3 / med:.4e} edges/s (E*T*3/epoch, forward "
+        f"aggregations); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return profile_steps(torch, lambda: trainer.train_epoch(signal, None),
+                         med * 1e3, unit="epoch")
+
+
 def phase_cheb(torch, kernel_report):
     from pytorch_geometric_temporal_tpu_torch import config_override
     from pytorch_geometric_temporal_tpu_torch.models import cheb_basis
     from pytorch_geometric_temporal_tpu_torch.ops import (
-        Graph, Prenormalized, bcsr, host_cheb_norm, prenormalize_cheb)
+        Graph, Prenormalized, host_cheb_norm, prenormalize_cheb)
     from pytorch_geometric_temporal_tpu_torch.signal import StackedSignal
     from pytorch_geometric_temporal_tpu_torch.train import (
         SnapshotTrainer, mse)
@@ -730,27 +834,16 @@ def phase_cheb(torch, kernel_report):
         raise SystemExit("cheb_basis over BCSR does not match the segment "
                          "path")
 
-    net = make_net(torch, lags, c["hidden"], c["K"], seed=1)
+    net = gconv_gru_net(torch, lags, c["hidden"], c["K"], seed=1)
 
     def loss_and_state(carry, x, y, graph):
         out, h = net(x, op, carry)
         return mse(out, y), h
 
     # forward and parameter gradients against the f32 segment path
-    def outputs_and_grads(operator):
-        def step(carry, x, y, graph):
-            h, acc = carry
-            out, h = net(x, operator, h)
-            return (h, acc + mse(out, y)), out
-
-        zero = torch.zeros((), device="cuda")
-        (_, total), outs = signal.scan(step, (None, zero))
-        grads = torch.autograd.grad(total / T, list(net.parameters()))
-        return outs.detach(), grads
-
-    out_b, grads_b = outputs_and_grads(op)
+    out_b, grads_b = threaded_outputs_and_grads(torch, net, signal, op)
     with config_override(spmm_backend="segment"):
-        out_s, grads_s = outputs_and_grads(seg)
+        out_s, grads_s = threaded_outputs_and_grads(torch, net, signal, seg)
     torch.cuda.synchronize()
     fwd_err = float((out_b - out_s).abs().max())
     grad_rel = max(float((gb - gs).abs().max() / gs.abs().max())
@@ -763,37 +856,9 @@ def phase_cheb(torch, kernel_report):
                          "path")
 
     trainer = SnapshotTrainer(net, loss_and_state, lr=1e-2)
-    trainer.train_epoch(signal, None)   # warm-up (allocator, cuBLAS)
-    torch.cuda.synchronize()
-    bcsr.reset_launch_counts()
-    losses = [float(trainer.train_epoch(signal, None))
-              for _ in range(c["epochs"])]
-    launches = launch_counts(bcsr)
-    want = cheb_launches(T, c["K"], c["epochs"])
-    log(f"  launches over {c['epochs']} epochs: fused {launches['H']} "
-        f"(expected {want}: {want // c['epochs']} an epoch), K1 "
-        f"{launches['K1']} and K2 {launches['K2']} (expected 0)")
-    if launches != {"H": want, "K1": 0, "K2": 0}:
-        raise SystemExit("launch counts differ from the model's count")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit(f"losses not finite or not falling: {losses}")
-    log(f"  losses {['%.6f' % v for v in losses]}")
-    kernel_report["H"]["launches"] += launches["H"]
-    epoch_s = []
-    for _ in range(c["timed_epochs"]):
-        t0 = time.perf_counter()
-        trainer.train_epoch(signal, None)
-        torch.cuda.synchronize()
-        epoch_s.append(time.perf_counter() - t0)
-    med = statistics.median(epoch_s)
-    log(f"  epoch time over {len(epoch_s)} epochs (host clock, "
-        f"synchronized): median {med * 1e3:.3f} ms, min "
-        f"{min(epoch_s) * 1e3:.3f} ms, max {max(epoch_s) * 1e3:.3f} ms; "
-        f"{ei.shape[1] * T * 3 / med:.4e} edges/s (E*T*3/epoch, forward "
-        f"aggregations); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    busy_ms = profile_steps(torch, lambda: trainer.train_epoch(signal, None),
-                            med * 1e3, unit="epoch")
+    busy_ms = counted_epochs(torch, trainer, signal, c, kernel_report,
+                             cheb_launches(T, c["K"], c["epochs"]),
+                             ei.shape[1])
 
     # the copies around each aggregation in bcsr_spmm (node padding, cast
     # to bf16, and backward the padded gradient of the output slice),
@@ -820,17 +885,15 @@ def operator_bytes(mat):
                for v in vars(half).values() if hasattr(v, "element_size"))
 
 
-def phase_dynamic(torch, kernel_report):
-    from pytorch_geometric_temporal_tpu_torch.ops import (
-        BCSRMatrix, Graph, bcsr, bcsr_spmm, spmm_segment, stack_bcsr)
+def dynamic_graphs(rng):
+    """The T graphs of phases 7 and 10 (the first draws of ``rng``): banded,
+    weights normalized by the weighted in-degree."""
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph
 
     c = DYNAMIC
-    n, T, f = c["n"], c["t"], c["f"]
-    e = n * c["deg"]
-    rng = np.random.default_rng(c["seed"])
-    t0 = time.perf_counter()
+    n, e = c["n"], c["n"] * c["deg"]
     graphs = []
-    for _ in range(T):
+    for _ in range(c["t"]):
         s = rng.integers(0, n, size=e)
         r = np.clip(s + rng.integers(-c["band"], c["band"] + 1, size=e),
                     0, n - 1)
@@ -838,21 +901,16 @@ def phase_dynamic(torch, kernel_report):
         d = np.bincount(r, weights=w, minlength=n).astype(np.float32)
         graphs.append(Graph.from_edge_index(
             np.stack([s, r]), w / np.maximum(d[r], 1e-6), num_nodes=n))
-    stacked = stack_bcsr([
-        BCSRMatrix.from_graph(g, dtype=torch.bfloat16,
-                              min_block_edges="auto", pack=3)
-        for g in graphs])
-    sizes = [operator_bytes(m) for m in stacked]
-    log(f"  T={T} graphs of N={n}, E={e} each: operators built in "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{[round(b / 2**20, 1) for b in sizes]} MiB on the card "
-        f"({sum(sizes) / 2**20:.1f} MiB in all, unpadded); "
-        + ", ".join(f"t={t}: nnzb={m.fwd.nnzb} rem={m.fwd.num_rem}"
-                    for t, m in enumerate(stacked)))
-    h0 = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
+    return graphs
 
-    # the fused kernel against its plain version on every step's operator,
-    # both halves, at this path's width; timed beside its bound
+
+def fused_on_every_half(torch, stacked, f, kernel_report, label):
+    """The fused kernel against its plain version on every step's two
+    halves at width ``f``, each timed beside its bound; the slowest half
+    (they hold equal work) is timed again to tell a slow half from a slow
+    moment, and stands for the path in the report."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
     reports = []
     for t, mat in enumerate(stacked):
         for side in ("fwd", "bwd"):
@@ -867,14 +925,38 @@ def phase_dynamic(torch, kernel_report):
             kernel_report["H"]["max_abs_err"] = max(
                 kernel_report["H"]["max_abs_err"], k["max_abs_err"])
             reports.append((k["ms"], len(reports), k, half, x))
-    # the halves hold equal work; the slowest is timed again to tell a slow
-    # half from a slow moment
     _, _, worst, half, x = max(reports)
     again = cold_ms(torch, lambda: bcsr.hybrid_spmm(half, x))
     log(f"  fused over the {len(reports)} halves: {min(reports)[0]:.4f} to "
         f"{worst['ms']:.4f} ms; the slowest timed again: {again:.4f} ms")
     kernel_report["paths"].append(
-        (f"dynamic F={f} (slowest of {len(reports)} halves)", worst))
+        (f"{label} F={f} (slowest of {len(reports)} halves)", worst))
+
+
+def phase_dynamic(torch, kernel_report):
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        BCSRMatrix, bcsr, bcsr_spmm, spmm_segment, stack_bcsr)
+
+    c = DYNAMIC
+    n, T, f = c["n"], c["t"], c["f"]
+    e = n * c["deg"]
+    rng = np.random.default_rng(c["seed"])
+    t0 = time.perf_counter()
+    graphs = dynamic_graphs(rng)
+    stacked = stack_bcsr([
+        BCSRMatrix.from_graph(g, dtype=torch.bfloat16,
+                              min_block_edges="auto", pack=3)
+        for g in graphs])
+    sizes = [operator_bytes(m) for m in stacked]
+    log(f"  T={T} graphs of N={n}, E={e} each: operators built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{[round(b / 2**20, 1) for b in sizes]} MiB on the card "
+        f"({sum(sizes) / 2**20:.1f} MiB in all, unpadded); "
+        + ", ".join(f"t={t}: nnzb={m.fwd.nnzb} rem={m.fwd.num_rem}"
+                    for t, m in enumerate(stacked)))
+    h0 = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
+
+    fused_on_every_half(torch, stacked, f, kernel_report, "dynamic")
 
     def run(h, aggregate, operators):
         outs = []
@@ -941,6 +1023,234 @@ def phase_dynamic(torch, kernel_report):
             f"{rates[-1]:.4e}")
 
 
+def phase_protocols(torch):
+    """The eight bundled-data accuracy protocols at their full epoch
+    counts."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+    from pytorch_geometric_temporal_tpu_torch.ops.spmm import _resolve_backend
+    from pytorch_geometric_temporal_tpu_torch.protocols import (
+        RUNS, bundled_accuracy)
+
+    for dataset in ("pedalme", "twittertennis", "englandcovid",
+                    "montevideobus"):
+        train, test = bundled_accuracy._signals(dataset, "cuda")
+        backend = _resolve_backend(train.graph(0), train.features[0], None)
+        log(f"  {dataset}: N={train.num_nodes}, E<={train.num_edges}, "
+            f"{train.snapshot_count} training and {test.snapshot_count} "
+            f"test snapshots, a graph per snapshot: {train.graph_dynamic}; "
+            f"aggregation backend {backend}")
+        if train.features.device.type != "cuda" or backend != "dense":
+            raise SystemExit(f"{dataset} is not on the card's dense branch")
+    bcsr.reset_launch_counts()
+    for name, (epochs, record) in PROTOCOLS.items():
+        run = RUNS[name](epochs)
+        log(f"  {name}: {epochs} epochs in {run.seconds:.2f} s "
+            f"({run.seconds / epochs:.4f} s per epoch, host clock); training "
+            f"MSE {run.losses[0]:.4f} -> {run.losses[-1]:.4f}; test MSE "
+            f"{run.test_mse:.4f} (JAX package, TPU v5e record {record:.4f}: "
+            f"{100 * (run.test_mse - record) / record:+.1f}%)")
+        if not (len(run.losses) == epochs and all(np.isfinite(run.losses))
+                and np.isfinite(run.test_mse)):
+            raise SystemExit(f"{name}: non-finite loss")
+        if not run.losses[-1] < run.losses[0]:
+            raise SystemExit(f"{name}: the training loss did not fall")
+    if any(launch_counts(bcsr).values()):
+        raise SystemExit("a bundled protocol launched a BCSR kernel")
+    log("  no BCSR kernel launched (expected: small graphs, dense branch)")
+
+
+def tgcn_launches(T, epochs):
+    """Fused-kernel launches of ``epochs`` epochs of TGCN over a BCSR GCN
+    operator.
+
+    Forward: per snapshot three GCNConvs (z, r, h), each one aggregation of
+    X·W.  Backward: one launch on the transposed half per forward one —
+    every aggregated X·W depends on a parameter, at t=0 too.
+    """
+    return (3 * T + 3 * T) * epochs
+
+
+def phase_tgcn(torch, kernel_report):
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import TGCN as TGCNCell
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph, prepare_graph
+    from pytorch_geometric_temporal_tpu_torch.signal import StackedSignal
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        SnapshotTrainer, mse)
+
+    c, n = TGCN, SLICE["n"]
+    T, f = c["t"], c["f"]
+    rng = np.random.default_rng(SLICE["seed"])
+    t0 = time.perf_counter()
+    ei, w = slice_graph(rng)
+    g = Graph.from_edge_index(ei, w, num_nodes=n)
+    key = ("gcn_norm", False, True)
+    prepared = prepare_graph(g, kinds=("gcn",), bcsr=True,
+                             dtype=torch.bfloat16)
+    g_seg = Graph.from_edge_index(ei, w, num_nodes=n)
+    seg = prepare_graph(g_seg, kinds=("gcn",), bcsr=False)
+    mat = prepared.ops[key]
+    signal = StackedSignal.from_arrays(
+        rng.normal(size=(T, n, f)).astype(np.float32),
+        rng.normal(size=(T, n)).astype(np.float32), ei, w)
+    log(f"  graph N={n} E={ei.shape[1]}: GCN operator "
+        f"({seg.ops[key].num_edges} entries, self-loops included) built in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"{s}: nnzb={getattr(mat, s).nnzb} "
+                    f"rem={getattr(mat, s).num_rem}" for s in ("fwd", "bwd")))
+
+    half = mat.fwd
+    x = torch.randn(half.num_cols, c["hidden"], device="cuda").to(
+        half.blocks.dtype)
+    k = fused_report(torch, half, x)
+    log_kernel(f"fused hybrid_spmm F={c['hidden']}", k)
+    log(f"    fused / torch.sparse.mm {k['ms'] / k['library_ms']:.3f}; "
+        f"err {k['max_abs_err']:.2e}")
+    kernel_report["H"]["max_abs_err"] = max(
+        kernel_report["H"]["max_abs_err"], k["max_abs_err"])
+    kernel_report["paths"].append((f"GCN F={c['hidden']}", k))
+
+    net = make_net(torch, lambda gen: TGCNCell(f, c["hidden"],
+                                               generator=gen),
+                   c["hidden"], seed=2)
+
+    # forward and parameter gradients against the f32 segment path
+    out_b, grads_b = threaded_outputs_and_grads(torch, net, signal, prepared)
+    with config_override(spmm_backend="segment"):
+        out_s, grads_s = threaded_outputs_and_grads(torch, net, signal, seg)
+    torch.cuda.synchronize()
+    fwd_err = float((out_b - out_s).abs().max())
+    grad_rel = max(float((gb - gs).abs().max() / gs.abs().max())
+                   for gb, gs in zip(grads_b, grads_s))
+    log(f"  vs segment path over T={T} threaded snapshots: forward max abs "
+        f"err {fwd_err:.3e} (tol {TGCN_FWD_TOL}), parameter-gradient max "
+        f"rel err {grad_rel:.3e} (tol {TGCN_GRAD_TOL})")
+    if not (fwd_err <= TGCN_FWD_TOL and grad_rel <= TGCN_GRAD_TOL):
+        raise SystemExit("TGCN over BCSR does not match the segment path")
+
+    def loss_and_state(carry, x, y, graph):
+        out, h = net(x, prepared, carry)
+        return mse(out, y), h
+
+    trainer = SnapshotTrainer(net, loss_and_state, lr=1e-2)
+    counted_epochs(torch, trainer, signal, c, kernel_report,
+                   tgcn_launches(T, c["epochs"]), ei.shape[1])
+    # the three GCNConvs normalize (normalize=True): gcn_norm must have
+    # handed them the prepared operator and never normalized the raw graph
+    if any(k[0] == "gcn_norm" for k in getattr(g, "_op_cache", {})):
+        raise SystemExit("gcn_norm ran on the raw graph inside the loop")
+    log("  no normalization ran inside the loop")
+
+
+def phase_evolve(torch, kernel_report):
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import (
+        EvolveGCNHSeq, EvolveGCNOSeq)
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        bcsr, stack_bcsr_gcn, stack_graphs)
+    from pytorch_geometric_temporal_tpu_torch.train import mse
+
+    c = DYNAMIC
+    n, T, f = c["n"], c["t"], EVOLVE["f"]
+    rng = np.random.default_rng(c["seed"])
+    t0 = time.perf_counter()
+    graphs = dynamic_graphs(rng)
+    stacked = stack_bcsr_gcn(graphs, dtype=torch.bfloat16)
+    dynamic = stack_graphs(graphs)
+    log(f"  T={T} graphs of N={n}, E={n * c['deg']} each (+{n} self-loops): "
+        f"GCN operators built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(operator_bytes(m) for m in stacked) / 2**20:.1f} MiB on the "
+        f"card; "
+        + ", ".join(f"t={t}: nnzb={m.fwd.nnzb} rem={m.fwd.num_rem}"
+                    for t, m in enumerate(stacked)))
+    fused_on_every_half(torch, stacked, f, kernel_report, "stacked GCN")
+
+    xs = torch.from_numpy(rng.normal(size=(T, n, f)).astype(np.float32)
+                          ).cuda()
+    ys = torch.from_numpy(rng.normal(size=(T, n, f)).astype(np.float32)
+                          ).cuda()
+    models = {
+        "EvolveGCNOSeq": lambda **kw: EvolveGCNOSeq(f, **kw),
+        "EvolveGCNHSeq": lambda **kw: EvolveGCNHSeq(n, f, **kw),
+    }
+    for name, make in models.items():
+        over_ops = make(normalize=False,
+                        generator=torch.Generator().manual_seed(3))
+        in_loop = make(normalize=True)
+        in_loop.load_state_dict(over_ops.state_dict())
+
+        def outputs_and_grads(model, graph):
+            out = model(xs, graph)
+            grads = torch.autograd.grad(mse(out, ys),
+                                        list(model.parameters()))
+            return out.detach(), grads
+
+        bcsr.reset_launch_counts()
+        with torch.no_grad():
+            over_ops(xs, stacked)
+        fwd_only = launch_counts(bcsr)["H"]
+        out_b, grads_b = outputs_and_grads(over_ops, stacked)
+        torch.cuda.synchronize()
+        launches = launch_counts(bcsr)
+        log(f"  {name}: launches fused {fwd_only} forward alone, then "
+            f"{launches['H'] - fwd_only} forward and backward (expected {T} "
+            f"and {2 * T}: one per step's aggregation of X·W_t, one on the "
+            f"transposed half for its gradient), K1 {launches['K1']} and K2 "
+            f"{launches['K2']} (expected 0)")
+        if (fwd_only, launches) != (T, {"H": 3 * T, "K1": 0, "K2": 0}):
+            raise SystemExit(f"{name}: launch counts differ from T forward "
+                             "+ T backward")
+        kernel_report["H"]["launches"] += launches["H"]
+        with config_override(spmm_backend="segment"):
+            out_s, grads_s = outputs_and_grads(in_loop, dynamic)
+        torch.cuda.synchronize()
+        step_err = [float((out_b[t] - out_s[t]).abs().max()
+                          / out_s[t].abs().max()) for t in range(T)]
+        names = [k for k, _ in over_ops.named_parameters()]
+        grad_rel = {k: float((gb - gs).abs().max() / gs.abs().max())
+                    for k, gb, gs in zip(names, grads_b, grads_s)}
+        worst = max(grad_rel, key=grad_rel.get)
+        log(f"    vs normalize=True over stack_graphs on the f32 segment "
+            f"path: per-step max abs err "
+            f"{['%.3e' % v for v in step_err]} of each step's largest value "
+            f"(tol {EVO_STEP_TOL}); parameter gradients max rel err "
+            f"{grad_rel[worst]:.3e} at {worst}, initial_weight "
+            f"{grad_rel['cell.initial_weight']:.3e} (tol {EVO_GRAD_TOL})")
+        if not (max(step_err) <= EVO_STEP_TOL
+                and grad_rel[worst] <= EVO_GRAD_TOL):
+            raise SystemExit(f"{name} over stack_bcsr_gcn does not match "
+                             "the segment path")
+        try:
+            in_loop(xs, stacked)
+        except ValueError as exc:
+            log(f"    normalize=True over the stacked operator raises: "
+                f"{str(exc)[:60]}...")
+        else:
+            raise SystemExit(f"{name}(normalize=True) accepted a stacked "
+                             "BCSR operator")
+
+        def sequence_ms(model, graph, reps=10):
+            times = []
+            with torch.no_grad():
+                model(xs, graph)
+                for _ in range(reps):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    model(xs, graph)
+                    b.record()
+                    b.synchronize()
+                    times.append(a.elapsed_time(b))
+            return statistics.median(times)
+
+        ms_b = sequence_ms(over_ops, stacked)
+        with config_override(spmm_backend="segment"):
+            ms_s = sequence_ms(in_loop, dynamic)
+        log(f"    forward sequence (CUDA events, median of 10): over the "
+            f"stacked operators {ms_b:.4f} ms; normalizing in the loop on "
+            f"the segment path {ms_s:.4f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -970,6 +1280,12 @@ def main() -> int:
     phase_cheb(torch, report)
     log("== phase 7: dynamic-edge sequence over stack_bcsr")
     phase_dynamic(torch, report)
+    log("== phase 8: the bundled-data accuracy protocols")
+    phase_protocols(torch)
+    log("== phase 9: TGCN training at N=50k over a GCN BCSR operator")
+    phase_tgcn(torch, report)
+    log("== phase 10: EvolveGCN-O/H over stack_bcsr_gcn")
+    phase_evolve(torch, report)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"

@@ -6,9 +6,10 @@ package imports torch and numpy only — never JAX, flax, optax or the JAX
 package.  Entry points build on CUDA unless given ``device="cpu"``.
 
 Sub-packages: ``ops`` (graphs, normalizations, spmm, BCSR operators),
-``models`` (DCRNN family, ChebConv/GCNConv, GConvGRU), ``signal`` (snapshot
-iterators and the stacked signal), ``data`` (loaders; Chickenpox from the
-package's own bundle) and ``train`` (snapshot and batch trainers).  The
+``models`` (the convolutions and the recurrent cells), ``signal`` (snapshot
+iterators and the stacked signal), ``data`` (loaders of the five datasets
+bundled with the package), ``train`` (snapshot and batch trainers) and
+``protocols`` (the accuracy protocols on the bundled data).  The
 hybrid block-sparse aggregation (``ops/bcsr.py``) runs through a CUDA
 kernel written for Hopper (``csrc/hybrid_spmm.cu``), compiled with nvcc at
 first use.

@@ -1,7 +1,46 @@
-"""Model zoo (so far: the DCRNN family, ChebConv/GCNConv and GConvGRU)."""
+"""Model zoo: the convolutions and the recurrent cells (the attention family
+and the heterogeneous models are not ported yet)."""
 
-from .conv import ChebConv, GCNConv, cheb_basis, gcn_conv_fixed_w
-from .recurrent import DCRNN, DCRNNSeq, DConv, GConvGRU, diffusion_basis
+from . import conv  # noqa: F401
+from .conv import (
+    AVWGCN,
+    ChebConv,
+    GatedGraphConv,
+    GCNConv,
+    RGCNConv,
+    cheb_basis,
+    gcn_conv_fixed_w,
+    topk_pool,
+)
+from .recurrent import (
+    AGCRN,
+    A3TGCN,
+    A3TGCN2,
+    DConv,
+    DCRNN,
+    DCRNNSeq,
+    DyGrEncoder,
+    EvolveGCNH,
+    EvolveGCNHSeq,
+    EvolveGCNO,
+    EvolveGCNOSeq,
+    GCLSTM,
+    GConvGRU,
+    GConvLSTM,
+    LRGCN,
+    MPNNLSTM,
+    TGCN,
+    TGCN2,
+    diffusion_basis,
+    diffusion_basis_reference,
+    split_relations,
+)
 
-__all__ = ["ChebConv", "DCRNN", "DCRNNSeq", "DConv", "GCNConv", "GConvGRU",
-           "cheb_basis", "diffusion_basis", "gcn_conv_fixed_w"]
+__all__ = [
+    "AGCRN", "A3TGCN", "A3TGCN2", "AVWGCN", "ChebConv", "DCRNN", "DCRNNSeq",
+    "DConv", "DyGrEncoder", "EvolveGCNH", "EvolveGCNHSeq", "EvolveGCNO",
+    "EvolveGCNOSeq", "GCLSTM", "GCNConv", "GConvGRU", "GConvLSTM",
+    "GatedGraphConv", "LRGCN", "MPNNLSTM", "RGCNConv", "TGCN", "TGCN2",
+    "cheb_basis", "diffusion_basis", "diffusion_basis_reference",
+    "gcn_conv_fixed_w", "split_relations", "topk_pool",
+]

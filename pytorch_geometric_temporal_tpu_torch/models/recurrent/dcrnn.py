@@ -16,11 +16,12 @@ import torch
 from torch import nn
 
 from ..._device import resolve_device
-from ...ops.graph import diffusion_norms
+from ...ops.graph import Graph, diffusion_norms
 from ...ops.operators import DiffusionOperators
-from ...ops.spmm import spmm
+from ...ops.spmm import spmm, spmm_segment
+from .._cells import FlaxModule, glorot, zeros
 from .._validate import check_node_axis
-from ..conv import cat_features, flax_params, glorot, load_param, zeros
+from ..conv import cat_features
 
 
 def diffusion_basis(graph, x: torch.Tensor, K: int) -> torch.Tensor:
@@ -47,37 +48,87 @@ def diffusion_basis(graph, x: torch.Tensor, K: int) -> torch.Tensor:
     return cat_features(out)
 
 
-class DConv(nn.Module):
+def diffusion_basis_reference(graph: Graph, x: torch.Tensor,
+                              K: int) -> torch.Tensor:
+    """The basis as upstream PyTorch Geometric Temporal's ``DConv`` computes
+    it, quirks included (``compat='reference'``):
+
+    1. **Unweighted messages**: edge weights enter only through the
+       (weighted) degree norms, never the messages.
+    2. **Misaligned reverse norms**: the reverse edge list is sorted by
+       (receiver, sender), but the norms applied to it are
+       ``1/deg_in[sender]`` in the ORIGINAL edge order.
+    3. **Frozen recurrence**: every hop computes ``T_k = 2·P·T_{k-1} − X``,
+       not the Chebyshev ``− T_{k-2}``.
+
+    Valid only for graphs with ``edge_pad == num_edges`` and no zero-weight
+    edges.  Zero-degree nodes produce inf, as upstream.  Layout matches
+    :func:`diffusion_basis`: (..., N, 2·K·F).
+    """
+    if graph.edge_pad != graph.num_edges:
+        raise ValueError(
+            "compat='reference' requires an unpadded edge list "
+            f"(edge_pad={graph.edge_pad} != num_edges={graph.num_edges}): "
+            "dense_to_sparse has no concept of padding edges"
+        )
+    w = graph.weights
+    deg_out = torch.zeros(graph.num_nodes, dtype=w.dtype,
+                          device=w.device).index_add_(0, graph.senders, w)
+    deg_in = torch.zeros(graph.num_nodes, dtype=w.dtype,
+                         device=w.device).index_add_(0, graph.receivers, w)
+    norm_out = 1.0 / deg_out[graph.senders]       # per original edge
+    norm_in = 1.0 / deg_in[graph.senders]         # upstream quirk: senders!
+    # the reverse list sorted by (orig receiver, orig sender); the norms
+    # stay in the ORIGINAL order (the misalignment)
+    order = torch.argsort(graph.receivers * graph.num_nodes + graph.senders,
+                          stable=True)
+    fwd = graph.with_weights(norm_out)
+    bwd = Graph(senders=graph.receivers[order],
+                receivers=graph.senders[order], weights=norm_in,
+                num_nodes=graph.num_nodes, num_edges=graph.num_edges)
+    out = []
+    for p in (fwd, bwd):
+        tx = [x]
+        if K > 1:
+            tx.append(spmm_segment(p, x))
+        for _ in range(2, K):
+            tx.append(2.0 * spmm_segment(p, tx[-1]) - x)  # frozen Tx_0 = X
+        out.extend(tx)
+    return torch.cat(out, dim=-1)
+
+
+def _basis(graph, x, K, compat):
+    if compat == "reference":
+        return diffusion_basis_reference(graph, x, K)
+    return diffusion_basis(graph, x, K)
+
+
+class DConv(FlaxModule):
     """Diffusion convolution layer: ``diffusion_basis(graph, x, K) @ weight
-    (+ bias)``."""
+    (+ bias)``.  ``compat='reference'`` takes
+    :func:`diffusion_basis_reference` instead of the paper's weighted
+    operators."""
 
     def __init__(self, in_channels: int, out_channels: int, K: int,
-                 use_bias: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_bias: bool = True, compat: Optional[str] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        self.K = K
+        self.K, self.compat = K, compat
         self.weight = nn.Parameter(
             glorot((2 * K * in_channels, out_channels), generator, device))
         self.bias = (nn.Parameter(zeros((out_channels,), device))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
-        z = diffusion_basis(graph, x, self.K)
+        z = _basis(graph, x, self.K, self.compat)
         out = (z @ self.weight.to(z.dtype)).to(x.dtype)
         if self.bias is not None:
             out = out + self.bias.to(x.dtype)
         return out
 
-    def params_from_flax(self, tree) -> "DConv":
-        p = flax_params(tree)
-        load_param(self.weight, p["weight"])
-        if self.bias is not None:
-            load_param(self.bias, p["bias"])
-        return self
 
-
-class DCRNN(nn.Module):
+class DCRNN(FlaxModule):
     """Single-step diffusion-convolutional GRU cell.
 
     forward: (X (..., N, F), graph, H=None) -> H (..., N, C).  All three
@@ -86,12 +137,12 @@ class DCRNN(nn.Module):
     """
 
     def __init__(self, in_channels: int, out_channels: int, K: int,
-                 use_bias: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_bias: bool = True, compat: Optional[str] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.out_channels = out_channels
-        self.K = K
+        self.K, self.compat = K, compat
         width = 2 * K * (in_channels + out_channels)
         self.w_zr = nn.Parameter(
             glorot((width, 2 * out_channels), generator, device))
@@ -107,39 +158,31 @@ class DCRNN(nn.Module):
         C = self.out_channels
         if h is None:
             h = x.new_zeros(x.shape[:-1] + (C,))
-        b_xh = diffusion_basis(graph, torch.cat([x, h], dim=-1), self.K)
+        b_xh = _basis(graph, torch.cat([x, h], dim=-1), self.K, self.compat)
         zr = (b_xh @ self.w_zr.to(b_xh.dtype)).to(x.dtype)
         if self.b_zr is not None:
             zr = zr + self.b_zr.to(x.dtype)
         z, r = torch.split(torch.sigmoid(zr), C, dim=-1)
-        b_xhr = diffusion_basis(graph, torch.cat([x, h * r], dim=-1), self.K)
+        b_xhr = _basis(graph, torch.cat([x, h * r], dim=-1), self.K,
+                       self.compat)
         ht = (b_xhr @ self.w_h.to(b_xhr.dtype)).to(x.dtype)
         if self.b_h is not None:
             ht = ht + self.b_h.to(x.dtype)
         h_tilde = torch.tanh(ht)
         return z * h + (1.0 - z) * h_tilde
 
-    def params_from_flax(self, tree) -> "DCRNN":
-        p = flax_params(tree)
-        load_param(self.w_zr, p["w_zr"])
-        load_param(self.w_h, p["w_h"])
-        if self.b_zr is not None:
-            load_param(self.b_zr, p["b_zr"])
-            load_param(self.b_h, p["b_h"])
-        return self
 
-
-class DCRNNSeq(nn.Module):
+class DCRNNSeq(FlaxModule):
     """Sequence-to-sequence DCRNN over (B, T, N, F) inputs; returns all
     hidden states (B, T, N, C).  One cell, shared across the T steps of a
     Python loop."""
 
     def __init__(self, in_channels: int, out_channels: int, K: int,
-                 use_bias: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_bias: bool = True, compat: Optional[str] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.out_channels = out_channels
-        self.cell = DCRNN(in_channels, out_channels, K, use_bias,
+        self.cell = DCRNN(in_channels, out_channels, K, use_bias, compat,
                           device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, graph,
@@ -159,8 +202,3 @@ class DCRNNSeq(nn.Module):
             h = self.cell(x[:, t], graph, h)
             hs.append(h)
         return torch.stack(hs, dim=1)
-
-    def params_from_flax(self, tree) -> "DCRNNSeq":
-        self.cell.params_from_flax(flax_params(tree)["cell"])
-        return self
-

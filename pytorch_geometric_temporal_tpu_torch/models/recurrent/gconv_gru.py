@@ -17,10 +17,11 @@ import torch
 from torch import nn
 
 from ..._device import resolve_device
-from ..conv import cheb_basis, flax_params, glorot, load_param, zeros
+from .._cells import FlaxModule, glorot, zeros
+from ..conv import cheb_basis
 
 
-class GConvGRU(nn.Module):
+class GConvGRU(FlaxModule):
     """forward: (X, graph, H=None, lambda_max=None) -> H.
 
     ``graph`` is a Graph (normalized per call, memoized on the graph) or a
@@ -66,9 +67,3 @@ class GConvGRU(nn.Module):
         r = torch.sigmoid(gate("r", bx, bh))
         h_tilde = torch.tanh(gate("h", bx, basis(h * r)))
         return z * h + (1.0 - z) * h_tilde
-
-    def params_from_flax(self, tree) -> "GConvGRU":
-        p = flax_params(tree)
-        for name, param in self.named_parameters():
-            load_param(param, p[name])
-        return self

@@ -9,6 +9,7 @@ from .graph import (
     lambda_max,
     laplacian,
     pad_graphs,
+    reorder_graph,
     stack_graphs,
 )
 from .operators import (
@@ -23,7 +24,7 @@ from .operators import (
     prepare_graph,
     stack_bcsr_gcn,
 )
-from .spmm import spmm, spmm_dense, spmm_segment
+from .spmm import sddmm, spmm, spmm_dense, spmm_segment
 
 __all__ = [
     "BCSRMatrix",
@@ -45,6 +46,8 @@ __all__ = [
     "prenormalize_cheb",
     "prenormalize_gcn",
     "prepare_graph",
+    "reorder_graph",
+    "sddmm",
     "spmm",
     "spmm_dense",
     "spmm_segment",

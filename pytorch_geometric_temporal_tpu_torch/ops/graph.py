@@ -199,6 +199,49 @@ class Graph:
         return m.index_put_((self.receivers, self.senders),
                             self.masked_weights().to(dtype), accumulate=True)
 
+    def to_adj(self, dtype=None) -> torch.Tensor:
+        """Dense (N, N) matrix A with A[s, r] = w(s -> r) (PyG
+        ``to_dense_adj``)."""
+        return self.to_adj_t(dtype).T
+
+
+def reorder_graph(graph: Graph):
+    """Relabel nodes by the shortcut-filtered RCM bandwidth-reduction order.
+
+    Returns ``(graph', perm, iperm)`` with ``perm[new_id] = old_id`` and
+    ``iperm[old_id] = new_id`` (numpy int32).  This is the MODEL-LEVEL
+    form of the reordering ``BCSRMatrix.from_graph(reorder=...)`` applies
+    internally: permute the graph (and the feature/target arrays, once, at
+    the boundary — ``x_new = x[perm]``, ``out[old] = out_new[iperm[old]]``)
+    and run the ENTIRE model in permuted space, so recurrent models doing
+    many aggregations per step pay the permutation once per forward
+    instead of two gathers per spmm.
+
+    Host-side; bipartite graphs are rejected (the relabeling assumes one
+    square node set).  A graph without edges gets the identity.
+    """
+    from ..native import bandwidth_reduction_order
+
+    if graph.num_src is not None:
+        raise ValueError("reorder_graph needs a square (non-bipartite) graph")
+    e = graph.num_edges
+    s_all, r_all, _ = graph.host_edges()
+    s, r = np.asarray(s_all)[:e], np.asarray(r_all)[:e]
+    n = graph.num_nodes
+    perm = bandwidth_reduction_order(s, r, n)
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(n, dtype=np.int32)
+    new_s = np.zeros(graph.edge_pad, np.int64)
+    new_r = np.zeros(graph.edge_pad, np.int64)
+    new_s[:e] = iperm[s]
+    new_r[:e] = iperm[r]
+    g2 = dataclasses.replace(
+        graph,
+        senders=torch.from_numpy(new_s).to(graph.device),
+        receivers=torch.from_numpy(new_r).to(graph.device),
+    )
+    return g2, perm, iperm
+
 
 def pad_graphs(graphs, pad_to: Optional[int] = None):
     """Pad a list of Graphs to a common edge count (dynamic-edge

@@ -101,3 +101,15 @@ def spmm(
             return spmm_segment(graph, x, weights)
         return bcsr_spmm(_auto_bcsr(graph, x.dtype), x)
     raise ValueError(f"unknown spmm backend {b!r}")
+
+
+def sddmm(graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense matmul: per-edge scores e = <a[s], b[r]>.
+
+    Returns (E_pad,) with padded entries zeroed: edge scores without
+    materializing N×N.  ``graph`` may be a
+    :class:`~.operators.PreparedGraph`.
+    """
+    graph = getattr(graph, "graph", graph)
+    scores = (a[graph.senders] * b[graph.receivers]).sum(-1)
+    return scores * graph.edge_mask(scores.dtype)

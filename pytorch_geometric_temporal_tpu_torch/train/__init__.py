@@ -1,6 +1,6 @@
 """Training: losses, dtype policies, scaler, trainers."""
 
-from .losses import mae, masked_mae_loss, masked_mse_loss, mse
+from .losses import mae, mape, masked_mae_loss, masked_mse_loss, mse, rmse
 from .precision import Policy, bf16_policy, f32_policy
 from .scaler import ZScoreScaler
 from .trainer import BatchTrainer, SnapshotTrainer
@@ -13,7 +13,9 @@ __all__ = [
     "bf16_policy",
     "f32_policy",
     "mae",
+    "mape",
     "masked_mae_loss",
     "masked_mse_loss",
     "mse",
+    "rmse",
 ]

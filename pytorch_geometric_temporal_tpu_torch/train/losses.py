@@ -13,6 +13,10 @@ def mae(pred, target):
     return torch.mean(torch.abs(pred - target))
 
 
+def rmse(pred, target):
+    return torch.sqrt(mse(pred, target))
+
+
 def masked_mae_loss(y_pred, y_true, null_val: float = 0.0):
     """MAE over entries where ``y_true != null_val``; NaNs zeroed.  The mask
     is mean-normalized and multiplied into the elementwise loss."""
@@ -29,3 +33,8 @@ def masked_mse_loss(y_pred, y_true, null_val: float = 0.0):
     loss = ((y_pred - y_true) ** 2) * mask
     loss = torch.where(torch.isnan(loss), torch.zeros_like(loss), loss)
     return torch.mean(loss)
+
+
+def mape(pred, target, eps: float = 1e-8):
+    return torch.mean(torch.abs(
+        (pred - target) / torch.clamp(torch.abs(target), min=eps)))

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from pytorch_geometric_temporal_tpu_torch import config_override
-from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq, GConvGRU
+from pytorch_geometric_temporal_tpu_torch.models import (
+    DCRNNSeq, EvolveGCNHSeq, EvolveGCNOSeq, GConvGRU, TGCN)
 from pytorch_geometric_temporal_tpu_torch.ops import (
     DiffusionOperators, Graph, Prenormalized, bcsr, host_cheb_norm,
-    lambda_max, prenormalize_cheb, spmm_segment, stack_bcsr)
+    lambda_max, prenormalize_cheb, prenormalize_gcn, prepare_graph,
+    spmm_segment, stack_bcsr, stack_bcsr_gcn, stack_graphs)
 from pytorch_geometric_temporal_tpu_torch.signal import StackedSignal
 from pytorch_geometric_temporal_tpu_torch.train import SnapshotTrainer, mse
 
@@ -78,7 +80,7 @@ def operator_shape(name):
 @pytest.mark.parametrize("shape", ["hybrid", "all-tiles", "all-remainder",
                                    "empty-rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [8, 36, 64, 96, 200])
+@pytest.mark.parametrize("f", [8, 16, 36, 64, 96, 200])
 def test_fused_kernel_matches_plain(cuda, shape, dtype, f):
     ei, w, n, mbe = operator_shape(shape)
     g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
@@ -142,6 +144,87 @@ def test_fused_kernel_on_the_chebyshev_operator(cuda, dtype, f):
         torch.testing.assert_close(out, ref, rtol=0,
                                    atol=1e-4 * max(1.0, float(ref.abs().max())))
         assert bcsr.hybrid_spmm.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [16, 32])
+def test_fused_kernel_on_the_gcn_operator(cuda, dtype, f):
+    """The GCN paths' widths over a GCN-normalized operator: positive
+    weights and a dense self-loop diagonal."""
+    ei, w, n, mbe = operator_shape("hybrid")
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    mat = prenormalize_gcn(g, bcsr=True, dtype=dtype, min_block_edges=mbe)
+    for half in (mat.fwd, mat.bwd):
+        assert half.nnzb and half.num_rem
+        x = torch.randn(half.num_cols, f, device=cuda).to(dtype)
+        before = bcsr.hybrid_spmm.launches
+        out = bcsr.hybrid_spmm(half, x)
+        ref = bcsr.hybrid_spmm_plain(half, x)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * max(1.0, float(ref.abs().max())))
+        assert bcsr.hybrid_spmm.launches == before + 1
+
+
+def test_tgcn_over_a_prepared_gcn_operator(cuda):
+    """TGCN's GCNConvs normalize; over a PreparedGraph ``gcn_norm`` hands
+    them the prebuilt BCSR operator: three fused launches a step, the raw
+    graph never normalized."""
+    n, f = 5000, 8
+    ei, w = banded(n, 100_000, seed=12)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    prepared = prepare_graph(g, kinds=("gcn",), bcsr=True,
+                             dtype=torch.bfloat16)
+    seg = prepare_graph(g, kinds=("gcn",), bcsr=False)
+    cell = TGCN(f, 16, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
+    h = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32)).to(
+        cuda)
+    bcsr.reset_launch_counts()
+    got = cell(x, prepared, h)
+    assert bcsr.hybrid_spmm.launches == 3
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert (bcsr.hybrid_spmm.launches, bcsr.tile_spmm.launches,
+            bcsr.rem_scatter_.launches) == (6, 0, 0)
+    assert not getattr(g, "_op_cache", {})
+    with torch.no_grad(), config_override(spmm_backend="segment"):
+        want = cell(x, seg, h)
+    torch.testing.assert_close(got.detach(), want, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("variant", ["O", "H"])
+def test_evolvegcn_seq_over_stack_bcsr_gcn(cuda, variant):
+    n, t, f = 1200, 3, 16
+    graphs = []
+    for i in range(t):
+        ei, w = banded(n, 15000 + 2000 * i, seed=20 + i)
+        graphs.append(Graph.from_edge_index(ei, w, num_nodes=n, device=cuda))
+    stacked = stack_bcsr_gcn(graphs, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    if variant == "O":
+        model = EvolveGCNOSeq(f, normalize=False, generator=gen)
+        ref = EvolveGCNOSeq(f)
+    else:
+        model = EvolveGCNHSeq(n, f, normalize=False, generator=gen)
+        ref = EvolveGCNHSeq(n, f)
+    ref.load_state_dict(model.state_dict())
+    xs = torch.from_numpy(np.random.default_rng(21).normal(
+        size=(t, n, f)).astype(np.float32)).to(cuda)
+    bcsr.reset_launch_counts()
+    out = model(xs, stacked)
+    assert bcsr.hybrid_spmm.launches == t
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (bcsr.hybrid_spmm.launches, bcsr.tile_spmm.launches,
+            bcsr.rem_scatter_.launches) == (2 * t, 0, 0)
+    with torch.no_grad(), config_override(spmm_backend="segment"):
+        want = ref(xs, stack_graphs(graphs))
+    # bf16 tiles and bf16-cast X·W against the f32 segment path
+    torch.testing.assert_close(out.detach(), want, rtol=0,
+                               atol=2e-2 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="normalize=False"):
+        ref(xs, stacked)
 
 
 def test_one_fused_launch_per_step_of_a_stacked_operator(cuda):

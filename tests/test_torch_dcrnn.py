@@ -91,6 +91,48 @@ def test_dcrnn_cell_and_dconv_match_jax():
           jg, tg, (25, 3))
 
 
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_reference_compat_basis_matches_jax(K):
+    """``compat='reference'`` on a weighted, unpadded graph: the basis and
+    DConv / DCRNN / DCRNNSeq built on it."""
+    from pytorch_geometric_temporal_tpu.models.recurrent import dcrnn as jd
+    from pytorch_geometric_temporal_tpu_torch.models import (
+        diffusion_basis_reference)
+
+    # every node sends and receives (a ring under the random edges): the
+    # upstream norms divide by the degrees
+    n = 30
+    rng = np.random.default_rng(6)
+    ring = np.stack([np.arange(n), (np.arange(n) + 1) % n])
+    ei = np.unique(np.concatenate(
+        [ring, rng.integers(0, n, size=(2, 100))], axis=1), axis=1)
+    w = rng.uniform(0.1, 1.0, ei.shape[1]).astype(np.float32)
+    jg = JGraph.from_edge_index(ei, w, num_nodes=n)
+    tg = TGraph.from_edge_index(ei, w, num_nodes=n, device="cpu")
+    x = rng.normal(size=(2, n, 3)).astype(np.float32)
+    want = jd.diffusion_basis_reference(jg, jnp.asarray(x), K)
+    got = diffusion_basis_reference(tg, torch.from_numpy(x), K)
+    assert got.shape == (2, n, 2 * K * 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    check(JDCRNNSeq(out_channels=5, K=K, compat="reference"),
+          DCRNNSeq(3, 5, K, compat="reference", device="cpu"),
+          jg, tg, (2, 3, n, 3))
+    check(JDCRNN(out_channels=5, K=K, compat="reference"),
+          DCRNN(3, 5, K, compat="reference", device="cpu"), jg, tg,
+          (n, 3))
+    check(JDConv(out_channels=4, K=K, compat="reference"),
+          DConv(3, 4, K, compat="reference", device="cpu"), jg, tg, (n, 3))
+
+
+def test_reference_compat_refuses_a_padded_graph():
+    ei = np.array([[0, 1, 2], [1, 2, 0]])
+    tg = TGraph.from_edge_index(ei, num_nodes=3, pad_to=5, device="cpu")
+    model = DCRNNSeq(2, 3, 2, compat="reference", device="cpu")
+    with pytest.raises(ValueError, match="requires an unpadded edge list "
+                                         r"\(edge_pad=5 != num_edges=3\)"):
+        model(torch.zeros(1, 2, 3, 2), tg)
+
+
 def test_bf16_operator_tracks_segment_reference():
     """bf16 tiles (x and remainder values rounded to bf16, f32 sums) stay
     within 2e-2 of the f32 reference over a few recurrent steps — the

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_geometric_temporal_tpu_torch import models
 from pytorch_geometric_temporal_tpu_torch.data import ChickenpoxDatasetLoader
 from pytorch_geometric_temporal_tpu_torch.models import (
     ChebConv, DCRNNSeq, DConv, GCNConv, GConvGRU)
+from pytorch_geometric_temporal_tpu_torch.protocols import RUNS
 from pytorch_geometric_temporal_tpu_torch.ops import (
     DiffusionOperators, Graph, prenormalize_cheb, prenormalize_gcn,
     prepare_graph, stack_bcsr_gcn)
@@ -34,8 +36,16 @@ import pytorch_geometric_temporal_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-from pytorch_geometric_temporal_tpu_torch.data import ChickenpoxDatasetLoader, _io
-ChickenpoxDatasetLoader().get_dataset(lags=4, device="cpu")[0]
+from pytorch_geometric_temporal_tpu_torch import data
+from pytorch_geometric_temporal_tpu_torch.data import _io
+data.ChickenpoxDatasetLoader().get_dataset(lags=4, device="cpu")[0]
+data.PedalMeDatasetLoader().get_dataset(device="cpu")[0]
+data.EnglandCovidDatasetLoader().get_dataset(device="cpu")[0]
+data.MontevideoBusDatasetLoader().get_dataset(device="cpu")[0]
+for event in ("rg17", "uo17"):
+    data.TwitterTennisDatasetLoader(event, N=50).get_dataset(device="cpu")[0]
+from pytorch_geometric_temporal_tpu_torch.protocols import RUNS
+RUNS["pedalme_tgcn"](1, device="cpu")
 print(json.dumps({"modules": sorted(sys.modules), "walked": names,
                   "bundled": str(_io._BUNDLED), "opened": opened}))
 """
@@ -57,16 +67,26 @@ def test_port_imports_no_jax(tmp_path):
                 "models.recurrent.gconv_gru", "signal.base",
                 "signal.homogeneous", "signal.snapshot", "signal.split",
                 "signal.stacked", "data._io", "data._common",
-                "data.chickenpox"):
+                "data.chickenpox", "data.pedalme", "data.encovid",
+                "data.montevideo_bus", "data.twitter_tennis",
+                "models._cells", "models.recurrent.temporalgcn",
+                "models.recurrent.attentiontemporalgcn",
+                "models.recurrent.gconv_lstm", "models.recurrent.gc_lstm",
+                "models.recurrent.lrgcn", "models.recurrent.dygrae",
+                "models.recurrent.evolvegcn", "models.recurrent.mpnn_lstm",
+                "models.recurrent.agcrn", "protocols.bundled_accuracy"):
         assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
     pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
     # no file inside the JAX package was opened, the port's bundle was
     jax_pkg = str(REPO / "pytorch_geometric_temporal_tpu") + os.sep
     assert not [f for f in info["opened"] if f.startswith(jax_pkg)]
-    assert str(pkg / "data" / "bundled" / "chickenpox.json.gz") in info[
-        "opened"]
+    for name in ("chickenpox", "pedalme_london", "england_covid",
+                 "montevideo_bus", "twitter_tennis_rg17",
+                 "twitter_tennis_uo17"):
+        own = pkg / "data" / "bundled" / f"{name}.json.gz"
+        assert own.is_file()
+        assert str(own) in info["opened"], name
     assert Path(info["bundled"]) == pkg / "data" / "bundled"
-    assert (pkg / "data" / "bundled" / "chickenpox.json.gz").is_file()
 
 
 def test_port_sources_name_no_jax_module():
@@ -109,6 +129,25 @@ def test_entry_points_raise_without_cuda(no_cuda):
                                           lambda c, x, y, gr: (x.sum(), c)),
                   lambda: ZScoreScaler.fit(np.ones(3)),
                   lambda: BatchTrainer(DCRNNSeq(2, 4, 2, device="cpu"))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    for build in (lambda: models.TGCN(2, 4),
+                  lambda: models.A3TGCN(2, 4, 3),
+                  lambda: models.GConvLSTM(2, 4, 2),
+                  lambda: models.GCLSTM(2, 4, 2),
+                  lambda: models.RGCNConv(2, 4, 2),
+                  lambda: models.LRGCN(2, 4, 2),
+                  lambda: models.split_relations(ei, [0, 1, 0], 2, 3),
+                  lambda: models.GatedGraphConv(4, 1),
+                  lambda: models.DyGrEncoder(4, 1, "add", 4, 1),
+                  lambda: models.EvolveGCNO(4),
+                  lambda: models.EvolveGCNH(3, 4),
+                  lambda: models.EvolveGCNOSeq(4),
+                  lambda: models.EvolveGCNHSeq(3, 4),
+                  lambda: models.MPNNLSTM(2, 4, 3, 2),
+                  lambda: models.AVWGCN(2, 4, 2, 3),
+                  lambda: models.AGCRN(3, 2, 4, 2, 3),
+                  *(lambda run=run: run(1) for run in RUNS.values())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     ops = DiffusionOperators.from_graph(g, bcsr=True, device="cpu")

@@ -188,3 +188,100 @@ def test_native_helpers_match_jax_and_numpy(monkeypatch):
         atol=1e-6)
     perm = tnative.rcm_order(s, r, n)
     np.testing.assert_array_equal(np.sort(perm), np.arange(n))
+
+
+def test_sddmm_matches_jax():
+    jg, tg = random_graph(21, 40, 200, pad=6)
+    rng = np.random.default_rng(22)
+    a = rng.normal(size=(40, 5)).astype(np.float32)
+    b = rng.normal(size=(40, 5)).astype(np.float32)
+    want = np.asarray(jspmm.sddmm(jg, jnp.asarray(a), jnp.asarray(b)))
+    got = tspmm.sddmm(tg, torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert got.shape == (tg.edge_pad,) and not got[tg.num_edges:].any()
+    prepared = tops.prepare_graph(tg, kinds=("gcn",), device="cpu")
+    np.testing.assert_array_equal(
+        tspmm.sddmm(prepared, torch.from_numpy(a),
+                    torch.from_numpy(b)).numpy(), got.numpy())
+
+
+def test_to_adj_matches_jax():
+    jg, tg = random_graph(23, 17, 60, pad=4)
+    np.testing.assert_array_equal(tg.to_adj().numpy(),
+                                  np.asarray(jg.to_adj()))
+    np.testing.assert_array_equal(tg.to_adj().numpy(),
+                                  tg.to_adj_t().numpy().T)
+    assert tg.to_adj(torch.float64).dtype == torch.float64
+
+
+@pytest.mark.parametrize("pad", [0, 9])
+def test_reorder_graph_matches_jax(pad):
+    # a banded graph with its node ids shuffled: the ordering has work to do
+    n = 300
+    rng = np.random.default_rng(24)
+    s = rng.integers(0, n, size=2400)
+    r = np.clip(s + rng.integers(-6, 7, size=2400), 0, n - 1)
+    shuffle = rng.permutation(n)
+    ei = np.unique(np.stack([shuffle[s], shuffle[r]]), axis=1)
+    w = rng.uniform(0.1, 1.0, ei.shape[1]).astype(np.float32)
+    pad_to = ei.shape[1] + pad
+    jg = JGraph.from_edge_index(ei, w, num_nodes=n, pad_to=pad_to)
+    tg = TGraph.from_edge_index(ei, w, num_nodes=n, pad_to=pad_to,
+                                device="cpu")
+    jg2, jperm, jiperm = jgraph.reorder_graph(jg)
+    tg2, tperm, tiperm = tgraph.reorder_graph(tg)
+    np.testing.assert_array_equal(tperm, jperm)
+    np.testing.assert_array_equal(tiperm, jiperm)
+    assert sorted(tperm) == list(range(n)) and not (tperm == np.arange(n)
+                                                    ).all()
+    np.testing.assert_array_equal(tg2.senders.numpy(), jg2.senders)
+    np.testing.assert_array_equal(tg2.receivers.numpy(), jg2.receivers)
+    np.testing.assert_array_equal(tg2.weights.numpy(), jg2.weights)
+    assert (tg2.num_nodes, tg2.num_edges, tg2.edge_pad) == (n, ei.shape[1],
+                                                            pad_to)
+    # aggregation in permuted space, un-permuted, is the original one
+    x = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    out = tspmm.spmm_segment(tg2, x[tperm])[tiperm]
+    np.testing.assert_allclose(out.numpy(),
+                               tspmm.spmm_segment(tg, x).numpy(), atol=1e-5)
+
+
+def test_reorder_graph_rejects_bipartite_graphs():
+    g = TGraph.from_edge_index(np.array([[0, 1], [1, 0]]), num_nodes=2,
+                               num_src=3, device="cpu")
+    with pytest.raises(ValueError, match="square"):
+        tgraph.reorder_graph(g)
+
+
+@pytest.mark.parametrize("name", ["rmse", "mape"])
+def test_rmse_and_mape_match_jax(name):
+    from pytorch_geometric_temporal_tpu.train import losses as jlosses
+    from pytorch_geometric_temporal_tpu_torch import train as ttrain
+
+    rng = np.random.default_rng(25)
+    pred = rng.normal(size=(4, 9)).astype(np.float32)
+    target = rng.normal(size=(4, 9)).astype(np.float32)
+    target[0, :3] = 0.0         # mape's eps floor
+    want = float(getattr(jlosses, name)(jnp.asarray(pred),
+                                        jnp.asarray(target)))
+    got = float(getattr(ttrain, name)(torch.from_numpy(pred),
+                                      torch.from_numpy(target)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("ratio", [0.1, 0.34, 1.0])
+def test_topk_pool_breaks_ties_like_jax(ratio):
+    """One-hot rows repeat, so many nodes share a score: the selected
+    indices are the JAX package's (the lowest index among equals)."""
+    from pytorch_geometric_temporal_tpu.models import conv as jconv
+    from pytorch_geometric_temporal_tpu_torch.models import conv as tconv
+
+    rng = np.random.default_rng(26)
+    x = np.eye(4, dtype=np.float32)[rng.integers(0, 4, size=50)]
+    p = rng.normal(size=4).astype(np.float32)
+    jout, jidx = jconv.topk_pool(jnp.asarray(x), jnp.asarray(p), ratio)
+    tout, tidx = tconv.topk_pool(torch.from_numpy(x), torch.from_numpy(p),
+                                 ratio)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-6)
+    assert tout.shape == (max(1, int(np.ceil(50 * ratio))), 4)
