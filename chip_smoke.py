@@ -59,19 +59,50 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    same models normalizing in the loop over ``stack_graphs`` on the f32
    segment path (outputs per step, parameter gradients), T + T fused
    launches a model, and the fused kernel against its plain version at
-   F=16 on every half, timed.
+   F=16 on every half, timed;
+11. the METR-LA accuracy protocol at full size (``DCRNNSeq(2->2, K=3)``,
+   207 sensors, 2880 steps of the seeded synthetic stand-in, 12 epochs of
+   batches of 64, Adam 1e-3): falling training curve, the de-normalized
+   masked test MAE, seconds per epoch; then at the size of the JAX
+   package's records (3 epochs over 720 steps), its MAE beside them; dense
+   branch, no BCSR kernel launched;
+12. the attention family on the dense branch: ASTGCN and MSTGCN at the
+   reference configuration (B=16, N=207, F_in=2, T=12, K=3, 2 blocks,
+   64/64 filters, predict 12), five Adam steps each with the device's
+   busy time per step and their difference (the attention's share), then
+   three Adam steps each of STConv, GMAN, MTGNN, AAGCN and DNNTSP at the
+   papers' widths in ``train=True`` (finite, falling loss, moving batch
+   statistics); no BCSR kernel launched;
+13. two stacked STConv blocks (STGCN's widths: 16 spatial channels, 64
+   out, temporal kernel 3, K=3, 12 steps in) and a linear head over the
+   50,000-node graph prepared once as a bf16-tile Chebyshev BCSR operator:
+   aggregations at F = 10·16 = 160 and 6·16 = 96, outputs and parameter
+   gradients against the f32 segment path, 4 forward + 4 backward fused
+   launches a step, no operator build and no ``cheb_norm`` inside a step,
+   the fused kernel timed at F=160, the device's busy time by kernel;
+14. edge-mode ASTGCN (``normalization="sym"``, K=3, 2 blocks, 64/64
+   filters) at N=50,000: the reversed scaled Laplacian is tiled once (f32
+   tiles) in the first forward, then 2 forward + 2 backward fused launches
+   a step; per-edge attention sums to 1 per column; output and gradients
+   against ``spmm_backend="segment"``; the fused kernel timed on that f32
+   operator at F=24 and F=768; ``normalization=None`` builds and launches
+   nothing.
 
-Exits non-zero, and prints no result, without CUDA or when any check
+A watchdog ends the process if the whole run passes 1150 s (a hang in a
+kernel must not outlive the run).  Exits non-zero, and prints no result, without CUDA or when any check
 fails.  The last line is ``{"ok": true, "device": {...}}``; the line before
 it holds the per-kernel JSON record, its launch counts summed over phases
-3, 6, 7, 9 and 10; the fused kernel's time and share of its bound at each
+3, 6, 7, 9, 10, 13 and 14; the fused kernel's time and share of its bound at each
 path's own width stand on the line before the total.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -114,6 +145,32 @@ EVOLVE = dict(f=16)
 # of each step's largest value, parameter gradients 1.4e-4 relative)
 TGCN_FWD_TOL, TGCN_GRAD_TOL = 1.5e-3, 1e-1
 EVO_STEP_TOL, EVO_GRAD_TOL = 1.7e-2, 5e-4
+WATCHDOG_S = 1150
+# phase 11: the protocol at full size, and at the size at which the JAX
+# package's records were taken (3 epochs over 720 steps): on a TPU v5e, and
+# its torch-CPU twin's, both from another framework's initial draw
+METRLA = dict(epochs=12, batch_size=64, t_len=2880, K=3, n=207)
+METRLA_RECORD_CONFIG = dict(METRLA, epochs=3, t_len=720)
+METRLA_RECORD_TPU, METRLA_RECORD_TORCH_CPU = 3.9036, 3.9047
+# phase 12: the reference configuration of ASTGCN / MSTGCN
+ATT = dict(b=16, n=207, f=2, t=12, k=3, blocks=2, filters=64, steps=5)
+# phase 13: STGCN's widths (Yu et al., IJCAI 2018)
+STGCN = dict(f_in=1, spatial=16, out=64, kernel=3, K=3, t=12, steps=5,
+             timed_steps=10)
+# phase 14
+EDGE = dict(f_in=2, t=12, K=3, blocks=2, filters=64, steps=3)
+# phases 13 and 14 against the f32 segment path (forward; gradients by the
+# largest entry; gradients by the 2-norm): about three times the errors
+# read on an H100 (phase 13, bf16 tiles: 1.2e-2 on outputs up to 3.5, 2.2e-1
+# and 4.7e-2, both on block 1's per-node batch-norm bias; phase 14, f32
+# tiles, where only the order of the sums differs: 2.3e-6 on outputs up to
+# 4.1 in every run; the gradients' worst entry is the sparse attention's
+# scalar bias, a sum over 2.1 M edges that nearly cancels, which both paths
+# add with atomics in an order that changes from run to run: 1.9e-6, 1.8e-5
+# and 2.9e-4 in three runs, so phase 14's gradient limits stand well above
+# that noise and below the ~1e-1 of a misplaced tile or bf16 rounding)
+STCONV_TOLS = (3.5e-2, 6.5e-1, 1.5e-1)
+EDGE_TOLS = (1e-4, 1e-2, 1e-2)
 
 
 def log(*a):
@@ -289,7 +346,9 @@ def fused_report(torch, half, x):
     n_bytes = (half.nnzb * 128 * 128 * s_t + (nb + 1 + half.nnzb) * 4
                + x_rows * f * s_x + half.num_rem * 8
                + (half.num_rows + 1) * 4 + half.num_rows * f * 4)
-    ops = {dt: 2 * half.nnzb * 128 * 128 * f, "f32": 2 * half.num_rem * f}
+    # tile products at the tiles' type, the remainder's on the CUDA cores
+    ops = {dt: 2 * half.nnzb * 128 * 128 * f}
+    ops["f32"] = ops.get("f32", 0) + 2 * half.num_rem * f
     bound, by = bound_of(n_bytes, ops)
     rows, cols, vals = tile_operator_coo(torch, half)
     whole_csr = _csr_of(
@@ -319,6 +378,19 @@ def log_kernel(name, k):
         f"({k['bound_by']}, {k['bytes']} B, {k['ops']} flop; share "
         f"{k['bound_ms'] / k['ms']:.3f})  plain {k['plain_ms']:.4f} ms  "
         f"torch.sparse.mm ({k['dtype']} CSR) {k['library_ms']:.4f} ms")
+
+
+def report_fused(torch, kernel_report, half, f, label):
+    """:func:`fused_report` at width ``f`` on ``half``, logged and entered
+    into the run's record as the path ``label``."""
+    x = torch.randn(half.num_cols, f, device="cuda").to(half.blocks.dtype)
+    k = fused_report(torch, half, x)
+    log_kernel(f"fused hybrid_spmm F={f}", k)
+    log(f"    fused / torch.sparse.mm {k['ms'] / k['library_ms']:.3f}; "
+        f"err {k['max_abs_err']:.2e}")
+    kernel_report["H"]["max_abs_err"] = max(
+        kernel_report["H"]["max_abs_err"], k["max_abs_err"])
+    kernel_report["paths"].append((f"{label} F={f}", k))
 
 
 def phase_slice_kernels(torch, ops, f):
@@ -808,17 +880,8 @@ def phase_cheb(torch, kernel_report):
                     for s in ("fwd", "bwd")))
 
     # the fused kernel at this path's two widths on this operator
-    half = op.op.fwd
     for f in (lags, c["hidden"]):
-        x = torch.randn(half.num_cols, f, device="cuda").to(
-            half.blocks.dtype)
-        k = fused_report(torch, half, x)
-        log_kernel(f"fused hybrid_spmm F={f}", k)
-        log(f"    fused / torch.sparse.mm {k['ms'] / k['library_ms']:.3f}; "
-            f"err {k['max_abs_err']:.2e}")
-        kernel_report["H"]["max_abs_err"] = max(
-            kernel_report["H"]["max_abs_err"], k["max_abs_err"])
-        kernel_report["paths"].append((f"Chebyshev F={f}", k))
+        report_fused(torch, kernel_report, op.op.fwd, f, "Chebyshev")
 
     # cheb_basis at K=3 (the recurrence 2·L̂·T1 − T0), forward only
     xb = signal.features[0]
@@ -1099,16 +1162,7 @@ def phase_tgcn(torch, kernel_report):
         + ", ".join(f"{s}: nnzb={getattr(mat, s).nnzb} "
                     f"rem={getattr(mat, s).num_rem}" for s in ("fwd", "bwd")))
 
-    half = mat.fwd
-    x = torch.randn(half.num_cols, c["hidden"], device="cuda").to(
-        half.blocks.dtype)
-    k = fused_report(torch, half, x)
-    log_kernel(f"fused hybrid_spmm F={c['hidden']}", k)
-    log(f"    fused / torch.sparse.mm {k['ms'] / k['library_ms']:.3f}; "
-        f"err {k['max_abs_err']:.2e}")
-    kernel_report["H"]["max_abs_err"] = max(
-        kernel_report["H"]["max_abs_err"], k["max_abs_err"])
-    kernel_report["paths"].append((f"GCN F={c['hidden']}", k))
+    report_fused(torch, kernel_report, mat.fwd, c["hidden"], "GCN")
 
     net = make_net(torch, lambda gen: TGCNCell(f, c["hidden"],
                                                generator=gen),
@@ -1251,6 +1305,446 @@ def phase_evolve(torch, kernel_report):
             f"the segment path {ms_s:.4f} ms")
 
 
+@contextlib.contextmanager
+def counted_builds():
+    """Counts ``BCSRMatrix.from_graph`` calls (host-side operator builds)
+    inside the block: ``builds.calls``."""
+    from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
+
+    inner = BCSRMatrix.from_graph
+
+    class Builds:
+        calls = 0
+
+    def counted(*a, **kw):
+        Builds.calls += 1
+        return inner(*a, **kw)
+
+    BCSRMatrix.from_graph = staticmethod(counted)
+    try:
+        yield Builds
+    finally:
+        BCSRMatrix.from_graph = staticmethod(inner)
+
+
+def phase_metrla(torch, smi):
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+    from pytorch_geometric_temporal_tpu_torch.protocols import metrla_protocol
+
+    bcsr.reset_launch_counts()
+    for label, c in (("full size", METRLA),
+                     ("the records' configuration", METRLA_RECORD_CONFIG)):
+        rec = metrla_protocol.run(**c)
+        curve, mae = rec["train_curve"], rec["test_masked_mae_denorm"]
+        log(f"  {label} ({rec['source']}): N={c['n']}, {c['t_len']} steps, "
+            f"{c['epochs']} epochs of batches of {c['batch_size']} in "
+            f"{rec['seconds']:.2f} s ({rec['seconds'] / c['epochs']:.4f} s "
+            f"per epoch, host clock, test pass included) on {smi}")
+        log(f"    training curve (last batch of each epoch, masked MAE, mph) "
+            f"{curve}; de-normalized masked test MAE {mae:.4f}")
+        if not (len(curve) == c["epochs"] and all(np.isfinite(curve))
+                and np.isfinite(mae)):
+            raise SystemExit(f"METR-LA: non-finite loss {curve}, {mae}")
+        if c is METRLA and not curve[-1] < curve[0]:
+            raise SystemExit("METR-LA: the training curve did not fall")
+    log(f"    beside the JAX package's records at that configuration: "
+        f"{METRLA_RECORD_TPU} on a TPU v5e, {METRLA_RECORD_TORCH_CPU} for "
+        f"its torch-CPU twin, both from another initial draw "
+        f"({100 * (mae - METRLA_RECORD_TPU) / METRLA_RECORD_TPU:+.2f}%)")
+    if any(launch_counts(bcsr).values()):
+        raise SystemExit("the METR-LA protocol launched a BCSR kernel")
+
+
+def adam_steps(torch, model, forward, x, y, steps):
+    """``steps`` updates of ``model`` through ``BatchTrainer`` (MSE, Adam
+    1e-3); returns (losses, trainer)."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
+
+    trainer = BatchTrainer(model, forward, lr=1e-3, loss_fn=mse)
+    losses = [float(trainer.train_step(x, y)) for _ in range(steps)]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"{type(model).__name__}: losses not finite or not "
+                         f"falling: {losses}")
+    return losses, trainer
+
+
+def phase_attention(torch, smi):
+    from pytorch_geometric_temporal_tpu_torch.models import (
+        AAGCN, ASTGCN, DNNTSP, GMAN, MSTGCN, MTGNN, STConv)
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph, bcsr
+    from pytorch_geometric_temporal_tpu_torch.ops.spmm import _resolve_backend
+
+    c = ATT
+    b, n, f, t = c["b"], c["n"], c["f"], c["t"]
+    rng = np.random.default_rng(0)
+
+    def cuda(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).cuda()
+
+    ei = np.unique(rng.integers(0, n, size=(2, 1800)), axis=1)
+    g = Graph.from_edge_index(ei, num_nodes=n)
+    x, y = cuda(b, n, f, t), cuda(b, n, t)
+    if _resolve_backend(g, x, None) != "dense":
+        raise SystemExit("the reference graph is not on the dense branch")
+    bcsr.reset_launch_counts()
+    gen = torch.Generator().manual_seed(0)
+    shared = dict(nb_block=c["blocks"], in_channels=f, K=c["k"],
+                  nb_chev_filter=c["filters"], nb_time_filter=c["filters"],
+                  time_strides=1, num_for_predict=t, len_input=t)
+    busy = {}
+    for name, model in (
+            ("ASTGCN", ASTGCN(**shared, num_of_vertices=n, generator=gen)),
+            ("MSTGCN", MSTGCN(**shared, generator=gen))):
+        losses, trainer = adam_steps(torch, model, lambda xb: model(xb, g),
+                                     x, y, c["steps"])
+        step_s = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            trainer.train_step(x, y)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        med = statistics.median(step_s)
+        n_par = sum(p.numel() for p in model.parameters())
+        log(f"  {name} (B={b}, N={n}, F_in={f}, T={t}, K={c['k']}, "
+            f"{c['blocks']} blocks, {c['filters']} filters, {n_par} "
+            f"parameters): MSE {['%.5f' % v for v in losses]}; step median "
+            f"{med * 1e3:.3f} ms (host clock, 10 steps) on {smi}")
+        busy[name] = profile_steps(torch, lambda: trainer.train_step(x, y),
+                                   med * 1e3, top=8)
+    if busy["ASTGCN"] and busy["MSTGCN"]:
+        share = (busy["ASTGCN"] - busy["MSTGCN"]) / busy["ASTGCN"]
+        log(f"  attention's share of the ASTGCN step by device busy time: "
+            f"({busy['ASTGCN']:.3f} - {busy['MSTGCN']:.3f}) / "
+            f"{busy['ASTGCN']:.3f} = {share:.3f} on {smi}")
+
+    def moved(model, before):
+        return any(not torch.equal(v, before[k])
+                   for k, v in model.named_buffers())
+
+    def three_steps(name, model, forward, xs, ys, has_stats=True):
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        t0 = time.perf_counter()
+        losses, _ = adam_steps(torch, model, forward, xs, ys, 3)
+        torch.cuda.synchronize()
+        log(f"  {name}: MSE {['%.5f' % v for v in losses]} in train mode, "
+            f"{sum(p.numel() for p in model.parameters())} parameters, "
+            f"{time.perf_counter() - t0:.2f} s for three steps, the first "
+            f"included")
+        if has_stats and not moved(model, before):
+            raise SystemExit(f"{name}: the batch statistics did not move")
+
+    # STConv, STGCN's widths
+    m = STConv(n, 1, 16, 64, 3, 3, generator=gen)
+    three_steps("STConv(1->16->64, K=3)", m,
+                lambda xb: m(xb, g, train=True), cuda(b, t, n, 1),
+                cuda(b, t - 4, n, 64))
+    # GMAN: L=1, K=8 heads of d=8, 12 -> 12 steps
+    m = GMAN(1, 8, 8, t, 0.1, 288, generator=gen)
+    se = cuda(n, 64)
+    te = torch.from_numpy(np.stack(
+        [rng.integers(0, 7, (8, 2 * t)), rng.integers(0, 288, (8, 2 * t))],
+        -1)).cuda()
+    three_steps("GMAN(L=1, K=8, d=8)", m, lambda xb: m(xb, se, te, True),
+                cuda(8, t, n), cuda(8, t, n))
+    # MTGNN: 3 layers, conv/residual 32, skip 64, end 128, subgraph 20
+    m = MTGNN(True, True, 2, n, [2, 3, 6, 7], 7, 0.3, 20, 40, 1, 32, 32, 64,
+              128, t, 2, 12, 3, 0.05, 3.0, True, generator=gen)
+
+    def mtgnn_forward(xb):
+        # the same dropout mask every step, drawn on the card
+        mask_gen = torch.Generator(device="cuda").manual_seed(7)
+        return m(xb, train=True, generator=mask_gen)
+
+    three_steps("MTGNN(3 layers, 32/32/64/128)", m, mtgnn_forward,
+                cuda(b, 2, n, t), cuda(b, 12, n, 1), has_stats=False)
+    # AAGCN: 3 -> 64 channels, 25 joints, 64 frames
+    joints = np.unique(rng.integers(0, 25, size=(2, 48)), axis=1)
+    m = AAGCN(3, 64, joints, 25, generator=gen)
+    three_steps("AAGCN(3->64, V=25, T=64)", m, lambda xb: m(xb, True),
+                cuda(8, 3, 64, 25), cuda(8, 64, 64, 25))
+    # DNNTSP: 100 items, embedding 32, 4 heads, 4 steps
+    items, steps_t = 100, 4
+    ei2 = np.unique(rng.integers(0, items * steps_t, size=(2, 1200)), axis=1)
+    g2 = Graph.from_edge_index(
+        ei2, rng.uniform(0.5, 2.0, ei2.shape[1]).astype(np.float32),
+        num_nodes=items * steps_t)
+    m = DNNTSP(items, 32, 4, generator=gen)
+    three_steps("DNNTSP(100 items, 32, 4 heads)", m,
+                lambda xb: m(xb, g2, True), cuda(items * steps_t, 32),
+                cuda(steps_t, items, 32))
+    if any(launch_counts(bcsr).values()):
+        raise SystemExit("a dense-branch model launched a BCSR kernel")
+    log("  no BCSR kernel launched (expected: dense branch)")
+
+
+def outputs_and_param_grads(torch, model, forward, y):
+    from pytorch_geometric_temporal_tpu_torch.train import mse
+
+    out = forward()
+    grads = torch.autograd.grad(mse(out, y), list(model.parameters()))
+    return out.detach(), grads
+
+
+def compare_with_segment(torch, name, model, got, want, fwd_tol, grad_tol,
+                         grad_l2_tol):
+    """Outputs by their largest absolute difference; every parameter's
+    gradient by the largest difference over the gradient's largest entry
+    (the other phases' measure) and by the 2-norm of the difference over
+    the gradient's 2-norm: a per-node parameter's gradient is a sum of a
+    few hundred terms of either sign, so single entries carry rounding
+    that the norm averages out."""
+    (out_b, grads_b), (out_s, grads_s) = got, want
+    torch.cuda.synchronize()
+    scale = float(out_s.abs().max())
+    fwd_err = float((out_b - out_s).abs().max())
+    names = [k for k, _ in model.named_parameters()]
+    rel, l2 = {}, {}
+    for k, gb, gs in zip(names, grads_b, grads_s):
+        rel[k] = float((gb - gs).abs().max() / gs.abs().max())
+        l2[k] = float(torch.linalg.norm(gb - gs) / torch.linalg.norm(gs))
+    w_rel, w_l2 = max(rel, key=rel.get), max(l2, key=l2.get)
+    log(f"  vs the f32 segment path: forward max abs err {fwd_err:.3e} "
+        f"(outputs up to {scale:.3f}; tol {fwd_tol}); parameter gradients: "
+        f"max abs err over the gradient's largest entry {rel[w_rel]:.3e} at "
+        f"{w_rel} (tol {grad_tol}), 2-norm of the error over the "
+        f"gradient's {l2[w_l2]:.3e} at {w_l2} (tol {grad_l2_tol})")
+    if not (fwd_err <= fwd_tol and rel[w_rel] <= grad_tol
+            and l2[w_l2] <= grad_l2_tol):
+        raise SystemExit(f"{name} over BCSR does not match the segment path")
+
+
+def phase_stconv(torch, kernel_report, smi):
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import STConv
+    from pytorch_geometric_temporal_tpu_torch.models._cells import Dense
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        Graph, bcsr, prepare_graph)
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
+
+    c, n = STGCN, SLICE["n"]
+    K, T = c["K"], c["t"]
+    rng = np.random.default_rng(SLICE["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ei, w = slice_graph(rng)
+    g = Graph.from_edge_index(ei, w, num_nodes=n)
+    key = ("cheb_norm", "sym", 2.0)
+    prepared = prepare_graph(g, kinds=("cheb",), bcsr=True,
+                             dtype=torch.bfloat16)
+    seg = prepare_graph(Graph.from_edge_index(ei, w, num_nodes=n),
+                        kinds=("cheb",), bcsr=False)
+    mat = prepared.ops[key]
+    log(f"  graph N={n} E={ei.shape[1]}: Chebyshev operator built in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"{s}: nnzb={getattr(mat, s).nnzb} "
+                    f"rem={getattr(mat, s).num_rem}" for s in ("fwd", "bwd")))
+    t_out = T - 4 * (c["kernel"] - 1)
+    # a block's hops see its first temporal conv's output: T' steps wide
+    widths = [(T - (2 * i + 1) * (c["kernel"] - 1)) * c["spatial"]
+              for i in range(2)]
+    report_fused(torch, kernel_report, mat.fwd, widths[0], "STConv Chebyshev")
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(4)
+            self.block1 = STConv(n, c["f_in"], c["spatial"], c["out"],
+                                 c["kernel"], K, generator=gen)
+            self.block2 = STConv(n, c["out"], c["spatial"], c["out"],
+                                 c["kernel"], K, generator=gen)
+            self.head = Dense(c["out"], 1, generator=gen)
+
+        def forward(self, x, graph):
+            h = self.block1(x, graph, train=True)
+            h = self.block2(h, graph, train=True)
+            return self.head(h)[..., 0]
+
+    net = Net()
+    x = torch.from_numpy(rng.normal(size=(1, T, n, c["f_in"])).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=(1, t_out, n)).astype(
+        np.float32)).cuda()
+    log(f"  two STConv blocks ({c['f_in']}->{c['spatial']}->{c['out']}, "
+        f"{c['out']}->{c['spatial']}->{c['out']}, K={K}) + Dense head, "
+        f"{sum(p.numel() for p in net.parameters())} parameters; "
+        f"aggregations at F={widths[0]} and F={widths[1]}")
+
+    got = outputs_and_param_grads(torch, net, lambda: net(x, prepared), y)
+    with config_override(spmm_backend="segment"):
+        want = outputs_and_param_grads(torch, net, lambda: net(x, seg), y)
+    compare_with_segment(torch, "STConv", net, got, want, *STCONV_TOLS)
+
+    trainer = BatchTrainer(net, lambda xb: net(xb, prepared), lr=1e-3,
+                           loss_fn=mse)
+    trainer.train_step(x, y)            # warm-up
+    torch.cuda.synchronize()
+    with counted_builds() as builds:
+        bcsr.reset_launch_counts()
+        with torch.no_grad():
+            net(x, prepared)
+        fwd_only = launch_counts(bcsr)["H"]
+        bcsr.reset_launch_counts()
+        losses = [float(trainer.train_step(x, y)) for _ in range(c["steps"])]
+        launches = launch_counts(bcsr)
+    per_block = K - 1
+    want_step = 2 * per_block + 2 * per_block
+    log(f"  launches: fused {fwd_only} in one forward (expected "
+        f"{2 * per_block}: K-1 a block), {launches['H']} over {c['steps']} "
+        f"steps (expected {want_step * c['steps']}: {2 * per_block} forward "
+        f"+ {2 * per_block} backward a step), K1 {launches['K1']} and K2 "
+        f"{launches['K2']} (expected 0); operator builds inside the steps "
+        f"{builds.calls} (expected 0)")
+    if (fwd_only, launches, builds.calls) != (
+            2 * per_block,
+            {"H": want_step * c["steps"], "K1": 0, "K2": 0}, 0):
+        raise SystemExit("STConv: launch or build counts differ")
+    if any(k[0] == "cheb_norm" for k in getattr(g, "_op_cache", {})):
+        raise SystemExit("cheb_norm ran on the raw graph inside the loop")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"STConv: losses not finite or not falling: "
+                         f"{losses}")
+    log(f"  losses {['%.6f' % v for v in losses]}; no normalization ran "
+        f"inside the loop")
+    kernel_report["H"]["launches"] += launches["H"]
+    step_s = []
+    for _ in range(c["timed_steps"]):
+        t0 = time.perf_counter()
+        trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s)
+    log(f"  step time over {len(step_s)} steps (host clock, synchronized): "
+        f"median {med * 1e3:.3f} ms, min {min(step_s) * 1e3:.3f} ms, max "
+        f"{max(step_s) * 1e3:.3f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    profile_steps(torch, lambda: trainer.train_step(x, y), med * 1e3)
+
+
+def phase_astgcn_edge(torch, kernel_report, smi):
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import ASTGCN
+    from pytorch_geometric_temporal_tpu_torch.models.attention import astgcn
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph, bcsr
+    from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
+
+    c, n = EDGE, SLICE["n"]
+    K, T, f_in = c["K"], c["t"], c["f_in"]
+    rng = np.random.default_rng(SLICE["seed"])
+    ei, w = slice_graph(rng)
+    g = Graph.from_edge_index(ei, w, num_nodes=n)
+    x = torch.from_numpy(rng.normal(size=(1, n, f_in, T)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=(1, n, T)).astype(
+        np.float32)).cuda()
+    cfg = dict(nb_block=c["blocks"], in_channels=f_in, K=K,
+               nb_chev_filter=c["filters"], nb_time_filter=c["filters"],
+               time_strides=1, num_for_predict=T, len_input=T,
+               num_of_vertices=n, attention_mode="edge")
+    model = ASTGCN(**cfg, normalization="sym",
+                   generator=torch.Generator().manual_seed(5))
+    e_lhat = ei.shape[1] + 2 * n
+    log(f"  ASTGCN(edge, sym, K={K}, {c['blocks']} blocks, {c['filters']} "
+        f"filters), {sum(p.numel() for p in model.parameters())} "
+        f"parameters, N={n}, L-hat of {e_lhat} entries; hop 1's per-edge "
+        f"messages in block 2: T*E*F*4 B = "
+        f"{T * e_lhat * c['filters'] * 4 / 2**30:.2f} GiB, formed "
+        f"{max(1, astgcn._HOP1_CHUNK // (e_lhat * c['filters']))} steps at a "
+        f"time")
+
+    # the per-edge attention is column-normalized on the card
+    with torch.no_grad():
+        scores = model.block_0.spatial_attention(x, g)
+        col = scores.diag.clone().index_add_(
+            1, g.receivers, scores.edge * g.edge_mask())
+    col_err = float((col - 1.0).abs().max())
+    log(f"  EdgeScores column sums (edges into j + the diagonal): max "
+        f"|sum - 1| {col_err:.2e} (tol 1e-5)")
+    if not col_err <= 1e-5:
+        raise SystemExit("the edge attention is not column-normalized")
+
+    trainer = BatchTrainer(model, lambda xb: model(xb, g), lr=1e-3,
+                           loss_fn=mse)
+    per_step = 2 * c["blocks"] * (K - 2)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, counts = [], [], []
+    with counted_builds() as builds:
+        bcsr.reset_launch_counts()
+        with torch.no_grad():
+            model(x, g)
+        counts.append((builds.calls, launch_counts(bcsr)["H"]))
+        for _ in range(c["steps"]):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(x, y)))
+            step_s.append(time.perf_counter() - t0)
+            counts.append((builds.calls, launch_counts(bcsr)["H"]))
+        launches = launch_counts(bcsr)
+    fwd = c["blocks"] * (K - 2)
+    want = [(1, fwd)] + [(1, fwd + per_step * (i + 1))
+                         for i in range(c["steps"])]
+    log(f"  (operator builds, fused launches) after the first forward and "
+        f"after each step: {counts} (expected {want}: one build in all, "
+        f"{fwd} launches a forward, {per_step} a step), K1 "
+        f"{launches['K1']} and K2 {launches['K2']} (expected 0)")
+    if counts != want or launches["K1"] or launches["K2"]:
+        raise SystemExit("edge-mode ASTGCN: build or launch counts differ")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"edge-mode ASTGCN: losses not finite or not "
+                         f"falling: {losses}")
+    kernel_report["H"]["launches"] += launches["H"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {['%.6f' % v for v in losses]}; step times (host clock, "
+        f"s) {['%.4f' % v for v in step_s]}; peak memory "
+        f"{peak / 2**30:.2f} GiB (one (N, N) f32 matrix would be "
+        f"{n * n * 4 / 2**30:.2f} GiB) on {smi}")
+    # dense mode holds at least L-hat and three (B, N, N) attention tensors
+    if peak >= 4 * n * n * 4:
+        raise SystemExit("edge-mode ASTGCN allocated as much as dense mode's "
+                         "(N, N) tensors")
+
+    # the operator spmm built: f32 tiles, cached on the reversed L-hat
+    rev = astgcn._reversed(astgcn._lhat_graph(g, "sym"))
+    mats = [v for v in rev._op_cache.values() if isinstance(v, BCSRMatrix)]
+    if len(mats) != 1 or mats[0].fwd.blocks.dtype != torch.float32:
+        raise SystemExit("expected one f32 operator on the reversed L-hat")
+    mat = mats[0]
+    log("  reversed L-hat as BCSR (f32 tiles): "
+        + ", ".join(f"{s}: nnzb={getattr(mat, s).nnzb} "
+                    f"rem={getattr(mat, s).num_rem}" for s in ("fwd", "bwd")))
+    for f in (T * f_in, T * c["filters"]):
+        report_fused(torch, kernel_report, mat.fwd, f, "edge ASTGCN f32")
+
+    got = outputs_and_param_grads(torch, model, lambda: model(x, g), y)
+    with config_override(spmm_backend="segment"):
+        want_sg = outputs_and_param_grads(torch, model, lambda: model(x, g),
+                                          y)
+    compare_with_segment(torch, "edge-mode ASTGCN", model, got, want_sg,
+                         *EDGE_TOLS)
+    profile_steps(torch, lambda: trainer.train_step(x, y),
+                  statistics.median(step_s[1:]) * 1e3, n=1)
+
+    # λ_max from power iteration: a transient L-hat, the segment path
+    del got, want_sg
+    plain = ASTGCN(**cfg, normalization=None,
+                   generator=torch.Generator().manual_seed(6))
+    with counted_builds() as builds, torch.no_grad():
+        bcsr.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = plain(x, g)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    log(f"  normalization=None (λ_max by 64 power iterations on the card): "
+        f"one forward in {seconds:.3f} s, {builds.calls} operator builds and "
+        f"{launch_counts(bcsr)['H']} fused launches (expected 0 and 0)")
+    if builds.calls or any(launch_counts(bcsr).values()):
+        raise SystemExit("a transient L-hat built an operator or launched "
+                         "a kernel")
+    if not torch.isfinite(out).all():
+        raise SystemExit("normalization=None: non-finite output")
+
+
+
 def main() -> int:
     import torch
 
@@ -1263,6 +1757,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    watchdog = threading.Timer(WATCHDOG_S, lambda: (
+        print(f"chip_smoke: still running after {WATCHDOG_S} s, giving up",
+              file=sys.stderr, flush=True), os._exit(124)))
+    watchdog.daemon = True
+    watchdog.start()
 
     log("== phase 1: card and kernel build")
     smi = phase_card(torch)
@@ -1286,6 +1785,14 @@ def main() -> int:
     phase_tgcn(torch, report)
     log("== phase 10: EvolveGCN-O/H over stack_bcsr_gcn")
     phase_evolve(torch, report)
+    log("== phase 11: the METR-LA accuracy protocol at full size")
+    phase_metrla(torch, smi)
+    log("== phase 12: the attention family on the dense branch")
+    phase_attention(torch, smi)
+    log("== phase 13: STConv at N=50k over a Chebyshev BCSR operator")
+    phase_stconv(torch, report, smi)
+    log("== phase 14: edge-mode ASTGCN at N=50k")
+    phase_astgcn_edge(torch, report, smi)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"
@@ -1308,6 +1815,7 @@ def main() -> int:
         f"{label} {k['ms']:.4f} ms, {k['bound_ms'] / k['ms']:.3f}"
         for label, k in report["paths"]))
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+    watchdog.cancel()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-"""Model zoo: the convolutions and the recurrent cells (the attention family
-and the heterogeneous models are not ported yet)."""
+"""Model zoo: the convolutions, the recurrent cells and the attention family
+(the heterogeneous models are not ported yet)."""
 
-from . import conv  # noqa: F401
+from . import attention, conv  # noqa: F401
+from .attention import *  # noqa: F401,F403
 from .conv import (
     AVWGCN,
     ChebConv,
@@ -36,7 +37,7 @@ from .recurrent import (
     split_relations,
 )
 
-__all__ = [
+__all__ = list(attention.__all__) + [
     "AGCRN", "A3TGCN", "A3TGCN2", "AVWGCN", "ChebConv", "DCRNN", "DCRNNSeq",
     "DConv", "DyGrEncoder", "EvolveGCNH", "EvolveGCNHSeq", "EvolveGCNO",
     "EvolveGCNOSeq", "GCLSTM", "GCNConv", "GConvGRU", "GConvLSTM",

@@ -1,6 +1,7 @@
 """The parameter initializers and loaders shared by the models, and the
 counterparts of the flax building blocks the JAX package's models use:
-``Dense``, ``GRUCell``, ``OptimizedLSTMCell``, ``BatchNorm``.
+``Dense``, ``Conv``, ``GRUCell``, ``OptimizedLSTMCell``, ``BatchNorm``,
+``LayerNorm``, ``Embed``, ``Dropout``.
 
 Each keeps flax's parameter names, the ``(in, out)`` kernel layout, flax's
 gate equations and its default initial distributions (lecun-normal kernels,
@@ -12,7 +13,7 @@ loader behind every ``params_from_flax``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,14 +56,50 @@ def flax_params(tree):
 def lecun_normal(shape, generator=None, device=None,
                  dtype=torch.float32) -> torch.Tensor:
     """flax's default kernel initializer: a normal truncated at ±2 standard
-    deviations, scaled to variance 1/fan_in.  Drawn on the CPU from
+    deviations, scaled to variance 1/fan_in (a conv kernel's leading axes,
+    its receptive field, count into the fan).  Drawn on the CPU from
     ``generator`` by inverting the normal CDF."""
-    std = math.sqrt(1.0 / shape[-2]) / 0.87962566103423978
+    fan_in = shape[-2] * math.prod(shape[:-2])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = torch.rand(shape, generator=generator, dtype=torch.float64)
     u = (lo + u * (1.0 - 2.0 * lo)).clamp(1e-12, 1.0 - 1e-12)
     x = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
     return (x * std).to(device=device, dtype=dtype)
+
+
+def uniform(shape, generator=None, device=None,
+            dtype=torch.float32) -> torch.Tensor:
+    """flax's ``uniform(scale=1.0)``: U[0, 1)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    return u.to(device=device, dtype=dtype)
+
+
+def _normal(shape, variance, generator, device, dtype):
+    x = torch.randn(shape, generator=generator, dtype=torch.float64)
+    return (x * math.sqrt(variance)).to(device=device, dtype=dtype)
+
+
+def kaiming_normal(shape, generator=None, device=None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """flax's ``kaiming_normal``: N(0, 2/fan_in), not truncated; leading
+    axes count into the fan."""
+    fan_in = shape[-2] * math.prod(shape[:-2])
+    return _normal(shape, 2.0 / fan_in, generator, device, dtype)
+
+
+def xavier_normal(shape, generator=None, device=None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """flax's ``xavier_normal``: N(0, 2/(fan_in + fan_out)), not truncated;
+    leading axes count into both fans."""
+    fans = (shape[-2] + shape[-1]) * math.prod(shape[:-2])
+    return _normal(shape, 2.0 / fans, generator, device, dtype)
+
+
+def embed_normal(shape, generator=None, device=None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """flax's default embedding initializer: N(0, 1/features)."""
+    return _normal(shape, 1.0 / shape[-1], generator, device, dtype)
 
 
 def orthogonal(shape, generator=None, device=None,
@@ -195,24 +232,29 @@ class LSTMCell(FlaxModule):
 
 
 class BatchNorm(FlaxModule):
-    """flax ``nn.BatchNorm`` over every axis but the last: momentum 0.99
-    (the share the running value keeps), eps 1e-5, biased variance both in
-    the normalization and in the running statistics (buffers ``mean`` and
-    ``var``, flax's ``batch_stats``)."""
+    """flax ``nn.BatchNorm``: statistics over every axis but ``axis`` (the
+    last by default), ``momentum`` the share the running value keeps (flax's
+    default 0.99), eps 1e-5, biased variance both in the normalization and
+    in the running statistics (buffers ``mean`` and ``var``, flax's
+    ``batch_stats``).  ``scale_init`` is the constant the scale starts at."""
 
-    momentum, epsilon = 0.99, 1e-5      # flax's defaults
+    epsilon = 1e-5      # flax's default
 
-    def __init__(self, features: int, device=None):
+    def __init__(self, features: int, device=None, axis: int = -1,
+                 momentum: float = 0.99, scale_init: float = 1.0):
         super().__init__()
         device = resolve_device(device)
-        self.scale = nn.Parameter(torch.ones((features,), device=device))
+        self.axis, self.momentum = axis, momentum
+        self.scale = nn.Parameter(
+            torch.full((features,), float(scale_init), device=device))
         self.bias = nn.Parameter(zeros((features,), device))
         self.register_buffer("mean", zeros((features,), device))
         self.register_buffer("var", torch.ones((features,), device=device))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        axis = self.axis % x.dim()
         if train:
-            axes = tuple(range(x.dim() - 1))
+            axes = tuple(a for a in range(x.dim()) if a != axis)
             mean = x.mean(axes)
             # flax's fast variance: E[x²] − E[x]², clipped at 0
             var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
@@ -222,5 +264,127 @@ class BatchNorm(FlaxModule):
                 self.var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.mean, self.var
+        shape = [1] * x.dim()
+        shape[axis] = -1
         mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean) * mul + self.bias
+        return ((x - mean.reshape(shape)) * mul.reshape(shape)
+                + self.bias.reshape(shape))
+
+
+def _per_axis(value, nd: int):
+    return (value,) * nd if isinstance(value, int) else tuple(value)
+
+
+class Conv(FlaxModule):
+    """flax ``nn.Conv`` on channel-last input ``(B, *spatial, C)``: kernel
+    ``(*kernel_size, in, out)`` (one or two spatial axes), ``strides``,
+    ``kernel_dilation``, and ``padding`` as ``"VALID"``, ``"SAME"`` or a
+    (low, high) pair per spatial axis."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int], strides=1,
+                 padding: Union[str, Sequence] = "SAME", kernel_dilation=1,
+                 use_bias: bool = True, kernel_init=lecun_normal,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        nd = len(kernel_size)
+        if nd not in (1, 2):
+            raise ValueError(f"Conv takes 1 or 2 spatial axes, got {nd}")
+        self.strides = _per_axis(strides, nd)
+        self.dilation = _per_axis(kernel_dilation, nd)
+        self.padding = (padding if isinstance(padding, str)
+                        else tuple(tuple(p) for p in padding))
+        self.kernel = nn.Parameter(kernel_init(
+            tuple(kernel_size) + (in_features, features), generator, device))
+        self.bias = (nn.Parameter(zeros((features,), device))
+                     if use_bias else None)
+
+    def _pads(self, spatial):
+        if self.padding == "VALID":
+            return [(0, 0)] * len(spatial)
+        if self.padding == "SAME":
+            pads = []
+            for size, k, s, d in zip(spatial, self.kernel.shape, self.strides,
+                                     self.dilation):
+                total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size,
+                            0)
+                pads.append((total // 2, total - total // 2))
+            return pads
+        return list(self.padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nd = self.kernel.dim() - 2
+        if x.dim() != nd + 2:
+            raise ValueError(
+                f"Conv with a {nd}-d kernel expects (B, *spatial, C) of rank "
+                f"{nd + 2}; got shape {tuple(x.shape)}")
+        x = x.movedim(-1, 1)
+        pads = self._pads(x.shape[2:])
+        if any(p != (0, 0) for p in pads):
+            # F.pad lists the last axis first
+            x = torch.nn.functional.pad(
+                x, [v for lo_hi in reversed(pads) for v in lo_hi])
+        weight = self.kernel.to(x.dtype).permute(
+            nd + 1, nd, *range(nd))         # (out, in, *kernel_size)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        conv = (torch.nn.functional.conv1d if nd == 1
+                else torch.nn.functional.conv2d)
+        out = conv(x, weight, bias, stride=self.strides,
+                   dilation=self.dilation)
+        return out.movedim(1, -1)
+
+
+class LayerNorm(FlaxModule):
+    """flax ``nn.LayerNorm`` over the last axis: eps 1e-6 (torch's default
+    is 1e-5), biased variance computed as E[x²] − E[x]² clipped at 0."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones((features,), device=device))
+        self.bias = nn.Parameter(zeros((features,), device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return ((x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale)
+                + self.bias)
+
+
+class Embed(FlaxModule):
+    """flax ``nn.Embed``: a lookup into ``embedding`` (num, features)."""
+
+    def __init__(self, num_embeddings: int, features: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.embedding = nn.Parameter(
+            embed_normal((num_embeddings, features), generator, device))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.embedding[idx]
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: identity unless ``train``; else each entry is
+    kept with probability ``1 − rate`` and scaled by ``1/(1 − rate)``.  The
+    mask is drawn from ``generator`` on the generator's device (``x``'s
+    device when None) — every draw is the caller's to seed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        device = x.device if generator is None else generator.device
+        mask = torch.rand(x.shape, generator=generator, device=device) < keep
+        return x * (mask.to(x.device, x.dtype) / keep)

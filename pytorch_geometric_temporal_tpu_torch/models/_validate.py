@@ -19,3 +19,14 @@ def check_node_axis(x, graph, model: str, layout: str, axis: int = -2):
             f"{tuple(x.shape)}. Check the axis order — use torch.movedim / "
             f"permute if your data uses another layout."
         )
+
+
+def check_rank(x, model: str, layout: str, ranks):
+    if isinstance(ranks, int):
+        ranks = (ranks,)
+    if x.dim() not in ranks:
+        expect = " or ".join(f"rank {r}" for r in ranks)
+        raise ValueError(
+            f"{model} expects input {layout} ({expect}); got rank {x.dim()} "
+            f"(shape {tuple(x.shape)})."
+        )

@@ -8,6 +8,18 @@ static metadata; padded edges carry weight 0 and are masked out by
 functions on tensors, memoized on the source graph, and return a prebuilt
 operator when handed a :class:`~.operators.PreparedGraph` that holds one.
 
+Eager execution derives a graph every time a line runs, where a traced
+program derives it once; the operators that :func:`~.spmm.spmm` tiles on the
+host are cached on the Graph *instance* they were built from.  Hence the
+rule: **a forward pass never host-builds a BCSR operator more than once per
+caller's graph, and never for a graph whose weights were scaled by a
+device-computed λ_max.**  Derived graphs of a constant graph are memoized on
+it (:func:`_memo`), so the same instance — and its cached operator — comes
+back on every call; a graph derived from a device-computed value
+(:func:`cheb_norm` with a tensor ``lambda_max``, the Laplacian inside
+:func:`lambda_max`) is marked ``transient``, and ``spmm`` aggregates it on
+the segment path instead of tiling it.
+
 Conventions match PyG: ``edge_index[0]`` is the message *source* and
 ``edge_index[1]`` the *target*; aggregation happens at the target.
 """
@@ -35,6 +47,10 @@ class Graph:
         num_edges: number of *real* edges (<= E_pad).
         num_src:   sender-side node count for bipartite edges; None means
                    square (num_nodes).
+        transient: the weights were computed on the device inside a forward
+                   pass (they change from call to call): ``spmm`` never
+                   host-builds a BCSR operator for such a graph.  Carried
+                   along by ``reverse`` and ``with_weights``.
     """
 
     senders: torch.Tensor
@@ -43,6 +59,7 @@ class Graph:
     num_nodes: int
     num_edges: int
     num_src: Optional[int] = None
+    transient: bool = False
 
     @property
     def src_count(self) -> int:
@@ -379,7 +396,9 @@ def cheb_norm(graph: Graph, normalization: Optional[str] = "sym",
 
     PyG ``ChebConv.__norm__`` semantics: input self-loops removed before
     the Laplacian, λ_max defaults to 2.0, self-loop fill −1.0, inf → 0.
-    ``lambda_max`` may be a number or a 0-dim tensor (then not memoized).
+    ``lambda_max`` may be a number or a 0-dim tensor; with a tensor the
+    result is not memoized and comes back ``transient`` (see the module
+    docstring: ``spmm`` aggregates it on the segment path at large N).
     """
     if lambda_max is None:
         lambda_max = 2.0
@@ -396,15 +415,20 @@ def cheb_norm(graph: Graph, normalization: Optional[str] = "sym",
         w = torch.where(torch.isinf(w), torch.zeros_like(w), w)
         return lap.with_weights(w).add_self_loops(fill_value=-1.0)
 
-    return _memo(graph, key, build) if fixed else build()
+    if fixed:
+        return _memo(graph, key, build)
+    return dataclasses.replace(build(), transient=True)
 
 
 def lambda_max(graph: Graph, normalization: Optional[str] = "sym",
                iters: int = 64) -> torch.Tensor:
-    """Largest Laplacian eigenvalue by power iteration (0-dim tensor)."""
+    """Largest Laplacian eigenvalue by power iteration (0-dim tensor).  The
+    Laplacian is derived anew on every call, so it is ``transient``: its
+    ``iters + 1`` aggregations never tile an operator."""
     from .spmm import spmm  # local import to avoid a cycle
 
-    lap = laplacian(graph.remove_self_loops(), normalization)
+    lap = dataclasses.replace(
+        laplacian(graph.remove_self_loops(), normalization), transient=True)
     n = graph.num_nodes
     v = lap.weights.new_full((n, 1), 1.0 / np.sqrt(n))
     for _ in range(iters):

@@ -13,6 +13,14 @@ package's ``ops/spmm.py``.  Backends:
 
 With ``auto``, N above the threshold goes to ``bcsr`` for CUDA tensors and
 to ``segment`` on the CPU.  ``spmm`` accepts X of shape (..., N, F).
+
+The ``bcsr`` branch holds the rule stated in :mod:`.graph`: the operator is
+built once per Graph instance (models memoize their derived graphs on the
+caller's graph, so the instance is the same on every forward pass), and a
+``transient`` graph, one whose weights were computed on the device inside
+the forward pass (scaled by a power-iteration λ_max), takes the segment
+path, as do per-call weights and bipartite graphs.  The JAX package does the
+same with a graph whose weights are traced.
 """
 
 from __future__ import annotations
@@ -95,9 +103,11 @@ def spmm(
     if b == "segment":
         return spmm_segment(graph, x, weights)
     if b == "bcsr":
-        # per-call weights cannot be baked into tiles, and the tiler
-        # assumes a square graph: both take the segment path
-        if weights is not None or graph.num_src is not None:
+        # per-call weights and a transient graph's weights cannot be baked
+        # into tiles, and the tiler assumes a square graph: all three take
+        # the segment path
+        if (weights is not None or graph.num_src is not None
+                or graph.transient):
             return spmm_segment(graph, x, weights)
         return bcsr_spmm(_auto_bcsr(graph, x.dtype), x)
     raise ValueError(f"unknown spmm backend {b!r}")

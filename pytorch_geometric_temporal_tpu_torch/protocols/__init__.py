@@ -1,4 +1,7 @@
-"""End-to-end protocols on the datasets bundled with the package."""
+"""End-to-end protocols: the bundled datasets' accuracy runs and the METR-LA
+DCRNN protocol (on the seeded synthetic stand-in)."""
+
+from . import metrla_protocol
 
 from .bundled_accuracy import (
     RUNS,
@@ -9,4 +12,4 @@ from .bundled_accuracy import (
 )
 
 __all__ = ["RUNS", "ProtocolRun", "extra_bundled_accuracy",
-           "pedalme_accuracy", "twitter_tennis_accuracy"]
+           "metrla_protocol", "pedalme_accuracy", "twitter_tennis_accuracy"]

@@ -14,7 +14,8 @@ import torch
 
 from pytorch_geometric_temporal_tpu_torch import config_override
 from pytorch_geometric_temporal_tpu_torch.models import (
-    DCRNNSeq, EvolveGCNHSeq, EvolveGCNOSeq, GConvGRU, TGCN)
+    ASTGCN, DCRNNSeq, EvolveGCNHSeq, EvolveGCNOSeq, GConvGRU, MSTGCN, STConv,
+    TGCN)
 from pytorch_geometric_temporal_tpu_torch.ops import (
     DiffusionOperators, Graph, Prenormalized, bcsr, host_cheb_norm,
     lambda_max, prenormalize_cheb, prenormalize_gcn, prepare_graph,
@@ -302,8 +303,13 @@ def test_snapshot_trainer_launches_with_and_without_remat(cuda):
 
 
 def test_lambda_max_through_the_kernel_matches_the_segment_path(cuda):
-    """Above the dense threshold the power iteration aggregates a single
-    column (F=1) through the fused kernel (f32 tiles)."""
+    """The Laplacian inside the power iteration is derived anew on every
+    call (a transient graph): above the dense threshold its aggregations
+    take the segment path, build no operator and launch no kernel; the
+    same Laplacian as a caller's own graph goes through the fused kernel
+    (f32 tiles, F=1) and gives the same eigenvalue."""
+    from pytorch_geometric_temporal_tpu_torch.ops import laplacian, spmm
+
     n = 5000
     rng = np.random.default_rng(11)
     s = rng.integers(0, n, size=40_000)
@@ -314,7 +320,101 @@ def test_lambda_max_through_the_kernel_matches_the_segment_path(cuda):
     g = Graph.from_edge_index(ei, num_nodes=n, device=cuda)
     bcsr.reset_launch_counts()
     got = lambda_max(g, iters=16)
-    assert bcsr.hybrid_spmm.launches == 17
+    assert bcsr.hybrid_spmm.launches == 0
     with config_override(spmm_backend="segment"):
         want = lambda_max(g, iters=16)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    lap = laplacian(g.remove_self_loops(), "sym")
+    v = torch.full((n, 1), n ** -0.5, device=cuda)
+    for _ in range(16):
+        v = spmm(lap, v)
+        v = v / torch.linalg.norm(v)
+    assert bcsr.hybrid_spmm.launches == 16
+    through = (v * spmm(lap, v)).sum() / (v * v).sum()
+    torch.testing.assert_close(through, want, rtol=1e-4, atol=0)
+
+
+class _Builds:
+    """Counts ``BCSRMatrix.from_graph`` calls while active."""
+
+    def __init__(self, monkeypatch):
+        self.calls = 0
+        inner = bcsr.BCSRMatrix.from_graph
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return inner(*a, **kw)
+
+        monkeypatch.setattr(bcsr.BCSRMatrix, "from_graph",
+                            staticmethod(counted))
+
+
+def test_edge_mode_astgcn_tiles_the_reversed_lhat_once(cuda, monkeypatch):
+    """Edge-mode ASTGCN("sym", K=3) above the dense threshold: one operator
+    build in the first forward and none after, (K−2) fused launches per
+    block forward and as many backward, the same output as the segment
+    path; ASTGCN(None) and MSTGCN build nothing and launch nothing."""
+    builds = _Builds(monkeypatch)
+    n = 5000
+    ei, w = banded(n, 60_000, seed=12)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    x = torch.randn(2, n, 2, 6, device=cuda)
+    cfg = dict(nb_block=2, in_channels=2, K=3, nb_chev_filter=8,
+               nb_time_filter=8, time_strides=1, num_for_predict=3,
+               len_input=6, num_of_vertices=n, attention_mode="edge")
+    gen = torch.Generator().manual_seed(0)
+    model = ASTGCN(**cfg, normalization="sym", generator=gen)
+    bcsr.reset_launch_counts()
+    out = model(x, g)
+    assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 2)
+    out.square().sum().backward()
+    assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 4)
+    model(x, g)
+    assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 6)
+    assert (bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches) == (0, 0)
+    with config_override(spmm_backend="segment"):
+        want = model(x, g)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    bcsr.reset_launch_counts()
+    with torch.no_grad():
+        ASTGCN(**cfg, normalization=None, generator=gen)(x, g)
+        MSTGCN(2, 2, 3, 8, 8, 1, 3, 6, generator=gen)(x, g)
+    assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 0)
+
+
+def test_stconv_launches_over_a_prepared_chebyshev_operator(cuda):
+    """Two stacked STConv blocks over ``prepare_graph(kinds=("cheb",),
+    bcsr=True)``: the whole (B, T', N, C) tensor is one aggregation, so a
+    block launches the fused kernel (K−1) times forward and (K−1) times
+    backward whatever B and T' are, and normalizes nothing in the loop."""
+    n, K = 3000, 3
+    ei, w = banded(n, 50_000, seed=13)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    prepared = prepare_graph(g, kinds=("cheb",), bcsr=True,
+                             dtype=torch.bfloat16)
+    seg = prepare_graph(Graph.from_edge_index(ei, w, num_nodes=n,
+                                              device=cuda),
+                        kinds=("cheb",), bcsr=False)
+    gen = torch.Generator().manual_seed(0)
+    blocks = [STConv(n, 1, 8, 16, 3, K, generator=gen),
+              STConv(n, 16, 8, 16, 3, K, generator=gen)]
+    x = torch.randn(2, 12, n, 1, device=cuda)
+
+    def run(graph):
+        h = x
+        for block in blocks:
+            h = block(h, graph, train=True)
+        return h
+
+    bcsr.reset_launch_counts()
+    out = run(prepared)
+    assert out.shape == (2, 4, n, 16)
+    assert bcsr.hybrid_spmm.launches == 2 * (K - 1)
+    out.square().mean().backward()
+    assert bcsr.hybrid_spmm.launches == 4 * (K - 1)
+    assert (bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches) == (0, 0)
+    assert not any(k[0] == "cheb_norm" for k in getattr(g, "_op_cache", {}))
+    with config_override(spmm_backend="segment"), torch.no_grad():
+        want = run(seg)
+    torch.testing.assert_close(out, want, rtol=0, atol=5e-2)

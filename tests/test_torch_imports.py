@@ -46,6 +46,8 @@ for event in ("rg17", "uo17"):
     data.TwitterTennisDatasetLoader(event, N=50).get_dataset(device="cpu")[0]
 from pytorch_geometric_temporal_tpu_torch.protocols import RUNS
 RUNS["pedalme_tgcn"](1, device="cpu")
+from pytorch_geometric_temporal_tpu_torch.protocols import metrla_protocol
+metrla_protocol.run(epochs=1, batch_size=8, t_len=60, n=12, device="cpu")
 print(json.dumps({"modules": sorted(sys.modules), "walked": names,
                   "bundled": str(_io._BUNDLED), "opened": opened}))
 """
@@ -74,12 +76,17 @@ def test_port_imports_no_jax(tmp_path):
                 "models.recurrent.gconv_lstm", "models.recurrent.gc_lstm",
                 "models.recurrent.lrgcn", "models.recurrent.dygrae",
                 "models.recurrent.evolvegcn", "models.recurrent.mpnn_lstm",
-                "models.recurrent.agcrn", "protocols.bundled_accuracy"):
+                "models.recurrent.agcrn", "protocols.bundled_accuracy",
+                "protocols.metrla_protocol", "models.attention.stgcn",
+                "models.attention.mstgcn", "models.attention.astgcn",
+                "models.attention.gman", "models.attention.mtgnn",
+                "models.attention.tsagcn", "models.attention.dnntsp"):
         assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
     pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
     # no file inside the JAX package was opened, the port's bundle was
-    jax_pkg = str(REPO / "pytorch_geometric_temporal_tpu") + os.sep
-    assert not [f for f in info["opened"] if f.startswith(jax_pkg)]
+    for other in ("pytorch_geometric_temporal_tpu", "benchmarks"):
+        prefix = str(REPO / other) + os.sep
+        assert not [f for f in info["opened"] if f.startswith(prefix)]
     for name in ("chickenpox", "pedalme_london", "england_covid",
                  "montevideo_bus", "twitter_tennis_rg17",
                  "twitter_tennis_uo17"):
@@ -155,6 +162,78 @@ def test_entry_points_raise_without_cuda(no_cuda):
     trainer = BatchTrainer(model, lambda x: model(x, ops), device="cpu")
     loss = trainer.train_step(torch.randn(1, 2, 3, 2), torch.randn(1, 2, 3, 4))
     assert torch.isfinite(loss)
+
+
+def test_attention_entry_points_raise_without_cuda(no_cuda):
+    from pytorch_geometric_temporal_tpu_torch.models import _cells
+    from pytorch_geometric_temporal_tpu_torch.models import attention as att
+    from pytorch_geometric_temporal_tpu_torch.protocols import metrla_protocol
+
+    ei = np.array([[0, 1, 2], [1, 2, 0]])
+    a = np.zeros((3, 3, 3), np.float32)
+    relu = torch.relu
+    builds = {
+        "Conv": lambda **kw: _cells.Conv(2, 4, (1, 3), **kw),
+        "LayerNorm": lambda **kw: _cells.LayerNorm(4, **kw),
+        "Embed": lambda **kw: _cells.Embed(3, 4, **kw),
+        "BatchNorm": lambda **kw: _cells.BatchNorm(4, **kw),
+        "TemporalConv": lambda **kw: att.TemporalConv(2, 4, **kw),
+        "STConv": lambda **kw: att.STConv(3, 2, 4, 4, 3, 2, **kw),
+        "MSTGCNBlock": lambda **kw: att.MSTGCNBlock(2, 2, 4, 4, 1, **kw),
+        "MSTGCN": lambda **kw: att.MSTGCN(1, 2, 2, 4, 4, 1, 2, 4, **kw),
+        "ChebConvAttention": lambda **kw: att.ChebConvAttention(2, 4, 2,
+                                                                **kw),
+        "SpatialAttention": lambda **kw: att.SpatialAttention(2, 3, 4, **kw),
+        "SpatialAttentionSparse": lambda **kw: att.SpatialAttentionSparse(
+            2, 4, **kw),
+        "TemporalAttention": lambda **kw: att.TemporalAttention(2, 3, 4,
+                                                                **kw),
+        "ASTGCNBlock": lambda **kw: att.ASTGCNBlock(2, 2, 4, 4, 1, 3, 4,
+                                                    **kw),
+        "ASTGCN": lambda **kw: att.ASTGCN(1, 2, 2, 4, 4, 1, 2, 4, 3, **kw),
+        "FullyConnected": lambda **kw: att.FullyConnected(2, [4], [relu],
+                                                          **kw),
+        "SpatioTemporalEmbedding": lambda **kw: att.SpatioTemporalEmbedding(
+            4, 0.1, 24, **kw),
+        "GatedFusion": lambda **kw: att.GatedFusion(4, 0.1, **kw),
+        "SpatioTemporalAttention": lambda **kw: att.SpatioTemporalAttention(
+            2, 2, 0.1, True, **kw),
+        "TransformAttention": lambda **kw: att.TransformAttention(2, 2, 0.1,
+                                                                  **kw),
+        "GMAN": lambda **kw: att.GMAN(1, 2, 2, 3, 0.1, 24, **kw),
+        "MixProp": lambda **kw: att.MixProp(2, 4, 1, 0.0, 0.05, **kw),
+        "DilatedInception": lambda **kw: att.DilatedInception(2, 4, [2, 3],
+                                                              1, **kw),
+        "GraphConstructor": lambda **kw: att.GraphConstructor(3, 2, 2, 1.0,
+                                                              **kw),
+        "MTGNNLayer": lambda **kw: att.MTGNNLayer(
+            1, 1, 3, 1, 4, 4, 4, [2, 3], 1, True, True, 6, 3, 0.0, 1, 3,
+            0.05, **kw),
+        "MTGNN": lambda **kw: att.MTGNN(
+            True, True, 1, 3, [2, 3], 3, 0.0, 2, 2, 1, 4, 4, 4, 4, 6, 1, 1,
+            1, 0.05, 1.0, True, **kw),
+        "GraphAAGCN": lambda **kw: att.GraphAAGCN(ei, 3, **kw),
+        "UnitTCN": lambda **kw: att.UnitTCN(2, 4, **kw),
+        "UnitGCN": lambda **kw: att.UnitGCN(2, 4, a, **kw),
+        "AAGCN": lambda **kw: att.AAGCN(2, 4, ei, 3, **kw),
+        "MaskedSelfAttention": lambda **kw: att.MaskedSelfAttention(4, 4, 2,
+                                                                    **kw),
+        "GlobalGatedUpdater": lambda **kw: att.GlobalGatedUpdater(3, **kw),
+        "WeightedGCNBlock": lambda **kw: att.WeightedGCNBlock(2, [4], 4,
+                                                              **kw),
+        "DNNTSP": lambda **kw: att.DNNTSP(3, 4, 2, **kw),
+        "metrla run": lambda **kw: metrla_protocol.run(
+            epochs=1, batch_size=4, t_len=40, n=12, **kw),
+    }
+    # every exported class is here but the NamedTuple, which holds tensors
+    assert set(att.__all__) - set(builds) == {"EdgeScores"}
+    for name, build in builds.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        assert build(device="cpu") is not None, name
+    series = metrla_protocol.load_series(t=40, n=12)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrla_protocol.train(*series[:5], [np.arange(8)], np.arange(8), 4, 2)
 
 
 def test_kernel_wrappers_refuse_other_devices():
