@@ -86,14 +86,29 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    a step; per-edge attention sums to 1 per column; output and gradients
    against ``spmm_backend="segment"``; the fused kernel timed on that f32
    operator at F=24 and F=768; ``normalization=None`` builds and launches
-   nothing.
+   nothing;
+15. index-batched DCRNN at the all-California PeMS scale: the seeded
+   stand-in of the JAX package's ``examples/index_batching/
+   streaming_out_of_core.py`` (11,160 sensors, speed and time of day, 7
+   days of 5-minute steps, z-scored per feature, written to an ``.npy``)
+   and its banded graph passed as a raw ``Graph``;
+   ``make_index_loaders(lags=12, batch_size=64, shuffle=True)`` into
+   ``BatchTrainer`` with masked MAE on de-normalized values,
+   ``DCRNNSeq(2, 2, K=2)``, 3 epochs with validation and a test pass:
+   the card's windows against ``IndexDataset``'s host windows, the first
+   batch against the f32 segment path, exactly 2 operator builds, 94
+   fused launches a train batch and 48 an eval batch, a falling loss, a
+   ``StreamingWindower`` over the file against the device windower, step
+   and streaming times, and the fused kernel on that f32 operator at
+   F = 64·4 = 256.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
-kernel must not outlive the run).  Exits non-zero, and prints no result, without CUDA or when any check
-fails.  The last line is ``{"ok": true, "device": {...}}``; the line before
-it holds the per-kernel JSON record, its launch counts summed over phases
-3, 6, 7, 9, 10, 13 and 14; the fused kernel's time and share of its bound at each
-path's own width stand on the line before the total.
+kernel must not outlive the run).  Exits non-zero, and prints no result,
+without CUDA or when any check fails.  The last line is ``{"ok": true,
+"device": {...}}``; the line before it holds the per-kernel JSON record,
+its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14 and 15; the
+fused kernel's time and share of its bound at each path's own width stand
+on the line before the total.
 """
 
 import contextlib
@@ -171,6 +186,18 @@ EDGE = dict(f_in=2, t=12, K=3, blocks=2, filters=64, steps=3)
 # that noise and below the ~1e-1 of a misplaced tile or bf16 rounding)
 STCONV_TOLS = (3.5e-2, 6.5e-1, 1.5e-1)
 EDGE_TOLS = (1e-4, 1e-2, 1e-2)
+# phase 15: PGT-I's PeMS defaults (lags 12, batches of 64, DCRNN K=2 at the
+# width of the JAX package's examples/index_batching/streaming_out_of_core.py)
+# over that script's all-California stand-in: 11,160 sensors, speed and time
+# of day, 7 days of 5-minute steps, a banded graph of degree 6
+PEMS = dict(n=11_160, f=2, days=7, steps_per_day=288, lags=12,
+            batch_size=64, K=2, epochs=3, deg=6, offset=8, seed=0,
+            graph_seed=1, batches=(22, 4, 7))
+# phase 15 against the f32 segment path (forward; gradients by the largest
+# entry; gradients by the 2-norm): f32 tiles, where only the order of the
+# sums differs; about three times the errors read on an H100 (4.0e-7 on
+# outputs up to 0.94, 1.3e-7 and 1.1e-7, both at cell.b_h)
+PEMS_TOLS = (1.5e-6, 5e-7, 5e-7)
 
 
 def log(*a):
@@ -1745,6 +1772,258 @@ def phase_astgcn_edge(torch, kernel_report, smi):
 
 
 
+def pems_series(c):
+    """The stand-in series of ``streaming_out_of_core.py:write_series``
+    (the same draws, made in memory): (T, N, 2) f32, speed in mph and the
+    time of day."""
+    n, spd = c["n"], c["steps_per_day"]
+    t = c["days"] * spd
+    rng = np.random.default_rng(c["seed"])
+    out = np.empty((t, n, c["f"]), np.float32)
+    base = rng.uniform(40.0, 70.0, size=n).astype(np.float32)
+    for lo in range(0, t, spd):
+        hi = min(lo + spd, t)
+        tod = (np.arange(lo, hi) % spd) / spd
+        noise = rng.normal(scale=3.0, size=(hi - lo, n)).astype(np.float32)
+        out[lo:hi, :, 0] = np.clip(base[None, :] - 15.0 * np.sin(
+            2 * np.pi * tod)[:, None].astype(np.float32) + noise, 0.0, 80.0)
+        out[lo:hi, :, 1] = tod[:, None].astype(np.float32)
+    return out
+
+
+def pems_graph(c):
+    """That script's banded sensor graph: ``deg`` edges a sensor to others
+    within ±``offset``, weights U(0.3, 1)."""
+    rng = np.random.default_rng(c["graph_seed"])
+    s = np.repeat(np.arange(c["n"]), c["deg"])
+    r = np.clip(s + rng.integers(-c["offset"], c["offset"] + 1,
+                                 size=s.shape[0]), 0, c["n"] - 1)
+    w = rng.uniform(0.3, 1.0, s.shape[0]).astype(np.float32)
+    return np.stack([s, r]), w
+
+
+def rss_bytes():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def phase_index_pems(torch, kernel_report, smi):
+    import tempfile
+
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.data._common import (
+        make_index_loaders)
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph, bcsr
+    from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
+    from pytorch_geometric_temporal_tpu_torch.ops.graph import diffusion_norms
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        IndexDataset, IndexLoader, StreamingWindower, iter_index_batches)
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        BatchTrainer, ZScoreScaler)
+
+    c = PEMS
+    h, bs, K = c["lags"], c["batch_size"], c["K"]
+    torch.cuda.reset_peak_memory_stats()
+    with counted_builds() as builds, \
+            tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw = pems_series(c)
+        means = np.mean(raw, axis=(0, 1))
+        stds = np.std(raw, axis=(0, 1))
+        data = (raw - means) / stds             # as data/pems.py z-scores
+        del raw
+        path = os.path.join(tmp, "pems.npy")
+        np.save(path, data)
+        ei, w = pems_graph(c)
+        g = Graph.from_edge_index(ei, w, num_nodes=c["n"])
+        train, val, test = make_index_loaders(data, h, bs, shuffle=True)
+        windower = train.windower
+        log(f"  series {data.shape} f32 ({os.path.getsize(path) / 1e6:.1f} "
+            f"MB on disk), means {means}, stds {stds}; graph N={c['n']} "
+            f"E={ei.shape[1]} (raw Graph: spmm tiles it); windows "
+            f"{len(train.indices)} / {len(val.indices)} / "
+            f"{len(test.indices)} in {len(train)} / {len(val)} / "
+            f"{len(test)} batches of {bs}; set-up "
+            f"{time.perf_counter() - t0:.1f} s")
+        if (len(train), len(val), len(test)) != c["batches"]:
+            raise SystemExit(f"PeMS index split differs from {c['batches']}")
+        series_b = windower.data.numel() * windower.data.element_size()
+        n_win = sum(len(lo.indices) for lo in (train, val, test))
+        windows_b = n_win * 2 * h * c["n"] * c["f"] * 4
+        log(f"  the series on the card {series_b / 1e9:.3f} GB; its "
+            f"{n_win} windows materialized would take {windows_b / 1e9:.2f} "
+            f"GB ({windows_b / series_b:.1f}x)")
+
+        # (a) the first train batch on the card against the host windows
+        first = next(iter_index_batches(train.indices, bs, shuffle=True,
+                                        rng=np.random.default_rng(0),
+                                        drop_last=False))
+        twin = IndexLoader(train.indices, windower, bs, shuffle=True)
+        x0, y0 = next(iter(twin))
+        host = IndexDataset(train.indices, data, h)
+        pos = np.searchsorted(train.indices, first)
+        hx = np.stack([host[p][0] for p in pos])
+        hy = np.stack([host[p][1] for p in pos])
+        if not (np.array_equal(x0.cpu().numpy(), hx)
+                and np.array_equal(y0.cpu().numpy(), hy)):
+            raise SystemExit("(a) the card's windows differ from the host's")
+        log(f"  (a) first train batch {tuple(x0.shape)}: equal to "
+            f"IndexDataset's host windows, bit for bit")
+
+        model = DCRNNSeq(c["f"], c["f"], K,
+                         generator=torch.Generator().manual_seed(0))
+        scaler = ZScoreScaler(mean=torch.tensor(means, device="cuda"),
+                              std=torch.tensor(stds, device="cuda"))
+        trainer = BatchTrainer(model, lambda xb: model(xb, g), lr=1e-3,
+                               scaler=scaler)
+
+        # (b) the first batch against the f32 segment path
+        got = outputs_and_param_grads(torch, model, lambda: model(x0, g), y0)
+        with config_override(spmm_backend="segment"):
+            want = outputs_and_param_grads(torch, model,
+                                           lambda: model(x0, g), y0)
+        compare_with_segment(torch, "index-batched DCRNN", model, got, want,
+                             *PEMS_TOLS)
+        del got, want
+        mats = [v for p in diffusion_norms(g)
+                for v in p._op_cache.values() if isinstance(v, BCSRMatrix)]
+        if len(mats) != 2 or any(m.fwd.blocks.dtype != torch.float32
+                                 for m in mats):
+            raise SystemExit("expected one f32 operator a direction")
+        log("  operators spmm built (f32 tiles, the activations' type): "
+            + "; ".join(f"{name}: fwd nnzb={m.fwd.nnzb} rem="
+                        f"{m.fwd.num_rem}, bwd nnzb={m.bwd.nnzb} rem="
+                        f"{m.bwd.num_rem}, spmm_reorder='auto' "
+                        f"{'reordered' if m.perm is not None else 'kept the order'}"
+                        for name, m in zip(("P_fwd", "P_bwd"), mats)))
+
+        # (d) launches of one train and one eval batch, then of the epochs
+        per_train = expected_launches(h, K, 1)
+        per_eval = 2 * h * 2 * (K - 1)
+        bcsr.reset_launch_counts()
+        trainer.train_step(x0, y0)
+        one_train = launch_counts(bcsr)
+        bcsr.reset_launch_counts()
+        trainer.eval_step(x0, y0)
+        one_eval = launch_counts(bcsr)
+        log(f"  (d) one train batch: fused {one_train['H']} (expected "
+            f"{per_train}); one eval batch: {one_eval['H']} (expected "
+            f"{per_eval}); K1 and K2 {one_train['K1'] + one_eval['K1']} and "
+            f"{one_train['K2'] + one_eval['K2']} (expected 0)")
+        if (one_train, one_eval) != ({"H": per_train, "K1": 0, "K2": 0},
+                                     {"H": per_eval, "K1": 0, "K2": 0}):
+            raise SystemExit("launch counts of one batch differ")
+
+        per_epoch = len(train) * per_train + len(val) * per_eval
+        curve, marks, epoch_s = [], [], []
+        torch.cuda.synchronize()
+        bcsr.reset_launch_counts()
+        t_fit = time.perf_counter()
+
+        def on_epoch(epoch, loss, val_loss):
+            curve.append((loss, val_loss))
+            marks.append(launch_counts(bcsr)["H"])
+            epoch_s.append(time.perf_counter() - t_fit)
+
+        trainer.fit(train, c["epochs"], val_loader=val, callback=on_epoch)
+        tl, tn = torch.zeros((), device="cuda"), 0
+        for xb, yb in test:
+            tl, tn = tl + trainer.eval_step(xb, yb), tn + 1
+        test_mae = float(tl) / tn
+        launches = launch_counts(bcsr)
+        want_marks = [per_epoch * (e + 1) for e in range(c["epochs"])]
+        log(f"  (d) fused launches after each epoch {marks} (expected "
+            f"{want_marks}: {len(train)} x {per_train} + {len(val)} x "
+            f"{per_eval} an epoch); after the test pass {launches['H']} "
+            f"(expected {want_marks[-1] + len(test) * per_eval}); K1 "
+            f"{launches['K1']} and K2 {launches['K2']} (expected 0)")
+        if (marks != want_marks or launches != {
+                "H": want_marks[-1] + len(test) * per_eval, "K1": 0,
+                "K2": 0}):
+            raise SystemExit("PeMS index path: launch counts differ")
+        kernel_report["H"]["launches"] += launches["H"]
+        losses = [v for pair in curve for v in pair] + [test_mae]
+        log(f"  (e) epochs (train, val) masked MAE on de-normalized values "
+            f"{[('%.4f' % a, '%.4f' % b) for a, b in curve]}; test "
+            f"{test_mae:.4f}; epochs end at {['%.2f' % v for v in epoch_s]} s "
+            f"(host clock)")
+        if not all(np.isfinite(losses)) or not curve[-1][0] < curve[0][0]:
+            raise SystemExit("PeMS index path: losses not finite or the "
+                             "epoch loss did not fall")
+
+        # step times over one more epoch, then the device's busy time
+        step_s = []
+        for xb, yb in train:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(xb, yb)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        med = statistics.median(step_s)
+        log(f"  step time over {len(step_s)} train batches (host clock, "
+            f"synchronized, the last one short): median {med * 1e3:.3f} ms, "
+            f"min {min(step_s) * 1e3:.3f} ms, max {max(step_s) * 1e3:.3f} ms; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB on {smi}")
+        profile_steps(torch, lambda: trainer.train_step(x0, y0), med * 1e3)
+
+        # (f) the streaming windower over the written file, same starts
+        stream = StreamingWindower(path, h)
+        starts = list(iter_index_batches(train.indices, bs, shuffle=True,
+                                         rng=np.random.default_rng(0),
+                                         drop_last=False))
+        held = [stream(b) for b in starts]      # no synchronize in between
+        same = all(torch.equal(sx, dx) and torch.equal(sy, dy)
+                   for (sx, sy), (dx, dy) in zip(held, (windower(b)
+                                                        for b in starts)))
+        if not same:
+            raise SystemExit("(f) streamed batches differ from the card's")
+        log(f"  (f) {len(held)} streamed train batches, taken with no "
+            f"synchronize in between: equal to the DeviceWindower's, bit "
+            f"for bit")
+        del held
+        host_ms, copy_ms = [], []
+        for b in starts:
+            t0 = time.perf_counter()
+            buf = stream.host_batch(b)
+            t1 = time.perf_counter()
+            torch.from_numpy(buf).to("cuda")
+            torch.cuda.synchronize()
+            host_ms.append((t1 - t0) * 1e3)
+            copy_ms.append((time.perf_counter() - t1) * 1e3)
+
+        def timed_epoch(loader):
+            rss0, peak = rss_bytes(), 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for xb, yb in loader:
+                trainer.train_step(xb, yb)
+                peak = max(peak, rss_bytes() - rss0)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, peak
+
+        dev_s, dev_rss = timed_epoch(IndexLoader(train.indices, windower,
+                                                 bs, shuffle=True))
+        str_s, str_rss = timed_epoch(IndexLoader(train.indices, stream, bs,
+                                                 shuffle=True))
+        full_b = bs * 2 * h * c["n"] * c["f"] * data.itemsize
+        log(f"  streaming: host_batch median {statistics.median(host_ms):.2f}"
+            f" ms, the copy to the card median "
+            f"{statistics.median(copy_ms):.2f} ms a batch of "
+            f"{full_b / 1e6:.1f} MB; a train epoch streamed {str_s:.3f} s "
+            f"(RSS growth {str_rss / 1e6:.1f} MB) against {dev_s:.3f} s "
+            f"device-resident (RSS growth {dev_rss / 1e6:.1f} MB)")
+
+    log(f"  (c) operator builds in the phase: {builds.calls} (expected 2: "
+        f"one a diffusion direction)")
+    if builds.calls != 2:
+        raise SystemExit("PeMS index path: operator builds differ from 2")
+    f_hop = bs * 2 * c["f"]
+    report_fused(torch, kernel_report, mats[0].fwd, f_hop,
+                 "PeMS index DCRNN f32")
+
+
 def main() -> int:
     import torch
 
@@ -1793,6 +2072,8 @@ def main() -> int:
     phase_stconv(torch, report, smi)
     log("== phase 14: edge-mode ASTGCN at N=50k")
     phase_astgcn_edge(torch, report, smi)
+    log("== phase 15: index-batched DCRNN on the PeMS-scale stand-in")
+    phase_index_pems(torch, report, smi)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"

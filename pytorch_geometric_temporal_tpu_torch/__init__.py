@@ -7,12 +7,12 @@ package.  Entry points build on CUDA unless given ``device="cpu"``.
 
 Sub-packages: ``ops`` (graphs, normalizations, spmm, BCSR operators),
 ``models`` (the convolutions and the recurrent cells), ``signal`` (snapshot
-iterators and the stacked signal), ``data`` (loaders of the five datasets
-bundled with the package), ``train`` (snapshot and batch trainers) and
-``protocols`` (the accuracy protocols on the bundled data).  The
-hybrid block-sparse aggregation (``ops/bcsr.py``) runs through a CUDA
-kernel written for Hopper (``csrc/hybrid_spmm.cu``), compiled with nvcc at
-first use.
+iterators, the stacked signal and index batching), ``data`` (the loaders:
+five datasets bundled with the package, twelve read from staged files),
+``train`` (snapshot and batch trainers) and ``protocols`` (the accuracy
+protocols).  The hybrid block-sparse aggregation (``ops/bcsr.py``) runs
+through a CUDA kernel written for Hopper (``csrc/hybrid_spmm.cu``),
+compiled with nvcc at first use.
 """
 
 from .config import Config, config_override, get_config

@@ -1,9 +1,13 @@
 """Shared dataset-construction helpers (lag windows, z-score, one-hot
-bins); port of the JAX package's ``data/_common.py``."""
+bins, the index split); port of the JAX package's ``data/_common.py``."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+from ..signal import DeviceWindower, IndexLoader
 
 
 def lag_windows(stacked: np.ndarray, lags: int):
@@ -34,3 +38,37 @@ def zscore(stacked: np.ndarray, axis=0, eps: float = 0.0) -> np.ndarray:
     return (stacked - np.mean(stacked, axis=axis)) / (
         np.std(stacked, axis=axis) + eps
     )
+
+
+def make_index_loaders(
+    data: np.ndarray,
+    lags: int,
+    batch_size: int,
+    shuffle: bool = False,
+    ratio: Tuple[float, float, float] = (0.7, 0.1, 0.2),
+    world_size: int = 1,
+    rank: int = 0,
+    device=None,
+):
+    """The reference's index split (70/10/20 of the window starts by
+    default) over one :class:`DeviceWindower` of the f32 series on
+    ``device`` (CUDA unless given "cpu").
+
+    Returns (train_loader, val_loader, test_loader).
+    """
+    if world_size in (-1, 0):
+        world_size, rank = 1, 0
+    if rank in (-1,):
+        rank = 0
+    num_samples = data.shape[0]
+    x_i = np.arange(num_samples - (2 * lags - 1))
+    n = x_i.shape[0]
+    num_train = round(n * ratio[0])
+    num_test = round(n * ratio[2])
+    windower = DeviceWindower(np.asarray(data, dtype=np.float32), lags,
+                              device=device)
+    return tuple(
+        IndexLoader(idx, windower, batch_size, shuffle=shuffle,
+                    world_size=world_size, rank=rank)
+        for idx in (x_i[:num_train], x_i[num_train : n - num_test],
+                    x_i[-num_test:]))

@@ -4,11 +4,12 @@ Counterpart of the JAX package's ``benchmarks/metrla_protocol.py``
 (``_train_jax`` and ``run_parity``'s own side).  The upstream protocol
 trains DCRNN on METR-LA windows (12 steps in, 12 out) and reports the
 masked MAE on z-score de-normalized values.  Real METR-LA bytes are not in
-the repository, so :func:`load_series` generates the seeded synthetic
-stand-in — 207 sensors on a k-NN geometric graph with Gaussian-kernel
-weights, speeds driven by a spatially correlated AR process with rush-hour
-congestion profiles, ~2% missing readings (zeros, which the loss masks),
-plus the time-of-day channel — and says so in its ``source``.
+the repository, so unless ``METR-LA.zip`` is staged in the data search
+path :func:`load_series` generates the seeded synthetic stand-in — 207
+sensors on a k-NN geometric graph with Gaussian-kernel weights, speeds
+driven by a spatially correlated AR process with rush-hour congestion
+profiles, ~2% missing readings (zeros, which the loss masks), plus the
+time-of-day channel — and says so in its ``source``.
 
 :func:`train` is the training loop (``DCRNNSeq(out_channels=F, K)``, Adam
 1e-3, drop-last batches, one test pass); :func:`run` splits the windows
@@ -29,12 +30,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..data._io import available
+from ..data.metr_la import METRLADatasetLoader, _dense_to_sparse
 from ..models import DCRNNSeq
 from ..ops.graph import Graph
+from ..signal import DeviceWindower
 from ..train.trainer import _adam
 
 IN_T = 12   # input window
-OUT_T = 12  # predict horizon
+OUT_T = 12  # predict horizon (windows are gathered as 2·IN_T steps)
 
 STEPS_PER_DAY = 288  # 5-minute sampling
 
@@ -89,10 +93,18 @@ def make_traffic_series(seed: int = 0, n: int = 207, t: int = 2880,
 
 
 def load_series(seed: int = 0, t: int = 2880, n: int = 207):
-    """(data_norm (T, N, 2), ei, w, means, stds, source): the seeded
-    synthetic stand-in, z-scored per feature over the whole series;
-    ``source`` is ``"synthetic-seeded"``.  (The branch that reads real
-    METR-LA bytes waits for the METR-LA loader.)"""
+    """(data_norm (T, N, F), ei, w, means, stds, source).
+
+    Real METR-LA when ``n == 207`` and ``METR-LA.zip`` resolves through the
+    data search path (``source`` ``"metr-la"``, the whole series whatever
+    ``t``; a staged file that does not parse raises); else the seeded
+    synthetic stand-in (``"synthetic-seeded"``).  Both are z-scored per
+    feature over the whole series, as the reference normalizes METR-LA."""
+    if n == 207 and available("METR-LA.zip"):
+        loader = METRLADatasetLoader(index=True)
+        x, means, stds = loader._normalized_X()  # (N, F, T)
+        ei, w = _dense_to_sparse(loader.A)
+        return x.transpose((2, 0, 1)), ei, w, means, stds, "metr-la"
     series, ei, w = make_traffic_series(seed=seed, t=t, n=n)
     means = series.mean(axis=(0, 1))
     stds = series.std(axis=(0, 1))
@@ -103,14 +115,6 @@ def load_series(seed: int = 0, t: int = 2880, n: int = 207):
 def _windows(data: np.ndarray) -> np.ndarray:
     """All window start indices; x = data[i:i+12], y = data[i+12:i+24]."""
     return np.arange(data.shape[0] - (IN_T + OUT_T) + 1)
-
-
-def _batch(data: torch.Tensor, idx) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x, y) windows (B, 12, N, F) gathered on ``data``'s device."""
-    start = torch.as_tensor(np.asarray(idx), device=data.device)
-    steps = torch.arange(IN_T + OUT_T, device=data.device)
-    both = data[start[:, None] + steps[None, :]]
-    return both[:, :IN_T], both[:, IN_T:]
 
 
 def train(data, ei, w, means, stds, schedule, test_idx, batch_size: int,
@@ -140,7 +144,8 @@ def train(data, ei, w, means, stds, schedule, test_idx, batch_size: int,
                      generator=torch.Generator().manual_seed(seed))
     if params is not None:
         model.params_from_flax(params)
-    data = torch.as_tensor(data, device=device)
+    # x = data[i:i+12], y = data[i+12:i+24], gathered on the device
+    windows = DeviceWindower(data, IN_T, device=device)
 
     def loss_fn(x, y):
         pred = model(x, g)
@@ -153,7 +158,7 @@ def train(data, ei, w, means, stds, schedule, test_idx, batch_size: int,
     for epoch_batches in schedule:
         last = None
         for i in range(0, len(epoch_batches) - batch_size + 1, batch_size):
-            x, y = _batch(data, epoch_batches[i: i + batch_size])
+            x, y = windows(epoch_batches[i: i + batch_size])
             optimizer.zero_grad(set_to_none=True)
             last = loss_fn(x, y)
             last.backward()
@@ -163,7 +168,7 @@ def train(data, ei, w, means, stds, schedule, test_idx, batch_size: int,
     maes = []
     with torch.no_grad():
         for i in range(0, len(test_idx) - batch_size + 1, batch_size):
-            maes.append(loss_fn(*_batch(data, test_idx[i: i + batch_size])))
+            maes.append(loss_fn(*windows(test_idx[i: i + batch_size])))
     return (float(torch.stack(maes).mean()), [float(v) for v in curve],
             model)
 

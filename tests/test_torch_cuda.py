@@ -418,3 +418,85 @@ def test_stconv_launches_over_a_prepared_chebyshev_operator(cuda):
     with config_override(spmm_backend="segment"), torch.no_grad():
         want = run(seg)
     torch.testing.assert_close(out, want, rtol=0, atol=5e-2)
+
+
+def test_device_windower_on_the_card_matches_host_windows(cuda):
+    """Windows gathered on the card equal ``IndexDataset``'s host windows
+    bit for bit (a float64 series narrowed to f32, as the JAX package
+    does); bad starts raise on the host and leave the context usable."""
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        DeviceWindower, IndexDataset)
+
+    data = np.random.default_rng(0).normal(size=(300, 50, 2))
+    windower = DeviceWindower(data, 12, device=cuda)
+    host = IndexDataset(np.arange(300 - 23), data.astype(np.float32), 12)
+    starts = np.array([0, 7, 276, 100, 3])
+    x, y = windower(starts)
+    assert x.device.type == "cuda" and x.dtype == torch.float32
+    for j, s in enumerate(starts):
+        hx, hy = host[s]
+        np.testing.assert_array_equal(x[j].cpu().numpy(), hx)
+        np.testing.assert_array_equal(y[j].cpu().numpy(), hy)
+    for bad in ([0, 277], [-1, 5]):
+        with pytest.raises(ValueError):
+            windower(np.array(bad))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(windower(np.array([1]))[0][0].cpu().numpy(),
+                                  host[1][0])
+
+
+def test_streaming_batches_without_a_sync_stay_distinct(cuda, tmp_path):
+    """Consecutive ``StreamingWindower`` batches, held on the card with no
+    synchronize between them, equal the device windower's: the reused host
+    buffer never reaches a batch after it was handed out."""
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        DeviceWindower, StreamingWindower, iter_index_batches)
+
+    data = np.random.default_rng(1).normal(size=(400, 300, 2)).astype(
+        np.float32)
+    np.save(tmp_path / "s.npy", data)
+    stream = StreamingWindower(tmp_path / "s.npy", 12, device=cuda,
+                               reopen_every=2)
+    dev = DeviceWindower(data, 12, device=cuda)
+    batches = list(iter_index_batches(np.arange(400 - 23), 32))
+    held = [stream(b) for b in batches]
+    want = [dev(b) for b in batches]
+    torch.cuda.synchronize()
+    for (x, y), (wx, wy) in zip(held, want):
+        assert torch.equal(x, wx) and torch.equal(y, wy)
+
+
+def test_batch_trainer_over_index_loader_launches_on_a_raw_graph(
+        cuda, monkeypatch):
+    """``BatchTrainer.fit`` over ``make_index_loaders`` with a raw Graph
+    above the dense threshold: ``spmm`` tiles each diffusion direction
+    once (f32 tiles, the activations' type), then every hop is one fused
+    launch — per train batch 2·(2T(K−1) + 2T(K−1) − (K−1)), per eval batch
+    2·2T(K−1) — and the losses are finite."""
+    from pytorch_geometric_temporal_tpu_torch.data._common import (
+        make_index_loaders)
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        BatchTrainer, ZScoreScaler)
+
+    builds = _Builds(monkeypatch)
+    n, lags, K = 5000, 4, 2
+    ei, w = banded(n, 30_000, seed=14, band=8)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    data = np.random.default_rng(2).normal(size=(60, n, 2))
+    train, val, _ = make_index_loaders(data, lags, 8, shuffle=True,
+                                       device=cuda)
+    model = DCRNNSeq(2, 2, K, generator=torch.Generator().manual_seed(0))
+    scaler = ZScoreScaler(mean=torch.tensor([50.0, 0.5], device=cuda),
+                          std=torch.tensor([10.0, 0.3], device=cuda))
+    trainer = BatchTrainer(model, lambda x: model(x, g), scaler=scaler)
+    curve = []
+    bcsr.reset_launch_counts()
+    trainer.fit(train, 2, val_loader=val,
+                callback=lambda e, tl, vl: curve.append((tl, vl)))
+    per_train = 2 * (2 * lags * (K - 1) * 2 - (K - 1))
+    per_eval = 2 * 2 * lags * (K - 1)
+    assert builds.calls == 2
+    assert bcsr.hybrid_spmm.launches == 2 * (len(train) * per_train
+                                             + len(val) * per_eval)
+    assert (bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches) == (0, 0)
+    assert np.isfinite(curve).all()

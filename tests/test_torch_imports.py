@@ -26,6 +26,8 @@ from pytorch_geometric_temporal_tpu_torch.train import (
 
 REPO = Path(__file__).parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_temporal_tpu")
+# the card's machine has neither: a loader imports h5py when it reads a table
+NOT_AT_IMPORT = ("h5py", "pandas")
 
 PROBE = """
 import json, pkgutil, sys, importlib
@@ -62,7 +64,8 @@ def test_port_imports_no_jax(tmp_path):
                          timeout=120)
     info = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in info["modules"]
-           if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+           if any(m == f or m.startswith(f + ".")
+                  for f in FORBIDDEN + NOT_AT_IMPORT)]
     assert not bad, f"port imported {bad}"
     for sub in ("ops.bcsr", "ops.operators", "csrc", "native",
                 "train.trainer", "models.conv", "models.recurrent.dcrnn",
@@ -80,7 +83,10 @@ def test_port_imports_no_jax(tmp_path):
                 "protocols.metrla_protocol", "models.attention.stgcn",
                 "models.attention.mstgcn", "models.attention.astgcn",
                 "models.attention.gman", "models.attention.mtgnn",
-                "models.attention.tsagcn", "models.attention.dnntsp"):
+                "models.attention.tsagcn", "models.attention.dnntsp",
+                "signal.index_dataset", "data.metr_la", "data.pems_bay",
+                "data.pems", "data.wikimath", "data.windmill", "data.mtm",
+                "data.synthetic_pde"):
         assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
     pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
     # no file inside the JAX package was opened, the port's bundle was
@@ -253,3 +259,28 @@ def test_fused_wrapper_refuses_other_devices():
     half = bcsr.BCSRMatrix.from_graph(g).fwd
     with pytest.raises(ValueError):
         bcsr.hybrid_spmm(half, torch.zeros(half.num_cols, 3, device="meta"))
+
+
+def test_index_batching_raises_without_cuda(no_cuda, tmp_path):
+    from pytorch_geometric_temporal_tpu_torch.data import _common
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        DeviceWindower, StreamingWindower)
+
+    data = np.zeros((20, 3, 1), np.float32)
+    np.save(tmp_path / "s.npy", data)
+    stream = StreamingWindower(tmp_path / "s.npy", 2)
+    assert stream.host_batch([0, 3]).shape == (2, 4, 3, 1)  # host only
+    loader = ChickenpoxDatasetLoader(index=True)
+    for build in (lambda: DeviceWindower(data, 2),
+                  lambda: stream([0, 3]),
+                  lambda: _common.make_index_loaders(data, 2, 4),
+                  lambda: loader.get_index_dataset()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    for build in (lambda: DeviceWindower(data, 2, device="cpu"),
+                  lambda: StreamingWindower(tmp_path / "s.npy", 2,
+                                            device="cpu")([0, 3]),
+                  lambda: _common.make_index_loaders(data, 2, 4,
+                                                     device="cpu"),
+                  lambda: loader.get_index_dataset(device="cpu")):
+        assert build() is not None

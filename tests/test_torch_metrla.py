@@ -22,6 +22,7 @@ import torch
 from benchmarks import metrla_protocol as jproto
 from pytorch_geometric_temporal_tpu_torch.protocols import (
     metrla_protocol as tproto)
+from pytorch_geometric_temporal_tpu_torch.signal import DeviceWindower
 
 torch.set_num_threads(1)    # thousands of tiny ops: a thread pool only spins
 
@@ -44,7 +45,7 @@ def test_load_series_and_windows_match():
     np.testing.assert_array_equal(tproto._windows(got[0]),
                                   jproto._windows(want[0]))
     idx = np.array([5, 0, 40])
-    x, y = tproto._batch(torch.from_numpy(got[0]), idx)
+    x, y = DeviceWindower(got[0], tproto.IN_T, device="cpu")(idx)
     jx, jy = jproto._batch(want[0], idx)
     np.testing.assert_array_equal(x.numpy(), jx)
     np.testing.assert_array_equal(y.numpy(), jy)
