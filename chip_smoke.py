@@ -7,13 +7,16 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    nvcc build of the kernels (``csrc/*.cu``, one nvcc per source, in
-   parallel) with its time;
+   parallel) with its time and ptxas' registers and spills; beside it,
+   copies of ``hybrid_spmm.cu`` built with the other widest f32 feature
+   tiles of ``F32_FT_SWEEP``, for the sweep of phases 14 and 15;
 2. kernels against their plain PyTorch versions on the card: the fused
    hybrid SpMM (the main path) and its baseline pair K1 (tile SpMM) and K2
-   (remainder scatter) on f32 and bf16 tiles, both halves, F in {1, 8,
-   14, 16, 32, 36, 64, 96, 200} (1, 14 and 36 ragged), a hybrid operator, an
-   all-tiles operator, an all-remainder operator, a graph with empty row
-   blocks and a GCN-normalized operator (self-loop diagonal); then at the
+   (remainder scatter) on f32 and bf16 tiles, both halves, F in
+   ``KERNEL_CASE_FS`` (every instantiation; 1, 14 and 36 ragged), a hybrid
+   operator, an all-tiles operator, an all-remainder operator, a graph with
+   empty row blocks and a GCN-normalized operator (self-loop diagonal), and
+   the SHA-256 of the f32 outputs on the hybrid operator; then at the
    slice's own shapes, where each kernel is also timed (CUDA events, L2
    flushed before each launch) beside its byte/op bound, its plain version
    and one ``torch.sparse.mm`` over the same operator as CSR (a yardstick
@@ -85,8 +88,9 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    tiles) in the first forward, then 2 forward + 2 backward fused launches
    a step; per-edge attention sums to 1 per column; output and gradients
    against ``spmm_backend="segment"``; the fused kernel timed on that f32
-   operator at F=24 and F=768; ``normalization=None`` builds and launches
-   nothing;
+   operator at F=24 and F=768, and at F=768 against the copies with the
+   other f32 feature tiles (equal bytes, cold times); ``normalization=None``
+   builds and launches nothing;
 15. index-batched DCRNN at the all-California PeMS scale: the seeded
    stand-in of the JAX package's ``examples/index_batching/
    streaming_out_of_core.py`` (11,160 sensors, speed and time of day, 7
@@ -100,25 +104,31 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    fused launches a train batch and 48 an eval batch, a falling loss, a
    ``StreamingWindower`` over the file against the device windower, step
    and streaming times, and the fused kernel on that f32 operator at
-   F = 64·4 = 256.
+   F = 64·4 = 256: timed, and against the copies with the other f32
+   feature tiles; the SHA-256 of the kernel's output on the raw graph's
+   tiles at that width.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
 without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
 its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14 and 15; the
-fused kernel's time and share of its bound at each path's own width stand
-on the line before the total.
+fused kernel's time and share of its bound at each path's own width, and
+the f32 feature-tile sweep, stand on the lines before the total.
 """
 
 import contextlib
+import ctypes
+import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -161,6 +171,13 @@ EVOLVE = dict(f=16)
 TGCN_FWD_TOL, TGCN_GRAD_TOL = 1.5e-3, 1e-1
 EVO_STEP_TOL, EVO_GRAD_TOL = 1.7e-2, 5e-4
 WATCHDOG_S = 1150
+# phase 2's widths: each f32 and bf16 instantiation of the fused kernel
+# (n-tile counts 1, 2, 4, 5, 6, 8, 12, 16; 1 and 14 ragged), two feature
+# tiles at F=200; the f32 digests of phases 2 and 15 draw x from DIGEST_SEED
+KERNEL_CASE_FS = (1, 8, 14, 16, 32, 36, 48, 64, 96, 128, 200)
+DIGEST_SEED = 7
+# the widest f32 feature tiles phases 14 and 15 time against each other
+F32_FT_SWEEP = (64, 96, 128)
 # phase 11: the protocol at full size, and at the size at which the JAX
 # package's records were taken (3 epochs over 720 steps): on a TPU v5e, and
 # its torch-CPU twin's, both from another framework's initial draw
@@ -269,6 +286,104 @@ def fmt_errs(errs):
                      for k, (e, t) in errs.items())
 
 
+def f32_feature_tiles():
+    """(the widest f32 feature tile ``hybrid_spmm.cu`` is built with, the
+    others of ``F32_FT_SWEEP``, which the sweep of phases 14 and 15
+    times)."""
+    from pytorch_geometric_temporal_tpu_torch import csrc
+
+    src = (Path(csrc.__file__).parent / "hybrid_spmm.cu").read_text()
+    ft = int(re.search(r"#define PGTT_F32_MAX_FT (\d+)", src).group(1))
+    return ft, [t for t in F32_FT_SWEEP if t != ft]
+
+
+def start_hybrid_build(src, name, defines=()):
+    """Start nvcc on one copy of ``hybrid_spmm.cu`` into a library of its
+    own, ``build/kernels/<name>.so``, with the kernel flags and ``defines``;
+    returns (process, path) for :func:`finish_hybrid_build`."""
+    from pytorch_geometric_temporal_tpu_torch import csrc
+
+    csrc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = csrc.BUILD_DIR / f"{name}.so"
+    cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           "-shared", "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), out
+
+
+def finish_hybrid_build(started):
+    """Wait for :func:`start_hybrid_build` and load its library."""
+    proc, out = started
+    _, stderr = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed on {out.name}:\n{stderr}")
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, p, p, i, p, i, i,
+                                     p]
+    lib.pgtt_hybrid_spmm.restype = i
+    return lib
+
+
+def hybrid_with(torch, lib, half, x):
+    """The fused kernel of another build ``lib`` on (half, x), with the
+    arguments ``bcsr.hybrid_spmm`` passes; no launch is counted."""
+    f = x.shape[1]
+    out = torch.empty((half.num_rows, f), dtype=torch.float32, device="cuda")
+    rc = lib.pgtt_hybrid_spmm(
+        half.blocks.data_ptr(), half.blocks.shape[0],
+        int(half.blocks.dtype == torch.bfloat16), half.tile_ptr.data_ptr(),
+        half.block_cols.data_ptr(), half.rem_row_ptr.data_ptr(),
+        half.rem_row_cols.data_ptr(), half.rem_row_vals.data_ptr(),
+        x.data_ptr(), half.num_cols, out.data_ptr(), half.num_rows // 128, f,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SystemExit(f"hybrid_spmm of another build: CUDA error {rc}")
+    return out
+
+
+def f32_digest(torch, halves, fs, seed):
+    """SHA-256 of the fused kernel's outputs on f32 tiles, over each half
+    and each F in ``fs``, with x drawn by numpy from ``seed``: sums in a
+    fixed order give the same bytes on every run and every build that
+    keeps that order."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    rng = np.random.default_rng(seed)
+    digest = hashlib.sha256()
+    for half in halves:
+        for f in fs:
+            x = torch.from_numpy(rng.normal(size=(half.num_cols, f)).astype(
+                np.float32)).cuda()
+            digest.update(bcsr.hybrid_spmm(half, x).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def sweep_f32_tile(torch, kernel_report, half, f, label):
+    """The f32 feature-tile sweep on (half, F=f): this build's kernel
+    against the builds with the other widest f32 tiles, outputs equal bit
+    for bit (no sum's order depends on the tile), then cold ms of this
+    build, each other one twice, and this build again."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    ft, others = f32_feature_tiles()
+    x = torch.randn(half.num_cols, f, device="cuda")
+    runs = {ft: lambda: bcsr.hybrid_spmm(half, x)}
+    for t, lib in zip(others, kernel_report["f32_other_libs"]):
+        runs[t] = lambda lib=lib: hybrid_with(torch, lib, half, x)
+        if not torch.equal(runs[ft](), runs[t]()):
+            raise SystemExit(f"f32 feature tiles {ft} and {t} differ at F={f}")
+    ms = {t: [] for t in runs}
+    for t in [ft] + [t for t in others for _ in (0, 1)] + [ft]:
+        ms[t].append(cold_ms(torch, runs[t]))
+    line = f"{label} F={f}: " + ", ".join(
+        f"FT<={t} " + " / ".join(f"{v:.4f}" for v in ms[t]) + " ms"
+        for t in sorted(ms)) + (f"; built with FT<={ft}; outputs equal bit "
+                                "for bit")
+    log("  f32 feature-tile sweep: " + line)
+    kernel_report["f32_sweep"].append(line)
+
+
 def phase_card(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -280,14 +395,29 @@ def phase_card(torch):
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     from pytorch_geometric_temporal_tpu_torch import csrc
 
+    # the copies with the other widest f32 feature tiles build beside the
+    # library, for the sweep of phases 14 and 15
+    _, others = f32_feature_tiles()
     t0 = time.perf_counter()
-    csrc.load()
-    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {csrc.build_info['seconds']})")
+    started = [start_hybrid_build(
+        Path(csrc.__file__).parent / "hybrid_spmm.cu", f"hybrid_f32_ft{t}",
+        [f"PGTT_F32_MAX_FT={t}"]) for t in others]
+    try:
+        csrc.load()
+    except BaseException:
+        for proc, _ in started:
+            proc.kill()
+            proc.wait()
+        raise
+    t1 = time.perf_counter()
+    other_libs = [finish_hybrid_build(s) for s in started]
+    log(f"kernel build+load: {t1 - t0:.2f} s (nvcc "
+        f"{csrc.build_info['seconds']}); the f32 FT<={others} copies of "
+        f"hybrid_spmm.cu beside it, done at {time.perf_counter() - t0:.2f} s")
     for line in csrc.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
-    return smi
+    return smi, other_libs
 
 
 def phase_kernel_cases(torch):
@@ -315,7 +445,7 @@ def phase_kernel_cases(torch):
             mat = BCSRMatrix.from_graph(g, dtype=dtype, min_block_edges=mbe)
             for side in ("fwd", "bwd"):
                 half = getattr(mat, side)
-                for f in (1, 8, 14, 16, 32, 36, 64, 96, 200):
+                for f in KERNEL_CASE_FS:
                     x = torch.randn(half.num_cols, f, device="cuda")
                     x = x.to(dtype)
                     errs = check_kernels(torch, bcsr, half, x)
@@ -327,6 +457,10 @@ def phase_kernel_cases(torch):
                         raise SystemExit(f"kernel mismatch: {name}")
                     worst = max([worst] + [e / t for e, t in errs.values()])
     log(f"kernel cases: all within tolerance (worst err/tol {worst:.3f})")
+    mat = BCSRMatrix.from_graph(whole, dtype=torch.float32, min_block_edges=32)
+    digest = f32_digest(torch, (mat.fwd, mat.bwd), KERNEL_CASE_FS, DIGEST_SEED)
+    log(f"  f32 digest, the hybrid operator's two halves at F in "
+        f"{KERNEL_CASE_FS}, x from numpy seed {DIGEST_SEED}: {digest}")
 
 
 def _csr_of(torch, rows, cols, vals, shape):
@@ -1741,6 +1875,8 @@ def phase_astgcn_edge(torch, kernel_report, smi):
                     f"rem={getattr(mat, s).num_rem}" for s in ("fwd", "bwd")))
     for f in (T * f_in, T * c["filters"]):
         report_fused(torch, kernel_report, mat.fwd, f, "edge ASTGCN f32")
+    sweep_f32_tile(torch, kernel_report, mat.fwd, T * c["filters"],
+                   "edge ASTGCN's reversed L-hat (N=50k)")
 
     got = outputs_and_param_grads(torch, model, lambda: model(x, g), y)
     with config_override(spmm_backend="segment"):
@@ -2022,6 +2158,15 @@ def phase_index_pems(torch, kernel_report, smi):
     f_hop = bs * 2 * c["f"]
     report_fused(torch, kernel_report, mats[0].fwd, f_hop,
                  "PeMS index DCRNN f32")
+    sweep_f32_tile(torch, kernel_report, mats[0].fwd, f_hop,
+                   "PeMS diffusion operator (N=11,160)")
+    # the digest tiles the raw graph on the host: the diffusion operators'
+    # weights are normalized on the card with atomics, so their last bits
+    # may change from run to run
+    raw = BCSRMatrix.from_graph(g, dtype=torch.float32).fwd
+    log(f"  f32 digest, the raw PeMS graph's forward half (nnzb={raw.nnzb} "
+        f"rem={raw.num_rem}) at F={f_hop}, x from numpy seed {DIGEST_SEED}: "
+        f"{f32_digest(torch, [raw], [f_hop], DIGEST_SEED)}")
 
 
 def main() -> int:
@@ -2043,11 +2188,11 @@ def main() -> int:
     watchdog.start()
 
     log("== phase 1: card and kernel build")
-    smi = phase_card(torch)
+    smi, other_libs = phase_card(torch)
     log("== phase 2: kernels against their plain versions")
     phase_kernel_cases(torch)
     log("== phase 3: DCRNNSeq training at N=50k over BCSR operators")
-    report = {}
+    report = {"f32_other_libs": other_libs, "f32_sweep": []}
     phase_slice(torch, report)
     log("== phase 4: dense path (METR-LA shape)")
     phase_dense(torch)
@@ -2092,6 +2237,8 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+    for line in report["f32_sweep"]:
+        log(f"f32 feature-tile sweep on {smi}: {line}")
     log("fused kernel by path (cold ms, share of its bound): " + "; ".join(
         f"{label} {k['ms']:.4f} ms, {k['bound_ms'] / k['ms']:.3f}"
         for label, k in report["paths"]))

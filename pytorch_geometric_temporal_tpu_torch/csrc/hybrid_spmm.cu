@@ -43,8 +43,35 @@
 //    wgmma: the kernel is byte bound (3.7 GFLOP is ~6-12 us at mma.sync
 //    rates against a ~20 us byte bound), so the tensor-core rate is not
 //    what limits it.  The feature tile is F rounded up to 8 (no padding of
-//    F to 128), F > 128 takes several feature tiles.  f32 tiles use FMA on
-//    CUDA cores, which keeps f32 products exact (held to correctness only).
+//    F to 128), F > 128 takes several feature tiles.
+//  - f32 tiles multiply with FFMA on the CUDA cores: TF32, even 3xTF32,
+//    would round the products.  Above F ~ 32 what bounds them is not bytes
+//    but the CUDA cores (F=768 on the 50k operator: 29.6 GFLOP, 0.44 ms at
+//    67 TFLOP/s, against 0.12 ms for its bytes), and next to them the
+//    shared loads that feed them: a lane that holds R x C outputs loads
+//    R + C floats a k for R C FMAs.  So a lane owns an R x 4U register tile
+//    of its warp's 16 rows x FT (F32Tile: 8 x 8 at FT=128, 4 x 12 at FT=96,
+//    the FT / 2 accumulators the 168 registers of __launch_bounds__(384, 1)
+//    hold with no spill) and per k-group of 4 loads R + 4U float4s for
+//    16 R U FMAs, where the first version loaded one float a FMA.  Lanes
+//    map to (rows, units) so that each quarter-warp's 16-byte loads hit 8
+//    distinct swizzle slots of B and one broadcast row of A.  Each output
+//    is still one fmaf chain, k ascending over the row block's tiles, then
+//    its remainder edges: the outputs equal the first version's bit for
+//    bit.  Measured on an H100 80GB HBM3 at 700 W (cold L2, one half),
+//    F=768 on the 50k operator: 0.80-0.88 ms at FT=128, 0.50-0.55 of the
+//    FFMA rate (first version 1.97-2.13 ms).  A build with the FMAs and few
+//    loads takes 0.72 ms (0.61 of the rate), one with the loads and no FMA
+//    0.35-0.36 ms: eight FFMA warps at 168 registers top out near 0.6 of
+//    the rate and the loads add the rest; loading a k-group ahead measured
+//    no faster.
+//    The widest f32 feature tile is 96 (PGTT_F32_MAX_FT): at F=256 on the
+//    11,160-node PeMS operator its 264 items fill the 132 SMs twice, where
+//    FT=128's 176 leave 88 idle in the second round (0.0359-0.0386 against
+//    0.0404-0.0408 ms); FT=128 is faster at F=768 (0.80-0.88 against
+//    0.89-1.00 ms).  96 keeps more device time a step on the paths the
+//    port drives: 94 launches at F=256 a DCRNN step, 2 at F=768 an ASTGCN
+//    one.
 //  - Remainder in the epilogue: the accumulator goes to a shared-memory
 //    block (128 x FT f32) and each warp adds the remainder edges of its own
 //    16 rows there (rem_row_ptr over the (row, col)-sorted edges), each lane
@@ -220,6 +247,39 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t& r0,
       : "r"(addr)
       : "memory");
 }
+
+// four f32 from a 16-byte-aligned shared address
+__device__ __forceinline__ void lds128(uint32_t addr, float (&v)[4]) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr));
+}
+
+// lanes per feature group of the f32 micro-tile: the power of two that
+// divides the tile's 16-byte units and loads the fewest float4s a k-group
+// (R rows of A plus 4 U units of B, R = fg / 2, U = units / fg)
+constexpr int f32_feature_groups(int units) {
+  int best = 0, cost = 1 << 30;
+  for (int fg = 2; fg <= 32; fg *= 2)
+    if (units % fg == 0 && fg / 2 + 4 * (units / fg) < cost) {
+      best = fg;
+      cost = fg / 2 + 4 * (units / fg);
+    }
+  return best;
+}
+
+// the f32 consumer's register tile over a warp's 16 rows x FT features:
+// lane = rg * FG + fg owns rows rg + RG i (i < R) and the 16-byte feature
+// units fg + FG m (m < U), R x 4U accumulators
+template <int FT>
+struct F32Tile {
+  static constexpr int UNITS = FT / 4;
+  static constexpr int FG = f32_feature_groups(UNITS);
+  static constexpr int RG = 32 / FG;
+  static constexpr int R = 16 / RG;
+  static constexpr int U = UNITS / FG;
+  static_assert(FG >= 2 && R * U * 4 == FT / 2, "16 x FT over 32 lanes");
+};
 
 // d[0..4) += A (16x16, a0..a3) @ B (16x8, b0, b1)
 __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
@@ -461,21 +521,47 @@ __device__ __forceinline__ void consume(
           }
         }
       } else {
-        // lane: row r0 + (lane & 15), features h + 2j
-        const unsigned char* as = smem + stage * C::STAGE_BYTES;
-        const unsigned char* bs = as + C::A_BYTES;
-        const int r = r0 + (lane & 15), h = lane >> 4;
-#pragma unroll 4
-        for (int k = 0; k < C::KC; ++k) {
-          const float a = *reinterpret_cast<const float*>(as + swz(r, 4 * k));
+        // per k-group of 4 (one 16-byte unit of an A row), R float4s of A
+        // and 4 x U float4s of B feed 16 R U FMAs.  Under the 128-byte
+        // swizzle unit u of row r sits at u ^ (r % 8), and the stage is
+        // 1024-byte aligned, so an address is its row's base XOR the unit:
+        // each quarter-warp reads 8 distinct 16-byte slots of B and one
+        // broadcast row of A (two or four in distinct slots when FG < 8)
+        using M = F32Tile<C::FT>;
+        const int fg = lane % M::FG, rg = lane / M::FG;
+        uint32_t pa[M::R], pb[M::U];
 #pragma unroll
-          for (int j = 0; j < NACC; ++j) {
-            const int n = h + 2 * j;
-            acc[j] = fmaf(a,
-                          *reinterpret_cast<const float*>(
-                              bs + (n / C::KC) * C::B_BOX +
-                              swz(k, 4 * (n % C::KC))),
-                          acc[j]);
+        for (int i = 0; i < M::R; ++i) {
+          const int r = rg + M::RG * i;  // r0 % 8 == 0
+          pa[i] = a_s + (r0 + r) * SW + ((r & 7) << 4);
+        }
+#pragma unroll
+        for (int m = 0; m < M::U; ++m) {
+          const int q = fg + M::FG * m;
+          pb[m] = b_s + (q >> 3) * C::B_BOX + ((q & 7) << 4);
+        }
+#pragma unroll 2
+        for (int g = 0; g < C::KC / 4; ++g) {
+          float a[M::R][4];
+#pragma unroll
+          for (int i = 0; i < M::R; ++i) lds128(pa[i] ^ (g << 4), a[i]);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = 4 * g + kk;
+            float b[M::U][4];
+#pragma unroll
+            for (int m = 0; m < M::U; ++m)
+              lds128((pb[m] ^ ((k & 7) << 4)) + k * SW, b[m]);
+            // each output's chain: k ascending, as every f32 tile before
+#pragma unroll
+            for (int i = 0; i < M::R; ++i)
+#pragma unroll
+              for (int m = 0; m < M::U; ++m)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  float& d = acc[(i * M::U + m) * 4 + j];
+                  d = fmaf(a[i][kk], b[m][j], d);
+                }
           }
         }
       }
@@ -494,9 +580,17 @@ __device__ __forceinline__ void consume(
             make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     } else {
-      float* crow = cblk + (r0 + (lane & 15)) * C::CS + (lane >> 4);
+      using M = F32Tile<C::FT>;
+      const int fg = lane % M::FG, rg = lane / M::FG;
 #pragma unroll
-      for (int j = 0; j < NACC; ++j) crow[2 * j] = acc[j];
+      for (int i = 0; i < M::R; ++i)
+#pragma unroll
+        for (int m = 0; m < M::U; ++m) {
+          const float* d = &acc[(i * M::U + m) * 4];
+          *reinterpret_cast<float4*>(
+              &cblk[(r0 + rg + M::RG * i) * C::CS + 4 * (fg + M::FG * m)]) =
+              make_float4(d[0], d[1], d[2], d[3]);
+        }
     }
     if (lane <= 16) wp[lane] = my_ptr;
     __syncwarp();
@@ -675,6 +769,12 @@ int launch(const void* blocks, int num_tiles, const int* tile_ptr,
   return (int)cudaGetLastError();
 }
 
+// widest f32 feature tile (bf16: 128; see the header).  chip_smoke.py builds
+// copies with -DPGTT_F32_MAX_FT=64 and 128 to time the three.
+#ifndef PGTT_F32_MAX_FT
+#define PGTT_F32_MAX_FT 96
+#endif
+
 // smallest instantiated n-tile count that covers `width` features
 int pick_nt(int width) {
   static const int nts[] = {1, 2, 4, 5, 6, 8, 12, 16};
@@ -725,7 +825,8 @@ int pgtt_hybrid_spmm(const void* blocks, int num_tiles, int is_bf16,
                      float* out, int num_row_blocks, int F, void* stream) {
   if (num_row_blocks == 0 || F == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nft = (F + 127) / 128;
+  const int max_ft = is_bf16 ? 128 : PGTT_F32_MAX_FT;
+  const int nft = (F + max_ft - 1) / max_ft;
   const int nt = pick_nt((F + nft - 1) / nft);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(nt, blocks, num_tiles, tile_ptr,

@@ -43,7 +43,7 @@ def banded(n, e, seed=0, band=40):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [8, 96, 200])
+@pytest.mark.parametrize("f", [8, 13, 96, 200, 768])
 def test_kernels_match_plain(cuda, dtype, f):
     ei, w = banded(1500, 30000)
     g = Graph.from_edge_index(ei, w, num_nodes=1500, device=cuda)
@@ -81,7 +81,11 @@ def operator_shape(name):
 @pytest.mark.parametrize("shape", ["hybrid", "all-tiles", "all-remainder",
                                    "empty-rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [8, 16, 36, 64, 96, 200])
+# one width for each instantiation (n-tile counts 1, 2, 4, 5, 6, 8, 12, 16:
+# F = 4, 16, 32, 40, 48, 64, 96, 128), several feature tiles (200, 256,
+# 768) and rows that take the element-by-element staging (13; 36 on bf16)
+@pytest.mark.parametrize("f", [4, 8, 13, 16, 32, 36, 40, 48, 64, 96, 128,
+                               200, 256, 768])
 def test_fused_kernel_matches_plain(cuda, shape, dtype, f):
     ei, w, n, mbe = operator_shape(shape)
     g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
