@@ -106,13 +106,36 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    and streaming times, and the fused kernel on that f32 operator at
    F = 64·4 = 256: timed, and against the copies with the other f32
    feature tiles; the SHA-256 of the kernel's output on the raw graph's
-   tiles at that width.
+   tiles at that width;
+16. phase 3's DCRNNSeq and operators trained through
+   ``make_mixed_precision_step`` with ``bf16_policy`` (f32 master
+   parameters in a ``TrainState``, bf16 compute, Adam 1e-3): forward and
+   parameter gradients against the f32 segment path, bf16 predictions, 30
+   fused launches a step and none of K1/K2, a falling loss, the step time
+   and the device's busy time beside phase 3's f32-compute step; then
+   ``f16_policy`` with a ``DynamicLossScale``: a planted overflow batch
+   leaves parameters, Adam moments and step counts unchanged bit for bit
+   and halves the scale, two clean steps double it;
+17. ``HeteroGCLSTM`` (32 channels) + a shared head over a
+   ``StaticHeteroGraphTemporalSignal`` with node types of 50,000 (F=8)
+   and 20,000 (F=4) nodes and 1,000,000 banded edges each way, T=8,
+   stacked (``StackedHeteroSignal``) and trained through
+   ``SnapshotTrainer`` for 3 epochs: one snapshot's outputs and gradients
+   on the card against the port on the CPU, no BCSR launch (bipartite
+   SAGEConv aggregates on the segment path), a falling loss, host epoch
+   times, peak memory (``device_memory_stats``), the device's busy time;
+18. the training harness (``protocols/harness.py``: ``TrainState``,
+   ``CheckpointManager``, ``DivergenceGuard``, ``StepTimer``, early
+   stopping) on Chickenpox for 10 epochs; a second run stopped at epoch 5
+   and resumed from its checkpoints must equal it within 1e-6 relative
+   (and says whether to the bit); two checkpoints kept; a planted NaN
+   epoch rolled back.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
 without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
-its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14 and 15; the
+its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15 and 16; the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -215,6 +238,21 @@ PEMS = dict(n=11_160, f=2, days=7, steps_per_day=288, lags=12,
 # sums differs; about three times the errors read on an H100 (4.0e-7 on
 # outputs up to 0.94, 1.3e-7 and 1.1e-7, both at cell.b_h)
 PEMS_TOLS = (1.5e-6, 5e-7, 5e-7)
+# phase 16: phase 3's model in bf16 compute against the f32 segment path
+# (forward by the largest output; parameter gradients by each gradient's
+# largest entry): about three times the errors read on an H100 (9.2e-3
+# forward, 5.9e-3 on gradients, at cell.b_h); the f16 branch's loss scale
+MIXED = dict(steps=5, timed_steps=10, f16_scale=256.0, growth_interval=2)
+MIXED_TOLS = (3e-2, 2e-2)
+# phase 17: two node types with typed edges both ways at the slice's scale
+HETERO = dict(n_a=50_000, f_a=8, n_b=20_000, f_b=4, e=1_000_000, band=96,
+              hidden=32, t=8, epochs=3, seed=5)
+# card against CPU: atomics on both sides (1e-4 of the outputs' scale, 1e-2
+# of each gradient's largest entry)
+HETERO_TOLS = (1e-4, 1e-2)
+# phase 18: the harness protocol on Chickenpox, and where a run resumes
+HARNESS = dict(epochs=10, resume_at=5, nan_epoch=2)
+HARNESS_RESUME_TOL = 1e-6
 
 
 def log(*a):
@@ -738,7 +776,10 @@ def phase_slice(torch, kernel_report):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for key in ("H", "K1", "K2"):
         kernel_report[key]["launches"] = launches[key]
-    profile_steps(torch, lambda: trainer.train_step(x, y), med * 1e3)
+    busy = profile_steps(torch, lambda: trainer.train_step(x, y), med * 1e3)
+    # phase 16 trains the same model and operators in bf16 compute
+    kernel_report["slice"] = dict(ops=ops, ops_seg=ops_seg, x=x, y=y,
+                                  busy_ms=busy, step_ms=med * 1e3)
 
 
 def device_time_by_kernel(torch, fn, n):
@@ -2169,6 +2210,330 @@ def phase_index_pems(torch, kernel_report, smi):
         f"{f32_digest(torch, [raw], [f_hop], DIGEST_SEED)}")
 
 
+def rel_err(got, want):
+    """max |got − want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def phase_mixed(torch, kernel_report, smi):
+    """Phase 3's model and operators through ``make_mixed_precision_step``:
+    bf16 compute (bf16_policy), then f16 with a dynamic loss scale."""
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        DynamicLossScale, TrainState, bf16_policy, f16_policy,
+        make_mixed_precision_step)
+
+    c, m = SLICE, MIXED
+    sl = kernel_report["slice"]
+    ops, ops_seg, x, y = sl["ops"], sl["ops_seg"], sl["x"], sl["y"]
+    model = DCRNNSeq(c["f"], c["hidden"], K=2,
+                     generator=torch.Generator().manual_seed(0))
+    dtypes = []
+
+    def loss_on(operators):
+        def loss_fn(params, xb, yb):
+            pred = torch.func.functional_call(model, params, (xb, operators))
+            dtypes.append(pred.dtype)
+            return (pred.float() - yb.float()).square().mean()
+        return loss_fn
+
+    loss_fn = loss_on(ops)
+    # forward and parameter gradients against the f32 segment path
+    master = dict(model.named_parameters())
+    with torch.no_grad():
+        out_b = torch.func.functional_call(
+            model, bf16_policy.cast_to_compute(master),
+            (x.to(torch.bfloat16), ops))
+    grads_b = torch.autograd.grad(
+        loss_fn(bf16_policy.cast_to_compute(master), x.to(torch.bfloat16),
+                y.to(torch.bfloat16)), list(master.values()))
+    with config_override(spmm_backend="segment"):
+        with torch.no_grad():
+            out_s = model(x, ops_seg)
+        grads_s = torch.autograd.grad(loss_on(ops_seg)(master, x, y),
+                                      list(master.values()))
+    fwd = rel_err(out_b, out_s)
+    grad = {name: rel_err(gb, gs)
+            for name, gb, gs in zip(master, grads_b, grads_s)}
+    worst = max(grad, key=grad.get)
+    log(f"  bf16 compute vs the f32 segment path: output {out_b.dtype}, "
+        f"forward {fwd:.3e} of the largest output (tol {MIXED_TOLS[0]}), "
+        f"parameter gradients up to {grad[worst]:.3e} at {worst} (tol "
+        f"{MIXED_TOLS[1]}): " + ", ".join(f"{k} {v:.2e}"
+                                           for k, v in grad.items()))
+    if out_b.dtype != torch.bfloat16:
+        raise SystemExit("bf16 compute did not return bf16 outputs")
+    if not (fwd <= MIXED_TOLS[0] and grad[worst] <= MIXED_TOLS[1]):
+        raise SystemExit("bf16 compute does not match the segment path")
+
+    state = TrainState.create(
+        model, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
+    step = make_mixed_precision_step(loss_fn, policy=bf16_policy)
+    step(state, x, y)  # warm-up step
+    torch.cuda.synchronize()
+    dtypes.clear()
+    bcsr.reset_launch_counts()
+    losses = [float(step(state, x, y)[1]) for _ in range(m["steps"])]
+    launches = launch_counts(bcsr)
+    want = expected_launches(c["t"], 2, m["steps"])
+    log(f"  bf16-compute steps: losses {['%.6f' % v for v in losses]}; "
+        f"launches over {m['steps']} steps: fused {launches['H']} (expected "
+        f"{want}), K1 {launches['K1']} and K2 {launches['K2']} (expected "
+        f"0); predictions {sorted({str(d) for d in dtypes})}")
+    if launches != {"H": want, "K1": 0, "K2": 0}:
+        raise SystemExit("launch counts differ from the model's count")
+    kernel_report["H"]["launches"] += launches["H"]
+    if set(dtypes) != {torch.bfloat16}:
+        raise SystemExit(f"predictions in {dtypes}, not bf16")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise SystemExit("master parameters left f32")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"bf16-compute loss does not fall: {losses}")
+    step_s = []
+    for _ in range(m["timed_steps"]):
+        t0 = time.perf_counter()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s)
+    log(f"  bf16-compute step (host clock, synchronized, {m['timed_steps']} "
+        f"steps): median {med * 1e3:.3f} ms, min {min(step_s) * 1e3:.3f}, "
+        f"max {max(step_s) * 1e3:.3f}; phase 3's f32-compute step median "
+        f"{sl['step_ms']:.3f} ms; on {smi}")
+    busy = profile_steps(torch, lambda: step(state, x, y), med * 1e3)
+    if busy is not None and sl["busy_ms"] is not None:
+        log(f"  device busy per step: bf16 compute {busy:.3f} ms, f32 "
+            f"compute (phase 3) {sl['busy_ms']:.3f} ms, ratio "
+            f"{busy / sl['busy_ms']:.3f}, on {smi}")
+
+    # f16 with a dynamic loss scale: a planted overflow is skipped
+    dev = x.device
+    scale = DynamicLossScale(
+        scale=torch.tensor(m["f16_scale"], device=dev),
+        steps_since_growth=torch.tensor(0, dtype=torch.int32, device=dev),
+        growth_interval=m["growth_interval"])
+    state16 = TrainState.create(
+        model, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
+    step16 = make_mixed_precision_step(loss_fn, policy=f16_policy,
+                                       dynamic_scale=True)
+    dtypes.clear()
+    state16, scale, l0 = step16(state16, scale, x, y)
+    before = state16.snapshot()
+    state16, scale, l_bad = step16(state16, scale, x * 1e9, y)
+    after = state16.snapshot()
+    same = (after["step"] == before["step"] and all(
+        torch.equal(after["params"][k], v)
+        for k, v in before["params"].items()) and all(
+        torch.equal(after["opt_state"]["state"][i][key], v)
+        for i, mom in before["opt_state"]["state"].items()
+        for key, v in mom.items()))
+    halved = float(scale.scale)
+    clean = []
+    for _ in range(2):
+        state16, scale, loss = step16(state16, scale, x, y)
+        clean.append(float(loss))
+    log(f"  f16 compute, loss scale {m['f16_scale']}: first step loss "
+        f"{float(l0):.6f}; planted overflow (x·1e9) loss {float(l_bad)}, "
+        f"parameters, Adam moments and steps unchanged bit for bit: {same}, "
+        f"scale {halved}; two clean steps {['%.6f' % v for v in clean]}, "
+        f"scale {float(scale.scale)}, state step {state16.step}; "
+        f"predictions {sorted({str(d) for d in dtypes})}")
+    if not (same and halved == m["f16_scale"] / 2
+            and float(scale.scale) == m["f16_scale"]
+            and state16.step == 3 and np.isfinite(clean).all()
+            and torch.isfinite(l0)):
+        raise SystemExit("the f16 loss-scale schedule misbehaved")
+
+
+def banded_bipartite(rng, n_src, n_dst, e, band, frac_local=0.95):
+    """``e`` edges from ``n_src`` to ``n_dst`` nodes: ``frac_local`` of
+    them within ±band of the source's scaled position, the rest random."""
+    e_loc = int(e * frac_local)
+    s = rng.integers(0, n_src, size=e)
+    r = np.concatenate([
+        np.clip(s[:e_loc] * n_dst // n_src
+                + rng.integers(-band, band + 1, size=e_loc), 0, n_dst - 1),
+        rng.integers(0, n_dst, size=e - e_loc)])
+    return np.stack([s, r]), rng.uniform(0.1, 1.0, e).astype(np.float32)
+
+
+def phase_hetero(torch, kernel_report, smi):
+    """HeteroGCLSTM over a static heterogeneous signal at the slice's
+    scale, stacked and trained through SnapshotTrainer."""
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph, bcsr
+    from pytorch_geometric_temporal_tpu_torch.protocols.hetero import (
+        HeteroRegressor)
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        StackedHeteroSignal, StaticHeteroGraphTemporalSignal)
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        SnapshotTrainer, mse)
+    from pytorch_geometric_temporal_tpu_torch.utils import (
+        device_memory_stats)
+
+    c = HETERO
+    rng = np.random.default_rng(c["seed"])
+    n = {"a": c["n_a"], "b": c["n_b"]}
+    f = {"a": c["f_a"], "b": c["f_b"]}
+    meta = (["a", "b"], [("a", "to", "b"), ("b", "to", "a")])
+    t0 = time.perf_counter()
+    edges = {(s, r, d): banded_bipartite(rng, n[s], n[d], c["e"], c["band"])
+             for s, r, d in meta[1]}
+    feats = [{k: rng.normal(size=(n[k], f[k])).astype(np.float32)
+              for k in n} for _ in range(c["t"])]
+    targs = [{"a": x["a"].sum(-1) * 0.3, "b": x["b"].sum(-1) * 0.5}
+             for x in feats]
+    sig = StaticHeteroGraphTemporalSignal(
+        {k: v[0] for k, v in edges.items()},
+        {k: v[1] for k, v in edges.items()}, feats, targs)
+    stacked = StackedHeteroSignal.from_signal(sig)
+    torch.cuda.synchronize()
+    log(f"  node types a: N={n['a']} F={f['a']}, b: N={n['b']} F={f['b']}; "
+        f"{c['e']} edges each way; T={c['t']}; stacked on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def make_model(device):
+        return HeteroRegressor(meta, f, c["hidden"], device=device,
+                               generator=torch.Generator().manual_seed(0))
+
+    def snapshot_loss(model, x, y, graphs):
+        preds, h, cc = model(x, graphs)
+        return sum(mse(preds[k], y[k]) for k in preds), preds, h
+
+    # one snapshot on the card against the port on the CPU
+    results = []
+    for device in ("cuda", "cpu"):
+        model = make_model(device)
+        graphs = {k: Graph(g.senders.to(device), g.receivers.to(device),
+                           g.weights.to(device), g.num_nodes, g.num_edges,
+                           g.num_src)
+                  for k, g in stacked.edge_graphs().items()}
+        x = {k: v[0].to(device) for k, v in stacked.x_dicts.items()}
+        y = {k: v[0].to(device) for k, v in stacked.y_dicts.items()}
+        loss, preds, h = snapshot_loss(model, x, y, graphs)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        results.append(({k: v.detach().cpu() for k, v in h.items()},
+                        {k: v.detach().cpu() for k, v in preds.items()},
+                        [gr.cpu() for gr in grads],
+                        [name for name, _ in model.named_parameters()]))
+    (h_g, p_g, g_g, names), (h_c, p_c, g_c, _) = results
+    fwd = max(rel_err(a[k], b[k]) for a, b in ((h_g, h_c), (p_g, p_c))
+              for k in b)
+    grad = {name: rel_err(a, b) for name, a, b in zip(names, g_g, g_c)}
+    worst = max(grad, key=grad.get)
+    log(f"  one snapshot, card against CPU: outputs {fwd:.3e} of their "
+        f"scale (tol {HETERO_TOLS[0]}), parameter gradients up to "
+        f"{grad[worst]:.3e} at {worst} (tol {HETERO_TOLS[1]})")
+    if not (fwd <= HETERO_TOLS[0] and grad[worst] <= HETERO_TOLS[1]):
+        raise SystemExit("hetero on the card does not match the CPU")
+
+    model = make_model("cuda")
+
+    def step(carry, x, y, graphs):
+        h, cc = carry if carry else (None, None)
+        preds, h, cc = model(x, graphs, h, cc)
+        return sum(mse(preds[k], y[k]) for k in preds), (h, cc)
+
+    trainer = SnapshotTrainer(model, step, lr=1e-2)
+    torch.cuda.reset_peak_memory_stats()
+    bcsr.reset_launch_counts()
+    losses, epoch_s = [], []
+    for _ in range(c["epochs"]):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_epoch(stacked, None)))
+        epoch_s.append(time.perf_counter() - t0)
+    launches = launch_counts(bcsr)
+    mem = device_memory_stats()
+    log(f"  {c['epochs']} epochs: losses {['%.6f' % v for v in losses]}; "
+        f"host epoch times {['%.3f' % v for v in epoch_s]} s; launches: "
+        f"fused {launches['H']}, K1 {launches['K1']}, K2 {launches['K2']} "
+        f"(expected 0: bipartite SAGEConv aggregates on the segment path); "
+        f"peak {mem['peak_bytes_in_use'] / 2**30:.2f} GiB of "
+        f"{mem['bytes_limit'] / 2**30:.1f} (device_memory_stats); on {smi}")
+    if launches != {"H": 0, "K1": 0, "K2": 0}:
+        raise SystemExit("hetero training launched a BCSR kernel")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"hetero loss does not fall: {losses}")
+    profile_steps(torch, lambda: trainer.train_epoch(stacked, None),
+                  statistics.median(epoch_s) * 1e3, n=1, unit="epoch")
+
+
+def phase_harness(torch, smi):
+    """The harness protocol on Chickenpox: an uninterrupted run, a run
+    resumed from its own checkpoint, and a planted NaN epoch."""
+    import shutil
+    import tempfile
+
+    from pytorch_geometric_temporal_tpu_torch.protocols import harness
+
+    c = HARNESS
+    tmp = tempfile.mkdtemp(prefix="harness_")
+    try:
+        lines = []
+
+        def run(epochs, name, **kw):
+            t0 = time.perf_counter()
+            best, hist = harness.main(epochs, ckpt_dir=os.path.join(
+                tmp, name), log=lines.append, **kw)
+            torch.cuda.synchronize()
+            return hist, time.perf_counter() - t0
+
+        whole, secs = run(c["epochs"], "whole")
+        n_train = harness.chickenpox(device="cuda")[0].snapshot_count
+        kept = sorted(int(d) for d in os.listdir(os.path.join(tmp, "whole")))
+        summary = [ln for ln in lines if re.fullmatch(
+            r"\d+ steps, [\d.]+ ms/step, [\d.]+ items/s", ln)]
+        log(f"  {c['epochs']} epochs in {secs:.2f} s ({secs / c['epochs']:.3f}"
+            f" s an epoch of {n_train} updates, host clock, on {smi}); "
+            f"train MSE {['%.6f' % h['train_mse'] for h in whole]}; val MSE "
+            f"{['%.6f' % h['val_mse'] for h in whole]}; StepTimer: "
+            f"{summary}; checkpoints kept {kept}")
+        if kept != [(c["epochs"] - 1) * n_train, c["epochs"] * n_train]:
+            raise SystemExit(f"retention kept {kept}")
+        if len(summary) != 1 or not summary[0].startswith(
+                f"{c['epochs']} steps, "):
+            raise SystemExit(f"StepTimer's summary reads {summary}")
+        losses = [h["train_mse"] for h in whole]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise SystemExit(f"harness loss does not fall: {losses}")
+
+        run(c["resume_at"], "resumed")
+        lines.clear()
+        rest, _ = run(c["epochs"], "resumed")
+        resumed = [ln for ln in lines if ln.startswith("resumed from step")]
+        pairs = [(a, b) for a, b in zip(rest, whole[c["resume_at"]:])]
+        worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in pairs
+                    for k in ("train_mse", "val_mse"))
+        bitwise = all(a == b for a, b in pairs)
+        log(f"  resumed at epoch {c['resume_at']} ({resumed}): epochs "
+            f"{[h['epoch'] for h in rest]}, largest relative difference "
+            f"from the uninterrupted run {worst:.3e} (tol "
+            f"{HARNESS_RESUME_TOL}); bitwise equal: {bitwise}")
+        if (len(resumed) != 1 or [h["epoch"] for h in rest] != list(
+                range(c["resume_at"], c["epochs"]))
+                or not worst <= HARNESS_RESUME_TOL):
+            raise SystemExit("the resumed run differs from the whole run")
+
+        lines.clear()
+        guarded, _ = run(c["nan_epoch"] + 2, "guarded",
+                         nan_epochs={c["nan_epoch"]})
+        rolled = [ln for ln in lines if "rolled back" in ln]
+        after = guarded[-1]["train_mse"]
+        want = whole[c["nan_epoch"]]["train_mse"]
+        log(f"  NaN planted in epoch {c['nan_epoch']}: {rolled}; epochs "
+            f"{[h['epoch'] for h in guarded]}; the next epoch's loss "
+            f"{after:.6f} against the uninterrupted run's epoch "
+            f"{c['nan_epoch']} {want:.6f}")
+        if (len(rolled) != 1 or [h["epoch"] for h in guarded] != [
+                e for e in range(c["nan_epoch"] + 2) if e != c["nan_epoch"]]
+                or abs(after - want) > HARNESS_RESUME_TOL * abs(want)):
+            raise SystemExit("DivergenceGuard did not roll the epoch back")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2219,6 +2584,14 @@ def main() -> int:
     phase_astgcn_edge(torch, report, smi)
     log("== phase 15: index-batched DCRNN on the PeMS-scale stand-in")
     phase_index_pems(torch, report, smi)
+    log("== phase 16: DCRNNSeq at N=50k in bf16 compute "
+        "(make_mixed_precision_step), then f16 with a loss scale")
+    phase_mixed(torch, report, smi)
+    del report["slice"]
+    log("== phase 17: HeteroGCLSTM at N=50k + 20k through SnapshotTrainer")
+    phase_hetero(torch, report, smi)
+    log("== phase 18: the training harness on Chickenpox")
+    phase_harness(torch, smi)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"

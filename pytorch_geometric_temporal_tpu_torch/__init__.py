@@ -6,12 +6,14 @@ package imports torch and numpy only — never JAX, flax, optax or the JAX
 package.  Entry points build on CUDA unless given ``device="cpu"``.
 
 Sub-packages: ``ops`` (graphs, normalizations, spmm, BCSR operators),
-``models`` (the convolutions and the recurrent cells), ``signal`` (snapshot
-iterators, the stacked signal and index batching), ``data`` (the loaders:
-five datasets bundled with the package, twelve read from staged files),
-``train`` (snapshot and batch trainers) and ``protocols`` (the accuracy
-protocols).  The hybrid block-sparse aggregation (``ops/bcsr.py``) runs
-through a CUDA kernel written for Hopper (``csrc/hybrid_spmm.cu``),
+``models`` (the convolutions, the recurrent, attention and heterogeneous
+models), ``signal`` (snapshot iterators, the stacked signals and index
+batching), ``data`` (the loaders: five datasets bundled with the package,
+twelve read from staged files), ``train`` (trainers, training state,
+checkpoints, guards, mixed precision), ``utils`` (profiling) and
+``protocols`` (the accuracy protocols, the training harness, the
+heterogeneous run).  The hybrid block-sparse aggregation (``ops/bcsr.py``)
+runs through a CUDA kernel written for Hopper (``csrc/hybrid_spmm.cu``),
 compiled with nvcc at first use.
 """
 

@@ -1,7 +1,7 @@
-"""Model zoo: the convolutions, the recurrent cells and the attention family
-(the heterogeneous models are not ported yet)."""
+"""Model zoo: the convolutions, the recurrent cells, the attention family
+and the heterogeneous models."""
 
-from . import attention, conv  # noqa: F401
+from . import attention, conv, hetero  # noqa: F401
 from .attention import *  # noqa: F401,F403
 from .conv import (
     AVWGCN,
@@ -9,10 +9,12 @@ from .conv import (
     GatedGraphConv,
     GCNConv,
     RGCNConv,
+    SAGEConv,
     cheb_basis,
     gcn_conv_fixed_w,
     topk_pool,
 )
+from .hetero import HeteroGCLSTM
 from .recurrent import (
     AGCRN,
     A3TGCN,
@@ -41,7 +43,8 @@ __all__ = list(attention.__all__) + [
     "AGCRN", "A3TGCN", "A3TGCN2", "AVWGCN", "ChebConv", "DCRNN", "DCRNNSeq",
     "DConv", "DyGrEncoder", "EvolveGCNH", "EvolveGCNHSeq", "EvolveGCNO",
     "EvolveGCNOSeq", "GCLSTM", "GCNConv", "GConvGRU", "GConvLSTM",
-    "GatedGraphConv", "LRGCN", "MPNNLSTM", "RGCNConv", "TGCN", "TGCN2",
+    "GatedGraphConv", "HeteroGCLSTM", "LRGCN", "MPNNLSTM", "RGCNConv",
+    "SAGEConv", "TGCN", "TGCN2",
     "cheb_basis", "diffusion_basis", "diffusion_basis_reference",
     "gcn_conv_fixed_w", "split_relations", "topk_pool",
 ]

@@ -1,7 +1,7 @@
 """Graph convolution primitives over the spmm core.
 
-Port of the JAX package's ``models/conv.py`` but for ``SAGEConv``:
-ChebConv, GCNConv, RGCNConv, GatedGraphConv, top-k pooling and AGCRN's
+Port of the JAX package's ``models/conv.py``: ChebConv, GCNConv,
+RGCNConv, SAGEConv, GatedGraphConv, top-k pooling and AGCRN's
 embedding-parameterized AVWGCN.  The Chebyshev basis is stacked on the
 feature axis and applied with a single ``(N, K·C_in) @ (K·C_in, C_out)``
 matmul; parameters keep the flax names and the ``(in, out)`` layout, so
@@ -21,8 +21,8 @@ from .._device import resolve_device
 from ..ops.graph import cheb_norm, gcn_norm
 from ..ops.operators import Prenormalized
 from ..ops.spmm import spmm
-from ._cells import (FlaxModule, GRUCell, flax_params, glorot, load_param,
-                     zeros)
+from ._cells import (Dense, FlaxModule, GRUCell, flax_params, glorot,
+                     load_param, zeros)
 from ._validate import check_node_axis
 
 
@@ -193,6 +193,36 @@ class RGCNConv(FlaxModule):
         if self.bias is not None:
             out = out + self.bias.to(x.dtype)
         return out
+
+
+class SAGEConv(FlaxModule):
+    """GraphSAGE with mean aggregation (replaces PyG ``SAGEConv``):
+    ``lin_l(mean of x over in-edges) + lin_r(x_dst)``.
+
+    ``in_channels`` is one width, or a (source, destination) pair for
+    bipartite (hetero) edges, whose destination features come in as
+    ``x_dst``.  The mean divides by the unweighted in-degree over real
+    edges; the aggregation always takes the segment path above the dense
+    threshold (a per-call weight override), as in the JAX package.
+    """
+
+    def __init__(self, in_channels, out_channels: int,
+                 use_bias: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        src, dst = (in_channels if isinstance(in_channels, (tuple, list))
+                    else (in_channels, in_channels))
+        self.lin_l = Dense(src, out_channels, use_bias, device=device,
+                           generator=generator)
+        self.lin_r = Dense(dst, out_channels, False, device=device,
+                           generator=generator)
+
+    def forward(self, x: torch.Tensor, graph, x_dst=None) -> torch.Tensor:
+        if x_dst is None:
+            x_dst = x
+        inv = _inv_degree(graph.in_degree(weighted=False)).to(x.dtype)
+        agg = spmm(graph, x, weights=graph.edge_mask()).to(x.dtype)
+        return self.lin_l(agg * inv[:, None]) + self.lin_r(x_dst)
 
 
 class GatedGraphConv(FlaxModule):

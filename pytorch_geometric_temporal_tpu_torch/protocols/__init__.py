@@ -1,7 +1,8 @@
-"""End-to-end protocols: the bundled datasets' accuracy runs and the METR-LA
-DCRNN protocol (on the seeded synthetic stand-in)."""
+"""End-to-end protocols: the bundled datasets' accuracy runs, the METR-LA
+DCRNN protocol (on the seeded synthetic stand-in), the full training
+harness and the heterogeneous-graph run."""
 
-from . import metrla_protocol
+from . import harness, hetero, metrla_protocol
 
 from .bundled_accuracy import (
     RUNS,
@@ -11,5 +12,6 @@ from .bundled_accuracy import (
     twitter_tennis_accuracy,
 )
 
-__all__ = ["RUNS", "ProtocolRun", "extra_bundled_accuracy",
-           "metrla_protocol", "pedalme_accuracy", "twitter_tennis_accuracy"]
+__all__ = ["RUNS", "ProtocolRun", "extra_bundled_accuracy", "harness",
+           "hetero", "metrla_protocol", "pedalme_accuracy",
+           "twitter_tennis_accuracy"]

@@ -1,8 +1,16 @@
-"""Temporal signals: snapshot iterators, the train/test split, the
-stacked device-resident signal the snapshot trainer consumes, and index
-batching (windows gathered from start indices, on the device or streamed
-from disk)."""
+"""Temporal signals: homogeneous and heterogeneous snapshot iterators, the
+train/test split, the stacked device-resident signals the snapshot trainer
+consumes, and index batching (windows gathered from start indices, on the
+device or streamed from disk)."""
 
+from .heterogeneous import (
+    DynamicHeteroGraphStaticSignal,
+    DynamicHeteroGraphStaticSignalBatch,
+    DynamicHeteroGraphTemporalSignal,
+    DynamicHeteroGraphTemporalSignalBatch,
+    StaticHeteroGraphTemporalSignal,
+    StaticHeteroGraphTemporalSignalBatch,
+)
 from .homogeneous import (
     DynamicGraphStaticSignal,
     DynamicGraphStaticSignalBatch,
@@ -19,9 +27,9 @@ from .index_dataset import (
     load_time_shard,
     iter_index_batches,
 )
-from .snapshot import Snapshot
+from .snapshot import HeteroSnapshot, Snapshot
 from .split import temporal_signal_split
-from .stacked import StackedSignal
+from .stacked import StackedHeteroSignal, StackedSignal
 
 __all__ = [
     "DynamicGraphStaticSignal",
@@ -30,13 +38,21 @@ __all__ = [
     "DynamicGraphTemporalSignalBatch",
     "StaticGraphTemporalSignal",
     "StaticGraphTemporalSignalBatch",
+    "DynamicHeteroGraphStaticSignal",
+    "DynamicHeteroGraphStaticSignalBatch",
+    "DynamicHeteroGraphTemporalSignal",
+    "DynamicHeteroGraphTemporalSignalBatch",
+    "StaticHeteroGraphTemporalSignal",
+    "StaticHeteroGraphTemporalSignalBatch",
     "DeviceWindower",
     "IndexDataset",
     "IndexLoader",
     "StreamingWindower",
     "load_time_shard",
     "iter_index_batches",
+    "HeteroSnapshot",
     "Snapshot",
     "temporal_signal_split",
+    "StackedHeteroSignal",
     "StackedSignal",
 ]

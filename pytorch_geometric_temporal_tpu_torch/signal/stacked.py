@@ -1,11 +1,12 @@
 """Device-resident stacked signals: the training pipeline's input.
 
-Port of ``StackedSignal`` of the JAX package's ``signal/stacked.py``: the
-whole sequence is stacked into tensors on one device once, so an epoch
-touches no host data.  ``StackedSignal.from_signal`` consumes any of the
-six homogeneous signal iterators; dynamic graphs become (T, E_pad) stacked
-edge tensors (already padded to a common E_pad by the signal layer).
-``scan`` runs the snapshots through a step function in a Python loop.
+Port of the JAX package's ``signal/stacked.py``: the whole sequence is
+stacked into tensors on one device once, so an epoch touches no host data.
+``StackedSignal.from_signal`` consumes any of the six homogeneous signal
+iterators, ``StackedHeteroSignal.from_signal`` any of the six
+heterogeneous ones; dynamic graphs become (T, E_pad) stacked edge tensors
+(already padded to a common E_pad by the signal layer).  ``scan`` runs the
+snapshots through a step function in a Python loop.
 """
 
 from __future__ import annotations
@@ -200,6 +201,125 @@ class StackedSignal:
             if has_batch:
                 args += (self.batches[t] if self.graph_dynamic
                          else self.batches,)
+            carry, out = step(*args)
+            outs.append(out)
+        return carry, (_stack_outputs(outs) if outs else ())
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedHeteroSignal:
+    """Whole heterogeneous temporal signal as stacked tensors on one device.
+
+    x_dicts / y_dicts: {node_type: (T, n_t, ...)}.
+    edge_*: {edge_type: (E,) or (T, E)} tensors; ``edge_meta`` maps each
+    edge type to (num_nodes_dst, num_edges, num_src).
+    batch_dicts: {node_type: (n_t,) or (T, n_t)} node→graph assignment from
+    the hetero *Batch variants (empty for plain signals).  When non-empty,
+    ``scan``'s step receives it as a 5th argument.
+
+    Every step must carry the same node and edge types (None-skipping is a
+    feature of the iterators; stacking needs uniform presence).
+    """
+
+    x_dicts: Dict[str, torch.Tensor]
+    y_dicts: Dict[str, torch.Tensor]
+    edge_senders: Dict[tuple, torch.Tensor]
+    edge_receivers: Dict[tuple, torch.Tensor]
+    edge_weights: Dict[tuple, torch.Tensor]
+    edge_meta: tuple  # sorted ((edge_type, (n_dst, n_edges, n_src)), ...)
+    graph_dynamic: bool
+    batch_dicts: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def _meta(self) -> dict:
+        return dict(self.edge_meta)
+
+    @property
+    def snapshot_count(self) -> int:
+        return next(iter(self.y_dicts.values())).shape[0]
+
+    def edge_graphs(self, t: Optional[int] = None):
+        """The static graphs, or (dynamic) the graphs at step ``t``."""
+        out = {}
+        meta = self._meta
+        for k in self.edge_senders:
+            n_dst, n_edges, n_src = meta[k]
+            if self.graph_dynamic:
+                out[k] = Graph(self.edge_senders[k][t],
+                               self.edge_receivers[k][t],
+                               self.edge_weights[k][t], n_dst, n_edges, n_src)
+            else:
+                out[k] = Graph(self.edge_senders[k], self.edge_receivers[k],
+                               self.edge_weights[k], n_dst, n_edges, n_src)
+        return out
+
+    @staticmethod
+    def from_signal(signal, device=None) -> "StackedHeteroSignal":
+        """Stack any heterogeneous signal iterator into tensors on
+        ``device`` (default: the signal's)."""
+        device = signal.device if device is None else resolve_device(device)
+        T = signal.snapshot_count
+        snaps = [signal[t] for t in range(T)]
+        keys_x, keys_y = set(snaps[0].x_dict), set(snaps[0].y_dict)
+        for s in snaps:
+            if set(s.x_dict) != keys_x or set(s.y_dict) != keys_y:
+                raise ValueError(
+                    "StackedHeteroSignal requires uniform node-type keys "
+                    "across all snapshots")
+        x_dicts = {nt: torch.stack([s.x_dict[nt] for s in snaps]).to(device)
+                   for nt in keys_x}
+        y_dicts = {nt: torch.stack([s.y_dict[nt] for s in snaps]).to(device)
+                   for nt in keys_y}
+        graph_dynamic = bool(signal._graph_dynamic)
+        senders, receivers, weights, meta = {}, {}, {}, {}
+        for k, g in snaps[0].edge_graphs.items():
+            if graph_dynamic:
+                steps = [s.edge_graphs[k] for s in snaps]
+                meta[k] = (g.num_nodes, max(h.num_edges for h in steps),
+                           g.num_src)
+                senders[k] = torch.stack([h.senders for h in steps])
+                receivers[k] = torch.stack([h.receivers for h in steps])
+                weights[k] = torch.stack([h.masked_weights() for h in steps])
+            else:
+                meta[k] = (g.num_nodes, g.num_edges, g.num_src)
+                senders[k], receivers[k], weights[k] = (
+                    g.senders, g.receivers, g.weights)
+        batch_dicts = {}
+        if snaps[0].batch_dict:
+            if graph_dynamic:
+                batch_dicts = {nt: torch.stack([s.batch_dict[nt]
+                                                for s in snaps])
+                               for nt in snaps[0].batch_dict}
+            else:
+                batch_dicts = dict(snaps[0].batch_dict)
+        return StackedHeteroSignal(
+            x_dicts=x_dicts, y_dicts=y_dicts,
+            edge_senders={k: v.to(device) for k, v in senders.items()},
+            edge_receivers={k: v.to(device) for k, v in receivers.items()},
+            edge_weights={k: v.to(device) for k, v in weights.items()},
+            edge_meta=tuple(sorted(meta.items())),
+            graph_dynamic=graph_dynamic,
+            batch_dicts={k: v.to(device) for k, v in batch_dicts.items()},
+        )
+
+    def scan(self, step: Callable, init_carry):
+        """Run ``step(carry, x_dict, y_dict, edge_graphs) -> (carry, out)``
+        over all snapshots in order; returns ``(carry, outs)`` with the
+        per-step outputs stacked along a new leading axis.  Static graphs
+        are built once and handed to every step.  For hetero *Batch
+        signals (``batch_dicts`` non-empty) the step instead takes
+        ``step(carry, x_dict, y_dict, edge_graphs, batch_dict)``."""
+        has_batch = bool(self.batch_dicts)
+        static = None if self.graph_dynamic else self.edge_graphs()
+        carry, outs = init_carry, []
+        for t in range(self.snapshot_count):
+            args = (carry, {k: v[t] for k, v in self.x_dicts.items()},
+                    {k: v[t] for k, v in self.y_dicts.items()},
+                    self.edge_graphs(t) if self.graph_dynamic else static)
+            if has_batch:
+                args += ({k: v[t] for k, v in self.batch_dicts.items()}
+                         if self.graph_dynamic else self.batch_dicts,)
             carry, out = step(*args)
             outs.append(out)
         return carry, (_stack_outputs(outs) if outs else ())

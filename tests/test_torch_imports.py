@@ -50,6 +50,9 @@ from pytorch_geometric_temporal_tpu_torch.protocols import RUNS
 RUNS["pedalme_tgcn"](1, device="cpu")
 from pytorch_geometric_temporal_tpu_torch.protocols import metrla_protocol
 metrla_protocol.run(epochs=1, batch_size=8, t_len=60, n=12, device="cpu")
+from pytorch_geometric_temporal_tpu_torch.protocols import harness, hetero
+harness.main(epochs=2, device="cpu", nan_epochs={1}, log=lambda *a: None)
+hetero.main(epochs=1, device="cpu", log=lambda *a: None)
 print(json.dumps({"modules": sorted(sys.modules), "walked": names,
                   "bundled": str(_io._BUNDLED), "opened": opened}))
 """
@@ -58,7 +61,8 @@ print(json.dumps({"modules": sorted(sys.modules), "walked": names,
 def test_port_imports_no_jax(tmp_path):
     # an empty data search path: the loader must find its file in the
     # port's own bundle
-    env = dict(os.environ, PGT_TPU_DATA=str(tmp_path), HOME=str(tmp_path))
+    env = dict(os.environ, PGT_TPU_DATA=str(tmp_path), HOME=str(tmp_path),
+               CKPT_DIR=str(tmp_path / "ckpt"))
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, check=True,
                          timeout=120)
@@ -86,7 +90,11 @@ def test_port_imports_no_jax(tmp_path):
                 "models.attention.tsagcn", "models.attention.dnntsp",
                 "signal.index_dataset", "data.metr_la", "data.pems_bay",
                 "data.pems", "data.wikimath", "data.windmill", "data.mtm",
-                "data.synthetic_pde"):
+                "data.synthetic_pde", "models.hetero",
+                "models.hetero.heterogclstm", "signal.heterogeneous",
+                "train.state", "train.checkpoint", "train.guards",
+                "train.precision", "utils", "utils.profiling",
+                "protocols.harness", "protocols.hetero"):
         assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
     pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
     # no file inside the JAX package was opened, the port's bundle was
@@ -284,3 +292,45 @@ def test_index_batching_raises_without_cuda(no_cuda, tmp_path):
                                                      device="cpu"),
                   lambda: loader.get_index_dataset(device="cpu")):
         assert build() is not None
+
+
+def test_hetero_and_harness_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from pytorch_geometric_temporal_tpu_torch import signal
+    from pytorch_geometric_temporal_tpu_torch.protocols import harness, hetero
+
+    meta = (["a", "b"], [("a", "to", "b")])
+    ei = {("a", "to", "b"): np.array([[0, 1], [1, 0]])}
+    ew = {("a", "to", "b"): np.ones(2)}
+    feats = [{"a": np.zeros((2, 3)), "b": np.zeros((2, 3))}] * 2
+    targs = [{"a": np.zeros(2)}] * 2
+    batch = {"a": np.zeros(2, int)}
+    signals = {
+        "StaticHeteroGraphTemporalSignal": (ei, ew, feats, targs),
+        "DynamicHeteroGraphTemporalSignal": ([ei] * 2, [ew] * 2, feats,
+                                             targs),
+        "DynamicHeteroGraphStaticSignal": ([ei] * 2, [ew] * 2, feats[0],
+                                           targs),
+        "StaticHeteroGraphTemporalSignalBatch": (ei, ew, feats, targs, batch),
+        "DynamicHeteroGraphTemporalSignalBatch": ([ei] * 2, [ew] * 2, feats,
+                                                  targs, [batch] * 2),
+        "DynamicHeteroGraphStaticSignalBatch": ([ei] * 2, [ew] * 2,
+                                                feats[0], targs, [batch] * 2),
+    }
+    builds = [lambda **kw: models.SAGEConv(3, 4, **kw),
+              lambda **kw: models.SAGEConv((3, 2), 4, **kw),
+              lambda **kw: models.HeteroGCLSTM({"a": 3, "b": 3}, 4, meta,
+                                               **kw),
+              lambda **kw: hetero.main(1, log=lambda *a: None, **kw),
+              lambda **kw: harness.main(1, ckpt_dir=str(tmp_path / str(
+                  len(kw))), log=lambda *a: None, **kw)]
+    builds += [lambda cls=cls, args=args, **kw: getattr(signal, cls)(
+        *args, **kw) for cls, args in signals.items()]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        assert build(device="cpu") is not None
+    sig = signal.StaticHeteroGraphTemporalSignal(ei, ew, feats, targs,
+                                                 device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        signal.StackedHeteroSignal.from_signal(sig, device="cuda")
+    assert signal.StackedHeteroSignal.from_signal(sig).snapshot_count == 2
