@@ -129,13 +129,38 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    stopping) on Chickenpox for 10 epochs; a second run stopped at epoch 5
    and resumed from its checkpoints must equal it within 1e-6 relative
    (and says whether to the bit); two checkpoints kept; a planted NaN
-   epoch rolled back.
+   epoch rolled back;
+19. PGT-I's DDP recipe on phase 15's PeMS stand-in: two spawned ranks
+   time-share the card over gloo with CUDA tensors (NCCL refuses two ranks
+   on one device), each fed by ``IndexLoader(world_size=2, rank=r)`` with
+   32 windows (global batch 64) through ``make_dp_train_step`` (masked MAE
+   on de-normalized values, each rank's loss weighted by its share of the
+   global mask count, Adam 1e-3), DCRNNSeq(2, 2, K=2) over the raw graph
+   that ``spmm`` tiles in f32: 94 fused launches a rank a step, the first
+   step's loss, the all-reduced gradient Adam is given and the parameters
+   after it against the single-process step on the concatenated batch,
+   the ranks' parameters equal after 3 steps
+   (``assert_same_across_hosts``), step time, the share of it that the
+   step's two all-reduces take when timed alone, and the device's busy
+   time a rank (time-sharing one card: no scaling is measured);
+20. the halo-partitioned DCRNN at the same scale: the same two ranks build
+   ``PartitionedDiffusionOperators.from_graph(graph, 2)`` and run
+   ``DCRNNPartitionedSeq(2, K=2)`` on their node blocks of 64 windows
+   (T=12, node-leading, phase 19's initial parameters): forward and the
+   masked MAE's parameter gradients against single-device DCRNNSeq on the
+   segment path, the all-to-all bytes of one hop, of the forward and of
+   forward + backward equal to ``ici_bytes_per_step``, H against
+   ``nodes_per_part``; one aggregation through the 'gather' and 'scatter'
+   exchanges, forward and backward (gloo runs all-gather and reduce-scatter
+   on CUDA tensors in torch 2.11); then P=1 over NCCL in this process,
+   against the same reference.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
 without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
-its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15 and 16; the
+its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16 and 19
+(both ranks); the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -253,6 +278,24 @@ HETERO_TOLS = (1e-4, 1e-2)
 # phase 18: the harness protocol on Chickenpox, and where a run resumes
 HARNESS = dict(epochs=10, resume_at=5, nan_epoch=2)
 HARNESS_RESUME_TOL = 1e-6
+# phases 19 and 20: PGT-I's DDP recipe (pems_ddp.py: window indices split
+# over the ranks, gradients all-reduced) on phase 15's stand-in with the
+# global batch of 64, then the halo-partitioned DCRNN on the same graph and
+# 64 windows; two ranks time-share the one card over gloo with CUDA tensors
+# (NCCL refuses two ranks on one device), P=1 runs over NCCL
+DIST = dict(world=2, steps=3, timed_steps=5, profiled_steps=2)
+# phase 19 against the single-process step on the concatenated batch: the
+# same kernel at another width (F = 32·4 = 128 a rank, 256 whole) sums in
+# another order; loss 1e-5 relative; the all-reduced gradient within 1e-4
+# of each leaf's largest entry (a gradient scaled wrongly, by the world
+# size or unweighted means, is off by tens of percent); each parameter
+# after Adam's first step within 1e-5 of its largest entry (that step sees
+# only the gradient's signs: an entry whose sign flipped would move it by
+# twice the learning rate, 2e-3)
+DDP_TOLS = (1e-5, 1e-4, 1e-5)
+# phase 20 against single-device DCRNNSeq on the segment path: forward by
+# the largest output, each parameter gradient by its largest entry
+HALO_TOLS = (1e-4, 1e-3)
 
 
 def log(*a):
@@ -1968,6 +2011,15 @@ def pems_series(c):
     return out
 
 
+def pems_zscored(c):
+    """The stand-in series z-scored per feature, as data/pems.py does, and
+    its means and standard deviations."""
+    raw = pems_series(c)
+    means = np.mean(raw, axis=(0, 1))
+    stds = np.std(raw, axis=(0, 1))
+    return (raw - means) / stds, means, stds
+
+
 def pems_graph(c):
     """That script's banded sensor graph: ``deg`` edges a sensor to others
     within ±``offset``, weights U(0.3, 1)."""
@@ -2005,11 +2057,7 @@ def phase_index_pems(torch, kernel_report, smi):
     with counted_builds() as builds, \
             tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        raw = pems_series(c)
-        means = np.mean(raw, axis=(0, 1))
-        stds = np.std(raw, axis=(0, 1))
-        data = (raw - means) / stds             # as data/pems.py z-scores
-        del raw
+        data, means, stds = pems_zscored(c)
         path = os.path.join(tmp, "pems.npy")
         np.save(path, data)
         ei, w = pems_graph(c)
@@ -2534,6 +2582,447 @@ def phase_harness(torch, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def start_watchdog(deadline):
+    """End this process at ``deadline`` (time.time()): a hung collective
+    must not outlive the run."""
+    timer = threading.Timer(max(1.0, deadline - time.time()), lambda: (
+        print("chip_smoke: a rank is still running at the deadline",
+              file=sys.stderr, flush=True), os._exit(124)))
+    timer.daemon = True
+    timer.start()
+
+
+def dist_rank(rank, world, tmp, deadline):
+    """One rank of phases 19 and 20, spawned: joins a gloo group through a
+    file store, runs both phases' work on the card and writes what it
+    measured to ``tmp/rank<r>.json``.  A failed check raises here, and the
+    parent's spawn raises with it."""
+    import torch
+
+    start_watchdog(deadline)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pytorch_geometric_temporal_tpu_torch import parallel as par
+
+    par.initialize_multihost(f"file://{os.path.join(tmp, 'store')}", world,
+                             rank, backend="gloo", device="cuda")
+    t0 = time.perf_counter()
+    data, means, stds = pems_zscored(PEMS)
+    out = {"setup_s": time.perf_counter() - t0}
+    out["ddp"] = ddp_rank(torch, par, rank, world, data, means, stds)
+    out["halo"] = halo_rank(torch, par, rank, world, data, means, stds)
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def pems_parts(torch, means, stds):
+    """Phase 15's raw PeMS graph on the card, its scaler and the masked
+    MAE on de-normalized values with its entry count."""
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        ZScoreScaler, masked_mae_loss)
+
+    ei, w = pems_graph(PEMS)
+    g = Graph.from_edge_index(ei, w, num_nodes=PEMS["n"])
+    scaler = ZScoreScaler(mean=torch.tensor(means, device="cuda"),
+                          std=torch.tensor(stds, device="cuda"))
+
+    def loss(pred, y):
+        return masked_mae_loss(scaler.inverse(pred), scaler.inverse(y))
+
+    def count(y):
+        return (scaler.inverse(y) != 0).sum()
+
+    return g, loss, count
+
+
+def ddp_rank(torch, par, rank, world, data, means, stds):
+    """Phase 19 on one rank: ``IndexLoader(world_size, rank)`` batches
+    through ``make_dp_train_step``."""
+    import torch.distributed as dist
+
+    from pytorch_geometric_temporal_tpu_torch.data._common import (
+        make_index_loaders)
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+    from pytorch_geometric_temporal_tpu_torch.parallel import collectives
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        TrainState, apply_gradients)
+
+    c, d = PEMS, DIST
+    g, loss_of, count_of = pems_parts(torch, means, stds)
+    train, _, _ = make_index_loaders(data, c["lags"],
+                                     c["batch_size"] // world, shuffle=True,
+                                     world_size=world, rank=rank)
+    mesh = par.make_mesh({"dp": world})
+
+    def new_model():
+        return DCRNNSeq(c["f"], c["f"], c["K"],
+                        generator=torch.Generator().manual_seed(0))
+
+    model = par.replicate(new_model(), mesh)
+    state = TrainState.create(model, lambda ps: torch.optim.Adam(ps, 1e-3))
+    step = par.make_dp_train_step(
+        lambda m, x, y: loss_of(m(x, g), y), mesh,
+        weight_fn=lambda x, y: count_of(y))
+    batches = iter(train)
+    x, y = next(batches)
+    out = {"batches": len(train), "batch": list(x.shape)}
+
+    # rank 0: the single-process step on both ranks' batches, concatenated
+    xs, ys = ([torch.empty_like(t) for _ in range(world)] for t in (x, y))
+    dist.all_gather(xs, x)
+    dist.all_gather(ys, y)
+    if rank == 0:
+        ref = new_model()
+        ref.load_state_dict(model.state_dict())
+        ref_state = TrainState.create(ref,
+                                      lambda ps: torch.optim.Adam(ps, 1e-3))
+        loss_ref = loss_of(ref(torch.cat(xs), g), torch.cat(ys))
+        grads_ref = torch.autograd.grad(loss_ref, list(ref.parameters()))
+        apply_gradients(ref_state, grads_ref)
+    del xs, ys
+
+    # the path: three steps, launches counted; the first step's gradient
+    # is read where Adam is given it, after the all-reduce
+    seen = []
+    hook = state.opt_state.register_step_pre_hook(
+        lambda opt, args, kwargs: seen.extend(
+            p.grad.clone() for p in model.parameters()))
+    torch.cuda.synchronize()
+    bcsr.reset_launch_counts()
+    state, loss = step(state, x, y)
+    torch.cuda.synchronize()
+    hook.remove()
+    out["first_launches"] = launch_counts(bcsr)
+    losses = [float(loss)]
+    if rank == 0:
+        out["loss_ref"] = float(loss_ref.detach())
+        out["loss_err"] = abs(losses[0] - out["loss_ref"]) / abs(
+            out["loss_ref"])
+        errs = {name: rel_err(gr, gq)
+                for (name, _), gr, gq in zip(model.named_parameters(), seen,
+                                             grads_ref)}
+        out["grad_err"] = max(errs.values())
+        out["grad_worst"] = max(errs, key=errs.get)
+        errs = {name: rel_err(p.detach(), q.detach())
+                for (name, p), q in zip(model.named_parameters(),
+                                        ref.parameters())}
+        out["param_err"] = max(errs.values())
+        out["param_worst"] = max(errs, key=errs.get)
+    del seen
+    for _ in range(d["steps"] - 1):
+        x, y = next(batches)
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts(bcsr)
+    out["losses"] = losses
+    par.assert_same_across_hosts(model)     # raises if the ranks differ
+
+    # timing (host clock, synchronized): the steps as they run, then the
+    # step's two all-reduces (the entry count, the flat gradients and loss)
+    # alone on buffers of their sizes, then the device's busy time under
+    # the profiler
+    step_s, ar_s = [], []
+    par.reset_collective_bytes()
+    for _ in range(d["timed_steps"]):
+        x, y = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    out["all_reduce_bytes"] = (par.collective_bytes["all_reduce"]
+                               // d["timed_steps"])
+    groups = [mesh.get_group("dp")]
+    count = torch.ones(1, dtype=torch.float64, device="cuda")
+    flat = torch.ones(sum(p.numel() for p in model.parameters()) + 1,
+                      device="cuda")
+    for _ in range(d["timed_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.all_reduce_(count, groups)
+        collectives.all_reduce_(flat, groups)
+        torch.cuda.synchronize()
+        ar_s.append(time.perf_counter() - t0)
+    out["step_ms"] = [v * 1e3 for v in step_s]
+    out["all_reduce_ms"] = [v * 1e3 for v in ar_s]
+    out["all_reduce_share"] = (statistics.median(ar_s)
+                               / statistics.median(step_s))
+    agg, _ = device_time_by_kernel(torch, lambda: step(state, x, y),
+                                         d["profiled_steps"])
+    out["busy_ms"] = sum(us for us, _ in agg.values()) / d[
+        "profiled_steps"] / 1e3
+    out["kernel_ms"] = sum(us for name, (us, _) in agg.items()
+                           if "hybrid_spmm" in name) / d[
+                               "profiled_steps"] / 1e3
+    return out
+
+
+def halo_rank(torch, par, rank, world, data, means, stds):
+    """Phase 20 on one rank: DCRNNPartitionedSeq over the halo-partitioned
+    PeMS graph against single-device DCRNNSeq on the segment path (rank
+    0), the exchanges' bytes against ``ici_bytes_per_step``, and one
+    aggregation through the gather and the scatter exchange."""
+    import torch.distributed as dist
+
+    from pytorch_geometric_temporal_tpu_torch.ops import spmm_segment
+    from pytorch_geometric_temporal_tpu_torch.ops.operators import (
+        host_diffusion_norms)
+
+    c = PEMS
+    g, loss_of, count_of = pems_parts(torch, means, stds)
+    mesh = par.make_mesh({"graph": world})
+    out = partitioned_run(torch, par, mesh, g, data, loss_of, count_of)
+    hs, grads = out.pop("hs"), out.pop("grads")
+    blocks = [torch.empty_like(hs) for _ in range(world)]
+    dist.all_gather(blocks, hs)
+    if rank == 0:
+        out.update(compare_single(torch, g, data, loss_of,
+                                  torch.cat(blocks, dim=1), grads))
+    del blocks
+
+    # gather and scatter, one aggregation each at F=256 on P_fwd, forward
+    # and backward (gloo runs all-gather and reduce-scatter on CUDA tensors
+    # in torch 2.11; where it cannot, the collective raises)
+    p_fwd, _ = host_diffusion_norms(g)
+    z = torch.randn(c["n"], c["batch_size"] * 2 * c["f"], device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    want = spmm_segment(p_fwd, z)
+    npp = -(-c["n"] // world)
+    lo = mesh.get_local_rank("graph") * npp
+    want = want[lo:lo + npp]
+    out["exchanges"] = {}
+    for exchange, by in (("gather", "receiver"), ("scatter", "sender")):
+        pg = par.PartitionedGraph.from_graph(p_fwd, world, by=by)
+        zb = pg.shard_features(z, mesh).requires_grad_()
+        par.reset_collective_bytes()
+        got = par.spmm_partitioned(pg, zb, mesh, exchange=exchange)
+        sent = sum(par.collective_bytes.values())
+        got.square().sum().backward()
+        out["exchanges"][exchange] = {
+            "err": rel_err(got[:want.shape[0]].detach(), want),
+            "bytes": sent, "formula": pg.ici_bytes_per_step(z.shape[1]),
+            "bytes_all": sum(par.collective_bytes.values())}
+    return out
+
+
+def partitioned_run(torch, par, mesh, g, data, loss_of, count_of):
+    """DCRNNPartitionedSeq(2, K=2) on this rank's node block of the first
+    64 windows, (T, npp, 64, 2) node-leading, from the parameters of
+    phase 19's model: hs, the masked MAE's gradients summed over the axis,
+    the collective bytes and the formula's."""
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.signal import DeviceWindower
+    from pytorch_geometric_temporal_tpu_torch.parallel import collectives
+
+    c = PEMS
+    P = mesh["graph"].size()
+    group = mesh.get_group("graph")
+    t0 = time.perf_counter()
+    pops = par.PartitionedDiffusionOperators.from_graph(g, P)
+    out = {"build_s": time.perf_counter() - t0,
+           "halo": [pops.p_fwd.halo_size, pops.p_bwd.halo_size],
+           "npp": pops.p_fwd.nodes_per_part}
+    x, y = DeviceWindower(data, c["lags"])(np.arange(c["batch_size"]))
+    single = DCRNNSeq(c["f"], c["f"], c["K"],
+                      generator=torch.Generator().manual_seed(0))
+    model = par.DCRNNPartitionedSeq(c["f"], c["f"], c["K"])
+    model.load_state_dict(single.state_dict())
+    shard = lambda t: pops.p_fwd.shard_features(  # noqa: E731
+        t.permute(1, 2, 0, 3), mesh, node_axis=1)
+    xb, yb = shard(x), shard(y)
+    npp = pops.p_fwd.nodes_per_part
+    real = max(0, min(npp, c["n"] - mesh.get_local_rank("graph") * npp))
+    torch.cuda.synchronize()
+    par.reset_collective_bytes()
+    t0 = time.perf_counter()
+    hs = model(xb, pops, mesh)
+    out["fwd_bytes"] = sum(par.collective_bytes.values())
+    count = count_of(yb[:, :real]).double().reshape(1)
+    total = collectives.all_reduce_(count.clone(), [group])
+    loss = loss_of(hs[:, :real], yb[:, :real]) * float(count / total)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    out["fwd_bwd_s"] = time.perf_counter() - t0
+    out["all_bytes"] = (sum(par.collective_bytes.values())
+                        - par.collective_bytes["all_reduce"])
+    flat = torch.cat([gr.reshape(-1) for gr in grads]
+                     + [loss.detach().reshape(1)])
+    collectives.all_reduce_(flat, [group])
+    out["loss"] = float(flat[-1])
+    f_hop = c["batch_size"] * 2 * c["f"]
+    per = [p.ici_bytes_per_step(f_hop) for p in (pops.p_fwd, pops.p_bwd)]
+    # per step 2 bases x 2 directions x (K-1) hops at F = 64 x (2 + 2); no
+    # backward for t=0's first basis, whose input holds no parameter
+    out["fwd_formula"] = c["lags"] * 2 * (c["K"] - 1) * sum(per)
+    out["all_formula"] = 2 * out["fwd_formula"] - (c["K"] - 1) * sum(per)
+    par.reset_collective_bytes()
+    par.spmm_partitioned(pops.p_fwd, xb[0].new_zeros(npp, f_hop), mesh,
+                         exchange="halo")
+    out["one_hop"] = [sum(par.collective_bytes.values()), per[0]]
+    out["hs"] = hs.detach()
+    out["grads"] = {name: gr for (name, _), gr in zip(
+        model.named_parameters(), torch.split(flat[:-1], [
+            p.numel() for p in model.parameters()]))}
+    return out
+
+
+def compare_single(torch, g, data, loss_of, hs, grads):
+    """Single-device DCRNNSeq on the segment path over the same 64 windows
+    and parameters: the partitioned forward (its first N rows) and
+    parameter gradients against it."""
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.signal import DeviceWindower
+
+    c = PEMS
+    x, y = DeviceWindower(data, c["lags"])(np.arange(c["batch_size"]))
+    single = DCRNNSeq(c["f"], c["f"], c["K"],
+                      generator=torch.Generator().manual_seed(0))
+    with config_override(spmm_backend="segment"):
+        want = single(x, g)
+        loss = loss_of(want, y)
+        want_grads = torch.autograd.grad(loss, list(single.parameters()))
+    got = hs[:, :c["n"]].permute(2, 0, 1, 3)
+    errs = {name: rel_err(grads[name].reshape(w.shape), w)
+            for (name, _), w in zip(single.named_parameters(), want_grads)}
+    worst = max(errs, key=errs.get)
+    return {"fwd_err": rel_err(got, want.detach()), "grad_err": errs[worst],
+            "grad_worst": worst, "loss_ref": float(loss.detach())}
+
+
+def phase_ddp(torch, kernel_report, smi, deadline):
+    """Spawns the two ranks of phases 19 and 20 and reports phase 19."""
+    import tempfile
+
+    c, d = PEMS, DIST
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            dist_rank, args=(d["world"], tmp, deadline), nprocs=d["world"],
+            start_method="spawn")
+        secs = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(d["world"])]
+    per_step = expected_launches(c["lags"], c["K"], 1)
+    r0 = ranks[0]["ddp"]
+    log(f"  {d['world']} ranks spawned (gloo, CUDA tensors, one card) ran "
+        f"phases 19 and 20 in {secs:.1f} s (series and graph made in "
+        f"{max(r['setup_s'] for r in ranks):.1f} s a rank); each rank's "
+        f"IndexLoader(world_size={d['world']}, rank=r): {r0['batches']} "
+        f"batches of {r0['batch'][0]} an epoch, batch {r0['batch']}")
+    for r, rk in enumerate(ranks):
+        k = rk["ddp"]
+        log(f"  rank {r}: fused launches of the first step {k['first_launches']['H']}"
+            f" (expected {per_step}), of the {d['steps']} steps "
+            f"{k['launches']['H']} (expected {d['steps'] * per_step}); K1 "
+            f"{k['launches']['K1']}, K2 {k['launches']['K2']} (expected 0); "
+            f"global masked MAE {['%.6f' % v for v in k['losses']]}")
+        if (k["first_launches"] != {"H": per_step, "K1": 0, "K2": 0}
+                or k["launches"] != {"H": d["steps"] * per_step, "K1": 0,
+                                     "K2": 0}):
+            raise SystemExit("phase 19: launch counts differ")
+        kernel_report["H"]["launches"] += k["launches"]["H"]
+    if any(rk["ddp"]["losses"] != r0["losses"] for rk in ranks):
+        raise SystemExit("phase 19: the ranks' global losses differ")
+    log(f"  against the single-process step on the concatenated batch of "
+        f"{c['batch_size']}: loss {r0['losses'][0]:.7f} vs "
+        f"{r0['loss_ref']:.7f}, relative {r0['loss_err']:.3e} (tol "
+        f"{DDP_TOLS[0]}); the all-reduced gradient Adam is given up to "
+        f"{r0['grad_err']:.3e} of each leaf's largest entry at "
+        f"{r0['grad_worst']} (tol {DDP_TOLS[1]}); parameters after one Adam "
+        f"step up to {r0['param_err']:.3e} of their largest entry at "
+        f"{r0['param_worst']} (tol {DDP_TOLS[2]}); the ranks' parameters "
+        f"equal after {d['steps']} steps (assert_same_across_hosts)")
+    if not (r0["loss_err"] <= DDP_TOLS[0] and r0["grad_err"] <= DDP_TOLS[1]
+            and r0["param_err"] <= DDP_TOLS[2]):
+        raise SystemExit("phase 19: the data-parallel step differs from "
+                         "the single-process step")
+    for r, rk in enumerate(ranks):
+        k = rk["ddp"]
+        log(f"  rank {r}, two ranks time-sharing one card (no scaling "
+            f"measured): step median {statistics.median(k['step_ms']):.3f} ms"
+            f" (min {min(k['step_ms']):.3f}, max {max(k['step_ms']):.3f}; "
+            f"host clock, synchronized, {d['timed_steps']} steps); the "
+            f"step's two all-reduces timed alone (gloo through the host, "
+            f"{k['all_reduce_bytes']} bytes sent a step) median "
+            f"{statistics.median(k['all_reduce_ms']):.3f} ms (min "
+            f"{min(k['all_reduce_ms']):.3f}, max {max(k['all_reduce_ms']):.3f})"
+            f", {k['all_reduce_share']:.3f} of the median step; device busy "
+            f"{k['busy_ms']:.3f} ms a step, the fused kernel "
+            f"{k['kernel_ms']:.3f} ms of it (profiler, "
+            f"{d['profiled_steps']} steps) on {smi}")
+    return ranks
+
+
+def phase_halo(torch, ranks, smi):
+    """Reports phase 20's two ranks, then runs P=1 over NCCL here."""
+    c = PEMS
+    for r, rk in enumerate(ranks):
+        h = rk["halo"]
+        log(f"  P=2, rank {r}: halo H = {h['halo']} rows (P_fwd, P_bwd) "
+            f"against {h['npp']} nodes a part; partition built in "
+            f"{h['build_s']:.2f} s; forward + backward {h['fwd_bwd_s']:.3f} "
+            f"s (host clock); all-to-all bytes sent: one hop at F="
+            f"{c['batch_size'] * 2 * c['f']} {h['one_hop'][0]} (formula "
+            f"{h['one_hop'][1]}), the forward {h['fwd_bytes']} (formula "
+            f"{h['fwd_formula']}), forward + backward {h['all_bytes']} "
+            f"(formula {h['all_formula']})")
+        if not (h["one_hop"][0] == h["one_hop"][1] > 0
+                and h["fwd_bytes"] == h["fwd_formula"]
+                and h["all_bytes"] == h["all_formula"]):
+            raise SystemExit("phase 20: collective bytes differ from "
+                             "ici_bytes_per_step")
+    check_halo("P=2 (gloo)", ranks[0]["halo"])
+    for r, rk in enumerate(ranks):
+        for exchange, e in rk["halo"]["exchanges"].items():
+            log(f"  rank {r}: '{exchange}' exchange, one aggregation at F="
+                f"{c['batch_size'] * 2 * c['f']}: {e['err']:.3e} of the "
+                f"segment path's largest output (tol {HALO_TOLS[0]}); bytes "
+                f"sent {e['bytes']} forward (formula {e['formula']}), "
+                f"{e['bytes_all']} with the backward (twice the formula)")
+            if not (e["err"] <= HALO_TOLS[0] and e["bytes"] == e["formula"]
+                    and e["bytes_all"] == 2 * e["formula"]):
+                raise SystemExit(f"phase 20: the {exchange} exchange differs")
+
+    # P=1 over NCCL, here: the group of one make_mesh makes
+    import torch.distributed as dist
+
+    from pytorch_geometric_temporal_tpu_torch import parallel as par
+
+    data, means, stds = pems_zscored(c)
+    g, loss_of, count_of = pems_parts(torch, means, stds)
+    mesh = par.make_mesh({"graph": 1})
+    try:
+        backend = dist.get_backend()
+        out = partitioned_run(torch, par, mesh, g, data, loss_of, count_of)
+        out.update(compare_single(torch, g, data, loss_of, out.pop("hs"),
+                                  out.pop("grads")))
+    finally:
+        dist.destroy_process_group()
+    log(f"  P=1 over {backend}: forward + backward {out['fwd_bwd_s']:.3f} s;"
+        f" bytes sent {out['all_bytes']} (formula {out['all_formula']})")
+    if backend != "nccl" or out["all_bytes"] != 0 or out["all_formula"]:
+        raise SystemExit("phase 20: P=1 did not run over NCCL")
+    check_halo("P=1 (NCCL)", out)
+
+
+def check_halo(label, h):
+    log(f"  {label} against single-device DCRNNSeq on the segment path: "
+        f"loss {h['loss']:.7f} vs {h['loss_ref']:.7f}; forward "
+        f"{h['fwd_err']:.3e} of the largest output (tol {HALO_TOLS[0]}), "
+        f"parameter gradients up to {h['grad_err']:.3e} of their largest "
+        f"entry at {h['grad_worst']} (tol {HALO_TOLS[1]})")
+    if not (h["fwd_err"] <= HALO_TOLS[0] and h["grad_err"] <= HALO_TOLS[1]
+            and abs(h["loss"] - h["loss_ref"]) <= HALO_TOLS[0] * abs(
+                h["loss_ref"])):
+        raise SystemExit(f"phase 20, {label}: the partitioned DCRNN differs "
+                         f"from the single-device one")
+
+
 def main() -> int:
     import torch
 
@@ -2546,6 +3035,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    t_start_wall = time.time()
     watchdog = threading.Timer(WATCHDOG_S, lambda: (
         print(f"chip_smoke: still running after {WATCHDOG_S} s, giving up",
               file=sys.stderr, flush=True), os._exit(124)))
@@ -2592,6 +3082,12 @@ def main() -> int:
     phase_hetero(torch, report, smi)
     log("== phase 18: the training harness on Chickenpox")
     phase_harness(torch, smi)
+    log("== phase 19: PGT-I's DDP recipe at PeMS scale, two ranks on the "
+        "card (the same ranks then run phase 20 at P=2)")
+    ranks = phase_ddp(torch, report, smi, t_start_wall + WATCHDOG_S - 10)
+    log("== phase 20: halo-partitioned DCRNN at PeMS scale, P=2 over gloo "
+        "and P=1 over NCCL")
+    phase_halo(torch, ranks, smi)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"

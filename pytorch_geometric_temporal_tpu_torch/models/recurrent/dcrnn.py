@@ -155,16 +155,23 @@ class DCRNN(FlaxModule):
 
     def forward(self, x: torch.Tensor, graph,
                 h: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.update(
+            x, h, lambda z: _basis(graph, z, self.K, self.compat))
+
+    def update(self, x: torch.Tensor, h: Optional[torch.Tensor],
+               basis) -> torch.Tensor:
+        """The GRU update, with ``basis(z)`` the stacked diffusion basis of
+        ``z`` on the feature axis (the node-partitioned cell passes its own,
+        ``parallel/partitioned_dcrnn.py``)."""
         C = self.out_channels
         if h is None:
             h = x.new_zeros(x.shape[:-1] + (C,))
-        b_xh = _basis(graph, torch.cat([x, h], dim=-1), self.K, self.compat)
+        b_xh = basis(torch.cat([x, h], dim=-1))
         zr = (b_xh @ self.w_zr.to(b_xh.dtype)).to(x.dtype)
         if self.b_zr is not None:
             zr = zr + self.b_zr.to(x.dtype)
         z, r = torch.split(torch.sigmoid(zr), C, dim=-1)
-        b_xhr = _basis(graph, torch.cat([x, h * r], dim=-1), self.K,
-                       self.compat)
+        b_xhr = basis(torch.cat([x, h * r], dim=-1))
         ht = (b_xhr @ self.w_h.to(b_xhr.dtype)).to(x.dtype)
         if self.b_h is not None:
             ht = ht + self.b_h.to(x.dtype)

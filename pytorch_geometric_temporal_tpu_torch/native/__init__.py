@@ -2,7 +2,8 @@
 
 The port's own copy of the JAX package's native layer: the block-sparse
 structure pass, the tile fill and the bandwidth-reduction ordering that
-``ops/bcsr.py`` runs on the host.  The library is compiled with g++ on first
+``ops/bcsr.py`` runs on the host, the counting-sort CSR build, and the edge
+grouping by node part that ``parallel/partition.py`` runs.  The library is compiled with g++ on first
 use into ``build/native/`` beside this package (listed in ``.gitignore``),
 under a file name that carries a hash of the source.  It is written to a
 temporary file first and moved into place with ``os.replace``, so processes
@@ -72,6 +73,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
+    lib.csr_from_coo.argtypes = [
+        i32p, ctypes.c_int64, ctypes.c_int32, i64p, i64p,
+    ]
+    lib.csr_from_coo.restype = None
     lib.bcsr_structure.argtypes = [
         i32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         i64p, i64p, i32p, i32p,
@@ -88,8 +93,29 @@ def get_lib() -> Optional[ctypes.CDLL]:
         i32p, i32p, ctypes.c_int64, ctypes.c_int32, i32p,
     ]
     lib.edge_triangle_support.restype = None
+    lib.partition_edges.argtypes = [
+        i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, i64p, i64p,
+    ]
+    lib.partition_edges.restype = None
     _LIB = lib
     return _LIB
+
+
+def csr_from_coo(receivers, num_nodes: int):
+    """(indptr, order): counting-sort CSR over receivers; ``order`` sorts
+    the edges by receiver, stable."""
+    receivers = np.ascontiguousarray(receivers, np.int32)
+    e = len(receivers)
+    lib = get_lib()
+    if lib is not None:
+        indptr = np.zeros(num_nodes + 1, np.int64)
+        order = np.zeros(e, np.int64)
+        lib.csr_from_coo(receivers, e, num_nodes, indptr, order)
+        return indptr, order
+    order = np.argsort(receivers, kind="stable").astype(np.int64)
+    indptr = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(receivers, minlength=num_nodes), out=indptr[1:])
+    return indptr, order
 
 
 def bcsr_structure(senders, receivers, block: int, grid_cols: int):
@@ -250,3 +276,22 @@ def bandwidth_reduction_order(senders, receivers, num_nodes: int,
     if keep.mean() < 0.5:  # unclustered graph: the signal is meaningless
         return rcm_order(senders, receivers, num_nodes)
     return rcm_order(senders[keep], receivers[keep], num_nodes)
+
+
+def partition_edges(receivers, nodes_per_part: int, num_parts: int):
+    """(counts, order): edges grouped by the part of ``receivers``
+    (``receivers // nodes_per_part``), stable within a part.  Pass the
+    senders to group by sender part."""
+    receivers = np.ascontiguousarray(receivers, np.int32)
+    e = len(receivers)
+    lib = get_lib()
+    if lib is not None:
+        counts = np.zeros(num_parts, np.int64)
+        order = np.zeros(e, np.int64)
+        lib.partition_edges(receivers, e, nodes_per_part, num_parts, counts,
+                            order)
+        return counts, order
+    part = receivers // nodes_per_part
+    counts = np.bincount(part, minlength=num_parts).astype(np.int64)
+    order = np.argsort(part, kind="stable").astype(np.int64)
+    return counts, order

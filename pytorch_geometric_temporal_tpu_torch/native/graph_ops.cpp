@@ -4,7 +4,8 @@
 // One-pass O(E) block-sparse structure and tile fill, and the bandwidth-
 // reduction ordering (RCM + triangle-support shortcut filter) that the BCSR
 // construction in ops/bcsr.py runs on the host before the operator goes to the
-// card.  The algorithms, and so the outputs, are those of the JAX package's
+// card; the counting-sort CSR build and the edge grouping by node part that
+// parallel/partition.py runs before a graph is split across ranks.  The algorithms, and so the outputs, are those of the JAX package's
 // native/graph_ops.cpp: tiles come out in sorted (row_block, col_block)
 // order, which makes construction parity between the two packages exact.
 //
@@ -16,6 +17,21 @@
 #include <vector>
 
 extern "C" {
+
+// Counting-sort edges by receiver, producing CSR over receivers.
+//   indptr:  (num_nodes + 1) out
+//   order:   (num_edges) out — permutation such that receivers[order] is
+//            sorted ascending (stable).
+void csr_from_coo(const int32_t* receivers, int64_t num_edges,
+                  int32_t num_nodes, int64_t* indptr, int64_t* order) {
+  std::memset(indptr, 0, sizeof(int64_t) * (num_nodes + 1));
+  for (int64_t e = 0; e < num_edges; ++e) indptr[receivers[e] + 1]++;
+  for (int32_t n = 0; n < num_nodes; ++n) indptr[n + 1] += indptr[n];
+  std::vector<int64_t> cursor(indptr, indptr + num_nodes);
+  for (int64_t e = 0; e < num_edges; ++e) {
+    order[cursor[receivers[e]]++] = e;
+  }
+}
 
 // Block-sparse structure: assign every edge to a (row_block, col_block)
 // tile, counting-sort edges by tile, and emit the unique tile list.
@@ -178,6 +194,21 @@ void edge_triangle_support(const int32_t* senders, const int32_t* receivers,
     }
     support[e] = c;
   }
+}
+
+// Group edges by the part of their key node (node block key / nodes_per_part):
+// counts per part and an edge order, stable within a part.
+void partition_edges(const int32_t* receivers, int64_t num_edges,
+                     int32_t nodes_per_part, int32_t num_parts,
+                     int64_t* counts, int64_t* order) {
+  std::memset(counts, 0, sizeof(int64_t) * num_parts);
+  for (int64_t e = 0; e < num_edges; ++e)
+    counts[receivers[e] / nodes_per_part]++;
+  std::vector<int64_t> start(num_parts + 1, 0);
+  for (int32_t p = 0; p < num_parts; ++p) start[p + 1] = start[p] + counts[p];
+  std::vector<int64_t> cursor(start.begin(), start.end() - 1);
+  for (int64_t e = 0; e < num_edges; ++e)
+    order[cursor[receivers[e] / nodes_per_part]++] = e;
 }
 
 }  // extern "C"

@@ -692,3 +692,80 @@ def test_device_memory_stats_on_the_card(cuda):
     assert device_memory_stats("cpu") == {}
     per = device_time_per_iter(lambda a: a * 0.5 + 1.0, keep, iters=200)
     assert 0 < per < 1e-3
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    """Two gloo ranks on the one card (``tests/_torch_parallel_ranks.py``
+    with DEVICE=cuda): a data-parallel step of DCRNNSeq over a raw graph
+    above the dense threshold, and a halo aggregation.  The kernels are
+    built here first, so the ranks load the built library."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from pytorch_geometric_temporal_tpu_torch import csrc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    csrc.load()
+    tmp = tmp_path_factory.mktemp("card_ranks")
+    rng = np.random.default_rng(21)
+    arr = {}
+    for name, n, e in (("gdp", 5000, 30_000), ("gd", 3001, 20_000)):
+        ei, w = banded(n, e, seed=n, band=8)
+        arr.update({f"{name}/ei": ei, f"{name}/w": w,
+                    f"{name}/n": np.int64(n)})
+    arr["dp/x"] = rng.normal(size=(4, 3, 5000, 2)).astype(np.float32)
+    y = rng.normal(size=(4, 3, 5000, 2)).astype(np.float32)
+    y[:2][rng.uniform(size=y[:2].shape) < 0.5] = 0.0   # rank 0's shard
+    arr["dp/y_masked"] = y
+    arr["x3"] = rng.normal(size=(3001, 3, 4)).astype(np.float32)
+    model = DCRNNSeq(2, 2, 2, device="cpu",
+                     generator=torch.Generator().manual_seed(3))
+    for name, p in model.named_parameters():
+        arr[f"tree_dp/params/{name.replace('.', '/')}"] = (
+            p.detach().numpy() + 0.05)
+    np.savez(tmp / "inputs.npz", **arr)
+    repo = Path(__file__).parent.parent
+    subprocess.run([sys.executable, str(Path(__file__).parent
+                                        / "_torch_parallel_ranks.py"),
+                    str(tmp / "inputs.npz"), str(tmp), "2", "cuda"],
+                   cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+                   check=True, timeout=600)
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_dp_step_of_two_ranks_on_the_card(cuda, card_ranks):
+    """Two ranks over gloo with CUDA tensors, masked MAE with rank 0's
+    targets half zeros: the step's loss, the all-reduced gradient Adam is
+    given (within 1e-4 of each leaf's largest entry: Adam's first update
+    sees only the gradient's signs) and the Adam update equal the
+    single-process step on the whole batch; 2·(2·2T(K−1) − (K−1)) fused
+    launches a rank (T=3, K=2)."""
+    for res in card_ranks:
+        assert list(res["modules"]) == [""]
+        assert int(res["dp/launches"]) == 22
+        np.testing.assert_allclose(float(res["dp/loss"]),
+                                   float(res["dp/loss_ref"]), rtol=1e-5)
+        names = [k.split("/", 2)[2] for k in res if k.startswith("dp/ref/")]
+        assert names
+        for name in names:
+            want = res[f"dp/ref_grad/{name}"]
+            np.testing.assert_allclose(
+                res[f"dp/grad/{name}"], want, rtol=0,
+                atol=1e-4 * float(np.abs(want).max()), err_msg=name)
+            np.testing.assert_allclose(res[f"dp/param/{name}"],
+                                       res[f"dp/ref/{name}"], rtol=0,
+                                       atol=1e-5, err_msg=name)
+
+
+def test_halo_aggregation_of_two_ranks_on_the_card(cuda, card_ranks):
+    """Each rank's block of the halo exchange against the segment path on
+    the whole graph; the bytes sent equal ``ici_bytes_per_step``."""
+    for res in card_ranks:
+        want = res["halo/want"]
+        np.testing.assert_allclose(res["halo/out"], want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()))
+        assert int(res["halo/bytes"]) == int(res["halo/formula"]) > 0

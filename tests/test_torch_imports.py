@@ -53,6 +53,23 @@ metrla_protocol.run(epochs=1, batch_size=8, t_len=60, n=12, device="cpu")
 from pytorch_geometric_temporal_tpu_torch.protocols import harness, hetero
 harness.main(epochs=2, device="cpu", nan_epochs={1}, log=lambda *a: None)
 hetero.main(epochs=1, device="cpu", log=lambda *a: None)
+# the top-level star exports, the reference-layout aliases, and the
+# parallel package on a group of one, as a spawned rank runs it
+from pytorch_geometric_temporal_tpu_torch import *
+from pytorch_geometric_temporal_tpu_torch import dataset, nn, parallel
+sys.path.insert(0, "tests")
+import _torch_parallel_ranks
+import numpy as np, torch
+mesh = parallel.make_mesh({"graph": -1}, device="cpu")
+g = Graph.from_edge_index(np.array([[0, 1, 2], [1, 2, 0]]), device="cpu")
+pops = parallel.PartitionedDiffusionOperators.from_graph(g, 1)
+seq = parallel.DCRNNPartitionedSeq(2, 3, 2, device="cpu")
+xs = pops.p_fwd.shard_features(torch.ones(2, 3, 1, 2), mesh, node_axis=1)
+state = train.TrainState.create(seq, lambda ps: torch.optim.SGD(ps, lr=0.1))
+step = parallel.make_dp_train_step(
+    lambda m, x, y: train.mse(m(x, pops, mesh), y), mesh, "graph")
+step(state, xs, torch.zeros(2, 3, 1, 3))
+parallel.assert_same_across_hosts(seq)
 print(json.dumps({"modules": sorted(sys.modules), "walked": names,
                   "bundled": str(_io._BUNDLED), "opened": opened}))
 """
@@ -94,7 +111,11 @@ def test_port_imports_no_jax(tmp_path):
                 "models.hetero.heterogclstm", "signal.heterogeneous",
                 "train.state", "train.checkpoint", "train.guards",
                 "train.precision", "utils", "utils.profiling",
-                "protocols.harness", "protocols.hetero"):
+                "protocols.harness", "protocols.hetero", "parallel",
+                "parallel.collectives", "parallel.mesh", "parallel.multihost",
+                "parallel.data_parallel", "parallel.partition",
+                "parallel.partitioned_dcrnn", "nn", "nn.recurrent",
+                "nn.attention", "nn.hetero", "dataset"):
         assert f"pytorch_geometric_temporal_tpu_torch.{sub}" in info["walked"]
     pkg = REPO / "pytorch_geometric_temporal_tpu_torch"
     # no file inside the JAX package was opened, the port's bundle was
@@ -334,3 +355,35 @@ def test_hetero_and_harness_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         signal.StackedHeteroSignal.from_signal(sig, device="cuda")
     assert signal.StackedHeteroSignal.from_signal(sig).snapshot_count == 2
+
+
+def test_parallel_entry_points_raise_without_cuda(no_cuda):
+    """A mesh, the data-parallel step, a node block and the partitioned
+    models build on CUDA unless given the CPU (a mesh carries its device
+    type); the CPU side runs on a group of one in the audit probe above and
+    on four gloo ranks in ``tests/test_torch_parallel.py``."""
+    from types import SimpleNamespace
+
+    from pytorch_geometric_temporal_tpu_torch import parallel
+
+    cuda_mesh = SimpleNamespace(device_type="cuda")
+    g = Graph.from_edge_index(np.array([[0, 1, 2], [1, 2, 0]]), device="cpu")
+    pg = parallel.PartitionedGraph.from_graph(g, 1, by="halo")
+    pops = parallel.PartitionedDiffusionOperators.from_graph(g, 1)
+    for build in (lambda: parallel.make_mesh({"dp": 1}),
+                  lambda: parallel.make_dp_train_step(
+                      lambda m, x, y: x.sum(), cuda_mesh),
+                  lambda: pg.shard_features(np.ones((3, 2)), cuda_mesh),
+                  lambda: pops.shard_features(np.ones((3, 1, 2)), cuda_mesh),
+                  lambda: parallel.replicate({"a": np.ones(2)}, cuda_mesh),
+                  lambda: parallel.shard_batch(np.ones(2), cuda_mesh),
+                  lambda: parallel.initialize_multihost("localhost:1", 2, 0),
+                  lambda: parallel.DCRNNPartitioned(2, 4, 2),
+                  lambda: parallel.DCRNNPartitionedSeq(2, 4, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert not torch.distributed.is_initialized()
+    for build in (lambda: parallel.DCRNNPartitioned(2, 4, 2, device="cpu"),
+                  lambda: parallel.DCRNNPartitionedSeq(2, 4, 2,
+                                                       device="cpu")):
+        assert build() is not None
