@@ -153,14 +153,36 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    ``nodes_per_part``; one aggregation through the 'gather' and 'scatter'
    exchanges, forward and backward (gloo runs all-gather and reduce-scatter
    on CUDA tensors in torch 2.11); then P=1 over NCCL in this process,
-   against the same reference.
+   against the same reference;
+21. phase 15's recipe on the same stand-in with its sensor ids scrambled
+   by one seeded permutation σ (edges (σ[s], σ[r]), series columns moved
+   with σ), the raw ``Graph`` handed to ``spmm``'s auto route with
+   ``spmm_reorder="auto"``: exactly 2 operator builds, both keeping the
+   RCM order; the first batch's outputs and gradients against the segment
+   path and against phase 15's unscrambled run un-permuted by σ; 94 / 48
+   fused launches a train / eval batch; two epochs, falling; then four
+   variants at the same parameters on the same batch — reordered (auto),
+   as the ids come (off), ``reorder_graph`` once with no gathers a hop,
+   and the unscrambled graph — each with its device busy time a train step,
+   the fused kernel's and the permutation gathers' forward and backward
+   time, the host step and the kernel cold at F=256; and
+   ``_reorder_costs``' two costs (TPU v5e constants) beside the
+   measured hop and step;
+22. ``bench.py:bench_reorder_recovery``'s draw (N=20,000, 40 edges a node
+   within ±96 under scrambled ids, bf16 tiles, ``min_block_edges="auto"``):
+   the operator as the ids come and reordered, the kernels against their
+   plain versions on every half at F=64, one ``bcsr_spmm`` each against
+   ``spmm_segment``, the fused kernel cold on both (the ratio beside the
+   JAX package's TPU v5e record) and the gathers; then AVWGCN(topk=8) at
+   N=20,000 forward and backward on the card, its kept columns and outputs
+   against the same module on the CPU.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
 without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
-its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16 and 19
-(both ranks); the
+its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16, 19
+(both ranks), 21 and 22; the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -168,6 +190,7 @@ the f32 feature-tile sweep, stand on the lines before the total.
 import contextlib
 import ctypes
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -296,6 +319,25 @@ DDP_TOLS = (1e-5, 1e-4, 1e-5)
 # phase 20 against single-device DCRNNSeq on the segment path: forward by
 # the largest output, each parameter gradient by its largest entry
 HALO_TOLS = (1e-4, 1e-3)
+# phase 21: phase 15's stand-in with its sensor ids scrambled by one seeded
+# permutation σ (real sensor graphs come with arbitrary ids: PeMS station
+# ids, METR-LA's sensor list), trained two epochs where phase 15 trains
+# three; the four operator variants are each timed over that many steps
+PEMS_SCRAMBLE_SEED = 3
+SCRAMBLED = dict(epochs=2, timed_steps=10)
+# the host ops of bcsr_spmm's permutation gathers, forward and backward
+# (ops/bcsr.py: _Permute), whose kernels the profiler attributes to them
+PERMUTE_OPS = ("_Permute", "_PermuteBackward")
+FUSED_KERNEL = re.compile(r"hybrid_spmm_kernel")
+# phase 22: bench.py:bench_reorder_recovery's draw, and the JAX package's
+# record of its kernel-time ratio (plain over reordered) on a TPU v5e
+# (BENCH_r05.json, bcsr_reorder_speedup_scrambled)
+RECOVERY = dict(n=20_000, deg=40, band=96, f=64, seed=2)
+RECOVERY_RECORD_TPU_V5E = 18.9
+# AVWGCN's sparse top-k at tests/test_learned_adjacency_large_n.py's size;
+# the card against the CPU by the CPU output's largest entry
+AVW = dict(n=20_000, f=3, d=4, out=4, K=2, topk=8, seed=2)
+AVW_TOL = 1e-4
 
 
 def log(*a):
@@ -567,14 +609,31 @@ def bound_of(n_bytes, ops_by_type):
                                        else "operations")
 
 
+def need_bound(torch, rows, cols, num_rows, f, s_val, s_x, dt):
+    """The bound of ``out = A @ x`` from what the function needs, whatever
+    the stored format: each nonzero once (its value in the operator's type
+    and a 4 B column), the row pointers, the x rows some nonzero references,
+    the f32 output written once; 2 operations a nonzero and feature at the
+    operator's type.  Returns (bound, what binds, bytes, operations)."""
+    nnz = int(rows.numel())
+    x_rows = int(torch.unique(cols).numel()) if nnz else 0
+    n_bytes = (nnz * (s_val + 4) + (num_rows + 1) * 4 + x_rows * f * s_x
+               + num_rows * f * 4)
+    ops = 2 * nnz * f
+    bound, by = bound_of(n_bytes, {dt: ops})
+    return bound, by, n_bytes, ops
+
+
 def fused_report(torch, half, x):
     """The fused kernel on (half, x): error against its plain version, cold
     time, the plain version's and ``torch.sparse.mm``'s over the whole half
-    as one CSR in the tiles' type, and the bound.  The bound counts each
-    input once — the tiles and their pointers, the x rows of the
-    referenced column blocks and of the remainder columns (a union), 8 B
-    per remainder edge (column, value) and the row pointers — and the f32
-    output written once."""
+    as one CSR in the tiles' type, and two bounds.  ``bound_ms`` is the
+    function's (:func:`need_bound` over the tiles' nonzeros and the
+    remainder edges).  ``tile_bound_ms`` is that of the stored format: the
+    tiles and their pointers, the x rows of the referenced column blocks and
+    of the remainder columns (a union), 8 B per remainder edge, the row
+    pointers and the f32 output once; the tile products at the tiles' type,
+    the remainder's at f32."""
     from pytorch_geometric_temporal_tpu_torch.ops import bcsr
 
     f = x.shape[1]
@@ -584,18 +643,19 @@ def fused_report(torch, half, x):
     x_used = torch.zeros(half.num_cols, dtype=torch.bool, device="cuda")
     x_used.view(nb, 128)[half.block_cols.long()] = True
     x_used[half.rem_row_cols.long()] = True
-    x_rows = int(x_used.sum())
-    n_bytes = (half.nnzb * 128 * 128 * s_t + (nb + 1 + half.nnzb) * 4
-               + x_rows * f * s_x + half.num_rem * 8
-               + (half.num_rows + 1) * 4 + half.num_rows * f * 4)
-    # tile products at the tiles' type, the remainder's on the CUDA cores
-    ops = {dt: 2 * half.nnzb * 128 * 128 * f}
-    ops["f32"] = ops.get("f32", 0) + 2 * half.num_rem * f
-    bound, by = bound_of(n_bytes, ops)
+    tile_bytes = (half.nnzb * 128 * 128 * s_t + (nb + 1 + half.nnzb) * 4
+                  + int(x_used.sum()) * f * s_x + half.num_rem * 8
+                  + (half.num_rows + 1) * 4 + half.num_rows * f * 4)
+    tile_ops = {dt: 2 * half.nnzb * 128 * 128 * f}
+    tile_ops["f32"] = tile_ops.get("f32", 0) + 2 * half.num_rem * f
+    tile_bound, tile_by = bound_of(tile_bytes, tile_ops)
     rows, cols, vals = tile_operator_coo(torch, half)
+    all_rows = torch.cat([rows, half.rem_rows])
+    all_cols = torch.cat([cols, half.rem_cols.long()])
+    bound, by, n_bytes, ops = need_bound(torch, all_rows, all_cols,
+                                         half.num_rows, f, s_t, s_x, dt)
     whole_csr = _csr_of(
-        torch, torch.cat([rows, half.rem_rows]),
-        torch.cat([cols, half.rem_cols.long()]),
+        torch, all_rows, all_cols,
         torch.cat([vals, half.rem_vals.to(half.blocks.dtype)]),
         (half.num_rows, half.num_cols))
     got = bcsr.hybrid_spmm(half, x)
@@ -609,16 +669,24 @@ def fused_report(torch, half, x):
         "plain_ms": cold_ms(torch,
                             lambda: bcsr.hybrid_spmm_plain(half, x)),
         "library_ms": cold_ms(torch, lambda: torch.sparse.mm(whole_csr, x)),
-        "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
-        "ops": sum(ops.values()), "x_rows": x_rows, "max_abs_err": err,
-        "dtype": dt,
+        "bound_ms": bound, "bound_by": by, "bytes": n_bytes, "ops": ops,
+        "nnz": int(all_rows.numel()),
+        "tile_bound_ms": tile_bound, "tile_bound_by": tile_by,
+        "tile_bytes": tile_bytes, "tile_ops": sum(tile_ops.values()),
+        "max_abs_err": err, "dtype": dt,
     }
 
 
 def log_kernel(name, k):
+    tile = ""
+    if "tile_bound_ms" in k:
+        tile = (f"; the stored tiles' bound {k['tile_bound_ms']:.4f} ms "
+                f"({k['tile_bound_by']}, {k['tile_bytes']} B, "
+                f"{k['tile_ops']} flop; share "
+                f"{k['tile_bound_ms'] / k['ms']:.3f})")
     log(f"  {name}: {k['ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
         f"({k['bound_by']}, {k['bytes']} B, {k['ops']} flop; share "
-        f"{k['bound_ms'] / k['ms']:.3f})  plain {k['plain_ms']:.4f} ms  "
+        f"{k['bound_ms'] / k['ms']:.3f}){tile}  plain {k['plain_ms']:.4f} ms  "
         f"torch.sparse.mm ({k['dtype']} CSR) {k['library_ms']:.4f} ms")
 
 
@@ -664,13 +732,17 @@ def phase_slice_kernels(torch, ops, f):
     nb = half.num_rows // 128
     shape = (half.num_rows, half.num_cols)
 
-    # K1: tiles, the x column blocks they reference, the f32 output
-    ucols = int(torch.unique(half.block_cols).numel())
-    k1_bytes = (half.nnzb * 128 * 128 * s_t + ucols * 128 * f * s_x
-                + half.num_rows * f * 4 + (nb + 1 + half.nnzb) * 4)
-    k1_ops = 2 * half.nnzb * 128 * 128 * f
-    k1_bound, k1_by = bound_of(k1_bytes, {dt: k1_ops})
+    # K1: its function over the tiles' nonzeros (need_bound); the stored
+    # format's bound second: the tiles, the x column blocks they reference,
+    # the f32 output
     rows, cols, vals = tile_operator_coo(torch, half)
+    k1_bound, k1_by, k1_bytes, k1_ops = need_bound(
+        torch, rows, cols, half.num_rows, f, s_t, s_x, dt)
+    ucols = int(torch.unique(half.block_cols).numel())
+    k1_tile_bytes = (half.nnzb * 128 * 128 * s_t + ucols * 128 * f * s_x
+                     + half.num_rows * f * 4 + (nb + 1 + half.nnzb) * 4)
+    k1_tile_ops = 2 * half.nnzb * 128 * 128 * f
+    k1_tile_bound, k1_tile_by = bound_of(k1_tile_bytes, {dt: k1_tile_ops})
     tiles_csr = _csr_of(torch, rows, cols, vals, shape)
     k1 = {
         "ms": cold_ms(torch, lambda: bcsr.tile_spmm(half, x)),
@@ -679,6 +751,8 @@ def phase_slice_kernels(torch, ops, f):
                               lambda: torch.sparse.mm(tiles_csr, x)),
         "bound_ms": k1_bound, "bound_by": k1_by,
         "bytes": k1_bytes, "ops": k1_ops,
+        "tile_bound_ms": k1_tile_bound, "tile_bound_by": k1_tile_by,
+        "tile_bytes": k1_tile_bytes, "tile_ops": k1_tile_ops,
     }
 
     # K2: what the function needs: each remainder edge's column, value and
@@ -714,7 +788,7 @@ def phase_slice_kernels(torch, ops, f):
                     ("K2 rem_scatter_", k2)):
         k["dtype"] = dt
         log_kernel(name, k)
-    log(f"  fused counts {h['x_rows']} x rows; K1 then K2 as a pair "
+    log(f"  fused counts {h['nnz']} nonzeros; K1 then K2 as a pair "
         f"{pair_ms:.4f} ms (sum of singles {k1['ms'] + k2['ms']:.4f}); "
         f"fused / pair {h['ms'] / pair_ms:.3f}; fused / torch.sparse.mm "
         f"over the whole half {h['ms'] / h['library_ms']:.3f}")
@@ -825,9 +899,11 @@ def phase_slice(torch, kernel_report):
                                   busy_ms=busy, step_ms=med * 1e3)
 
 
-def device_time_by_kernel(torch, fn, n):
+def device_time_by_kernel(torch, fn, n, op_totals=None):
     """({kernel name: (device us, count)}, wall us) over ``n`` calls of
-    ``fn`` under torch.profiler: device-side kernels and copies only."""
+    ``fn`` under torch.profiler: device-side kernels and copies only.
+    ``op_totals`` ({host op name: 0.0}) receives the device us of the
+    kernels each named host op launched, its children's included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -841,6 +917,8 @@ def device_time_by_kernel(torch, fn, n):
         wall_us = (time.perf_counter() - t0) * 1e6
     agg = {}
     for ev in prof.events():
+        if op_totals is not None and ev.name in op_totals:
+            op_totals[ev.name] += ev.device_time_total
         # GPU user annotations (the optimizer's range) overlap the kernels
         # and are left out
         if (ev.device_type == DeviceType.CUDA
@@ -851,12 +929,17 @@ def device_time_by_kernel(torch, fn, n):
     return agg, wall_us
 
 
-def profile_steps(torch, step, step_ms, n=2, top=12, unit="step"):
+def profile_steps(torch, step, step_ms, n=2, top=12, unit="step",
+                  agg_out=None, op_totals=None):
     """Device time by kernel over ``n`` training steps, and the device's
     busy share of the unprofiled median step ``step_ms`` (one stream, so
     kernel times do not overlap).  Returns the busy ms per step, None if
-    no device time was recorded."""
-    agg, wall_us = device_time_by_kernel(torch, step, n)
+    no device time was recorded; ``agg_out`` (a dict) receives the device
+    time by kernel, {name: (us over the n steps, count)}, and
+    ``op_totals`` what :func:`device_time_by_kernel` gives it."""
+    agg, wall_us = device_time_by_kernel(torch, step, n, op_totals)
+    if agg_out is not None:
+        agg_out.update(agg)
     rows = sorted(((us, cnt, name) for name, (us, cnt) in agg.items()),
                   reverse=True)
     busy = sum(r[0] for r in rows)
@@ -1553,17 +1636,22 @@ def phase_evolve(torch, kernel_report):
 @contextlib.contextmanager
 def counted_builds():
     """Counts ``BCSRMatrix.from_graph`` calls (host-side operator builds)
-    inside the block: ``builds.calls``."""
+    inside the block: ``builds.calls``, and the host seconds of each,
+    ``builds.seconds``."""
     from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
 
     inner = BCSRMatrix.from_graph
 
     class Builds:
         calls = 0
+        seconds = []
 
     def counted(*a, **kw):
         Builds.calls += 1
-        return inner(*a, **kw)
+        t0 = time.perf_counter()
+        mat = inner(*a, **kw)
+        Builds.seconds.append(time.perf_counter() - t0)
+        return mat
 
     BCSRMatrix.from_graph = staticmethod(counted)
     try:
@@ -1732,7 +1820,7 @@ def outputs_and_param_grads(torch, model, forward, y):
 
 
 def compare_with_segment(torch, name, model, got, want, fwd_tol, grad_tol,
-                         grad_l2_tol):
+                         grad_l2_tol, against="the f32 segment path"):
     """Outputs by their largest absolute difference; every parameter's
     gradient by the largest difference over the gradient's largest entry
     (the other phases' measure) and by the 2-norm of the difference over
@@ -1749,14 +1837,14 @@ def compare_with_segment(torch, name, model, got, want, fwd_tol, grad_tol,
         rel[k] = float((gb - gs).abs().max() / gs.abs().max())
         l2[k] = float(torch.linalg.norm(gb - gs) / torch.linalg.norm(gs))
     w_rel, w_l2 = max(rel, key=rel.get), max(l2, key=l2.get)
-    log(f"  vs the f32 segment path: forward max abs err {fwd_err:.3e} "
+    log(f"  vs {against}: forward max abs err {fwd_err:.3e} "
         f"(outputs up to {scale:.3f}; tol {fwd_tol}); parameter gradients: "
         f"max abs err over the gradient's largest entry {rel[w_rel]:.3e} at "
         f"{w_rel} (tol {grad_tol}), 2-norm of the error over the "
         f"gradient's {l2[w_l2]:.3e} at {w_l2} (tol {grad_l2_tol})")
     if not (fwd_err <= fwd_tol and rel[w_rel] <= grad_tol
             and l2[w_l2] <= grad_l2_tol):
-        raise SystemExit(f"{name} over BCSR does not match the segment path")
+        raise SystemExit(f"{name} over BCSR does not match {against}")
 
 
 def phase_stconv(torch, kernel_report, smi):
@@ -2036,6 +2124,45 @@ def rss_bytes():
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
+def first_batch_is_host_windows(train, data, x, y):
+    """Whether (x, y) on the card equal the host windows of ``data`` at the
+    starts of the first batch ``train`` draws (shuffled, numpy seed 0)."""
+    from pytorch_geometric_temporal_tpu_torch.signal import (
+        IndexDataset, iter_index_batches)
+
+    first = next(iter_index_batches(train.indices, len(x), shuffle=True,
+                                    rng=np.random.default_rng(0),
+                                    drop_last=False))
+    host = IndexDataset(train.indices, data, x.shape[1])
+    pos = np.searchsorted(train.indices, first)
+    return (np.array_equal(x.cpu().numpy(), np.stack([host[p][0] for p in pos]))
+            and np.array_equal(y.cpu().numpy(),
+                               np.stack([host[p][1] for p in pos])))
+
+
+def one_batch_launches(trainer, x, y, tag):
+    """Fused launches of one train and one eval batch of PeMS's DCRNNSeq
+    (lags 12, K=2), against the model's count; returns the two counts."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    h, K = PEMS["lags"], PEMS["K"]
+    per_train, per_eval = expected_launches(h, K, 1), 2 * h * 2 * (K - 1)
+    bcsr.reset_launch_counts()
+    trainer.train_step(x, y)
+    one_train = launch_counts(bcsr)
+    bcsr.reset_launch_counts()
+    trainer.eval_step(x, y)
+    one_eval = launch_counts(bcsr)
+    log(f"  {tag} one train batch: fused {one_train['H']} (expected "
+        f"{per_train}); one eval batch: {one_eval['H']} (expected "
+        f"{per_eval}); K1 and K2 {one_train['K1'] + one_eval['K1']} and "
+        f"{one_train['K2'] + one_eval['K2']} (expected 0)")
+    if (one_train, one_eval) != ({"H": per_train, "K1": 0, "K2": 0},
+                                 {"H": per_eval, "K1": 0, "K2": 0}):
+        raise SystemExit(f"{tag} launch counts of one batch differ")
+    return per_train, per_eval
+
+
 def phase_index_pems(torch, kernel_report, smi):
     import tempfile
 
@@ -2047,7 +2174,7 @@ def phase_index_pems(torch, kernel_report, smi):
     from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
     from pytorch_geometric_temporal_tpu_torch.ops.graph import diffusion_norms
     from pytorch_geometric_temporal_tpu_torch.signal import (
-        IndexDataset, IndexLoader, StreamingWindower, iter_index_batches)
+        IndexLoader, StreamingWindower, iter_index_batches)
     from pytorch_geometric_temporal_tpu_torch.train import (
         BatchTrainer, ZScoreScaler)
 
@@ -2081,17 +2208,9 @@ def phase_index_pems(torch, kernel_report, smi):
             f"GB ({windows_b / series_b:.1f}x)")
 
         # (a) the first train batch on the card against the host windows
-        first = next(iter_index_batches(train.indices, bs, shuffle=True,
-                                        rng=np.random.default_rng(0),
-                                        drop_last=False))
-        twin = IndexLoader(train.indices, windower, bs, shuffle=True)
-        x0, y0 = next(iter(twin))
-        host = IndexDataset(train.indices, data, h)
-        pos = np.searchsorted(train.indices, first)
-        hx = np.stack([host[p][0] for p in pos])
-        hy = np.stack([host[p][1] for p in pos])
-        if not (np.array_equal(x0.cpu().numpy(), hx)
-                and np.array_equal(y0.cpu().numpy(), hy)):
+        x0, y0 = next(iter(IndexLoader(train.indices, windower, bs,
+                                       shuffle=True)))
+        if not first_batch_is_host_windows(train, data, x0, y0):
             raise SystemExit("(a) the card's windows differ from the host's")
         log(f"  (a) first train batch {tuple(x0.shape)}: equal to "
             f"IndexDataset's host windows, bit for bit")
@@ -2124,21 +2243,7 @@ def phase_index_pems(torch, kernel_report, smi):
                         for name, m in zip(("P_fwd", "P_bwd"), mats)))
 
         # (d) launches of one train and one eval batch, then of the epochs
-        per_train = expected_launches(h, K, 1)
-        per_eval = 2 * h * 2 * (K - 1)
-        bcsr.reset_launch_counts()
-        trainer.train_step(x0, y0)
-        one_train = launch_counts(bcsr)
-        bcsr.reset_launch_counts()
-        trainer.eval_step(x0, y0)
-        one_eval = launch_counts(bcsr)
-        log(f"  (d) one train batch: fused {one_train['H']} (expected "
-            f"{per_train}); one eval batch: {one_eval['H']} (expected "
-            f"{per_eval}); K1 and K2 {one_train['K1'] + one_eval['K1']} and "
-            f"{one_train['K2'] + one_eval['K2']} (expected 0)")
-        if (one_train, one_eval) != ({"H": per_train, "K1": 0, "K2": 0},
-                                     {"H": per_eval, "K1": 0, "K2": 0}):
-            raise SystemExit("launch counts of one batch differ")
+        per_train, per_eval = one_batch_launches(trainer, x0, y0, "(d)")
 
         per_epoch = len(train) * per_train + len(val) * per_eval
         curve, marks, epoch_s = [], [], []
@@ -2191,7 +2296,8 @@ def phase_index_pems(torch, kernel_report, smi):
             f"min {min(step_s) * 1e3:.3f} ms, max {max(step_s) * 1e3:.3f} ms; "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             f"GiB on {smi}")
-        profile_steps(torch, lambda: trainer.train_step(x0, y0), med * 1e3)
+        busy = profile_steps(torch, lambda: trainer.train_step(x0, y0),
+                             med * 1e3)
 
         # (f) the streaming windower over the written file, same starts
         stream = StreamingWindower(path, h)
@@ -2241,9 +2347,14 @@ def phase_index_pems(torch, kernel_report, smi):
             f"device-resident (RSS growth {dev_rss / 1e6:.1f} MB)")
 
     log(f"  (c) operator builds in the phase: {builds.calls} (expected 2: "
-        f"one a diffusion direction)")
+        f"one a diffusion direction), host seconds "
+        f"{['%.3f' % v for v in builds.seconds]}")
     if builds.calls != 2:
         raise SystemExit("PeMS index path: operator builds differ from 2")
+    # phase 21 runs the same model on the same graph with scrambled ids
+    kernel_report["pems"] = dict(curve=curve, test_mae=test_mae,
+                                 busy_ms=busy, step_ms=med * 1e3,
+                                 build_s=list(builds.seconds))
     f_hop = bs * 2 * c["f"]
     report_fused(torch, kernel_report, mats[0].fwd, f_hop,
                  "PeMS index DCRNN f32")
@@ -3023,6 +3134,468 @@ def check_halo(label, h):
                          f"from the single-device one")
 
 
+def kernel_share(agg, pattern, n):
+    """(device ms a step, launches a step, names) of the kernels in a
+    profile over ``n`` steps whose names match ``pattern``."""
+    hits = {k: v for k, v in agg.items() if pattern.search(k)}
+    return (sum(us for us, _ in hits.values()) / n / 1e3,
+            sum(c for _, c in hits.values()) // n, sorted(hits))
+
+
+def hop_breakdown(torch, mat, f, n=20):
+    """Device ms of one ``bcsr_spmm`` call at width ``f``, forward alone
+    and forward + backward: the fused kernel, the permutation gathers'
+    forward and backward kernels, and the rest (padding, layout copies)."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr_spmm
+
+    x = torch.randn(mat.num_nodes, f, device="cuda", requires_grad=True)
+    g = torch.randn(mat.num_nodes, f, device="cuda")
+    out = {}
+    for backward in (False, True):
+        def call():
+            y = bcsr_spmm(mat, x if backward else x.detach())
+            if backward:
+                y.backward(g)
+
+        call()
+        ops = dict.fromkeys(PERMUTE_OPS, 0.0)
+        agg, _ = device_time_by_kernel(torch, call, n, ops)
+        parts = {"kernel": kernel_share(agg, FUSED_KERNEL, n)[0],
+                 "gather_fwd": ops["_Permute"] / n / 1e3,
+                 "gather_bwd": ops["_PermuteBackward"] / n / 1e3,
+                 "total": sum(us for us, _ in agg.values()) / n / 1e3}
+        out["fwd_bwd" if backward else "fwd"] = parts
+    return out
+
+
+def reorder_costs(p, mat):
+    """``_reorder_costs`` on the diffusion graph ``p`` whose auto-built
+    operator is ``mat`` (ns, TPU v5e constants): the two orderings' costs,
+    the charge for the gathers, and the decision, at the arguments
+    ``spmm``'s auto route builds with (``from_graph``'s defaults); the host
+    seconds of the RCM pass and of the two cost-model passes."""
+    from pytorch_geometric_temporal_tpu_torch.native import (
+        bandwidth_reduction_order)
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    args = inspect.signature(bcsr.BCSRMatrix.from_graph).parameters
+    e, n = p.num_edges, p.num_nodes
+    s_all, r_all, _ = p.host_edges()
+    s, r = np.asarray(s_all)[:e], np.asarray(r_all)[:e]
+    t0 = time.perf_counter()
+    order = bandwidth_reduction_order(s, r, n)
+    t1 = time.perf_counter()
+    ip = np.empty_like(order)
+    ip[order] = np.arange(n, dtype=np.int32)
+    cost0, cost1, gather = bcsr._reorder_costs(
+        r, s, ip[r], ip[s], n, bcsr.BLOCK, args["dtype"].default,
+        args["expected_f"].default, args["min_block_edges"].default)
+    t2 = time.perf_counter()
+    if mat.perm is not None and not np.array_equal(
+            mat.perm.cpu().numpy()[:n], order):
+        raise SystemExit("phase 21: the operator's permutation is not the "
+                         "RCM order")
+    return dict(cost0=cost0, cost1=cost1, gather=gather,
+                keep=bool(cost1 + gather < cost0),
+                rcm_s=t1 - t0, cost_s=t2 - t1)
+
+
+def scrambled_variant(torch, label, state, graph, x, y, scaler, reorder):
+    """Phase 21's model from ``state`` on (graph, x, y) under
+    ``spmm_reorder=reorder``: operator builds of its first step (host
+    seconds), the host step median over more steps, and one profile: the
+    device's busy time a step, the fused kernel's and the gathers'."""
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    c = PEMS
+    model = DCRNNSeq(c["f"], c["f"], c["K"])
+    model.load_state_dict(state)
+    trainer = BatchTrainer(model, lambda xb: model(xb, graph), lr=1e-3,
+                           scaler=scaler)
+
+    def step():
+        with config_override(spmm_reorder=reorder):
+            trainer.train_step(x, y)
+
+    with counted_builds() as builds:
+        step()
+        torch.cuda.synchronize()
+    step_s = []
+    for _ in range(SCRAMBLED["timed_steps"]):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s) * 1e3
+    log(f"  ({label}) spmm_reorder={reorder!r}: {builds.calls} operator "
+        f"builds in its first step, host seconds "
+        f"{['%.3f' % v for v in builds.seconds]}; step median {med:.3f} ms "
+        f"(min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}; host "
+        f"clock, synchronized, {len(step_s)} steps)")
+    agg, ops = {}, dict.fromkeys(PERMUTE_OPS, 0.0)
+    busy = profile_steps(torch, step, med, top=8, agg_out=agg, op_totals=ops)
+    if busy is None:
+        raise SystemExit("phase 21: the profiler recorded no device time")
+    kernel, launches, _ = kernel_share(agg, FUSED_KERNEL, 2)
+    out = dict(step_ms=med, busy_ms=busy, kernel=kernel,
+               gather_fwd=ops["_Permute"] / 2e3,
+               gather_bwd=ops["_PermuteBackward"] / 2e3)
+    log(f"    the fused kernel {kernel:.3f} ms a step in {launches} launches;"
+        f" the permutation gathers (the kernels of _Permute and "
+        f"_PermuteBackward) {out['gather_fwd']:.3f} ms forward and "
+        f"{out['gather_bwd']:.3f} ms backward a step")
+    return out
+
+
+def phase_pems_scrambled(torch, kernel_report, smi):
+    """Phase 15's model and recipe on the same graph and series with the
+    sensor ids scrambled: spmm's auto route reorders both operators."""
+    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch.data._common import (
+        make_index_loaders)
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        BCSRMatrix, Graph, bcsr, reorder_graph)
+    from pytorch_geometric_temporal_tpu_torch.ops.graph import diffusion_norms
+    from pytorch_geometric_temporal_tpu_torch.signal import IndexLoader
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        BatchTrainer, ZScoreScaler)
+
+    c, p15 = PEMS, kernel_report["pems"]
+    h, bs, K, n = c["lags"], c["batch_size"], c["K"], c["n"]
+    data, means, stds = pems_zscored(c)
+    ei, w = pems_graph(c)
+    sigma = np.random.default_rng(PEMS_SCRAMBLE_SEED).permutation(n)
+    data_s = np.empty_like(data)
+    data_s[:, sigma] = data
+    sigma_t = torch.from_numpy(sigma).cuda()
+    g = Graph.from_edge_index(ei, w, num_nodes=n)
+    g_s = Graph.from_edge_index(sigma[ei], w, num_nodes=n)
+    train, val, test = make_index_loaders(data_s, h, bs, shuffle=True)
+    scaler = ZScoreScaler(mean=torch.tensor(means, device="cuda"),
+                          std=torch.tensor(stds, device="cuda"))
+    x0s, y0s = next(iter(IndexLoader(train.indices, train.windower, bs,
+                                     shuffle=True)))
+    # un-permuted, the scrambled batch is phase 15's first batch
+    x0, y0 = x0s[:, :, sigma_t], y0s[:, :, sigma_t]
+    if not first_batch_is_host_windows(train, data, x0, y0):
+        raise SystemExit("phase 21: the scrambled batch, un-permuted, is not "
+                         "phase 15's")
+    log(f"  sensor ids scrambled by σ (numpy seed {PEMS_SCRAMBLE_SEED}): "
+        f"edges (σ[s], σ[r]), series columns data_s[:, σ[i]] = data[:, i]; "
+        f"the first train batch {tuple(x0s.shape)}, un-permuted by σ, equals "
+        f"phase 15's host windows bit for bit")
+
+    model = DCRNNSeq(c["f"], c["f"], K,
+                     generator=torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    # phase 15's unscrambled run at the same parameters (its two operator
+    # builds fall outside the count below)
+    ref = outputs_and_param_grads(torch, model, lambda: model(x0, g), y0)
+    trainer = BatchTrainer(model, lambda xb: model(xb, g_s), lr=1e-3,
+                           scaler=scaler)
+    with counted_builds() as builds:
+        # (b) the first batch against the segment path on the scrambled
+        # graph, and against the unscrambled run un-permuted by σ
+        got = outputs_and_param_grads(torch, model, lambda: model(x0s, g_s),
+                                      y0s)
+        with config_override(spmm_backend="segment"):
+            want = outputs_and_param_grads(torch, model,
+                                           lambda: model(x0s, g_s), y0s)
+        compare_with_segment(torch, "scrambled-id DCRNN", model, got, want,
+                             *PEMS_TOLS)
+        compare_with_segment(torch, "scrambled-id DCRNN", model,
+                             (got[0][:, :, sigma_t], got[1]), ref, *PEMS_TOLS,
+                             against="the unscrambled run un-permuted by σ")
+        del got, want, ref
+
+        # (c) launches of one train and one eval batch
+        per_train, per_eval = one_batch_launches(trainer, x0s, y0s, "(c)")
+
+        # (d) two epochs with validation and a test pass, launches counted
+        per_epoch = len(train) * per_train + len(val) * per_eval
+        curve, epoch_s = [], []
+        torch.cuda.synchronize()
+        bcsr.reset_launch_counts()
+        t_fit = time.perf_counter()
+        trainer.fit(train, SCRAMBLED["epochs"], val_loader=val,
+                    callback=lambda e, loss, v: (
+                        curve.append((loss, v)),
+                        epoch_s.append(time.perf_counter() - t_fit)))
+        tl, tn = torch.zeros((), device="cuda"), 0
+        for xb, yb in test:
+            tl, tn = tl + trainer.eval_step(xb, yb), tn + 1
+        test_mae = float(tl) / tn
+        launches = launch_counts(bcsr)
+    want_h = SCRAMBLED["epochs"] * per_epoch + len(test) * per_eval
+    log(f"  (c) fused launches over {SCRAMBLED['epochs']} epochs and the test "
+        f"pass {launches['H']} (expected {want_h}); K1 {launches['K1']} and "
+        f"K2 {launches['K2']} (expected 0)")
+    if launches != {"H": want_h, "K1": 0, "K2": 0}:
+        raise SystemExit("phase 21: launch counts differ")
+    kernel_report["H"]["launches"] += launches["H"]
+    fmt = [("%.4f" % a, "%.4f" % b) for a, b in curve]
+    log(f"  (d) epochs (train, val) masked MAE {fmt}, test {test_mae:.4f}, "
+        f"epochs end at {['%.2f' % v for v in epoch_s]} s; phase 15's "
+        f"unscrambled run {[('%.4f' % a, '%.4f' % b) for a, b in p15['curve']]}"
+        f", test {p15['test_mae']:.4f}")
+    if not (all(np.isfinite([v for pair in curve for v in pair] + [test_mae]))
+            and curve[-1][0] < curve[0][0]):
+        raise SystemExit("phase 21: losses not finite or the epoch loss did "
+                         "not fall")
+
+    # (a) the two auto-built operators, both reordered
+    norms = diffusion_norms(g_s)
+    mats = [m for q in norms for m in q._op_cache.values()
+            if isinstance(m, BCSRMatrix)]
+    log(f"  (a) operator builds of the scrambled run: {builds.calls} "
+        f"(expected 2), host seconds {['%.3f' % v for v in builds.seconds]} "
+        f"(phase 15's unscrambled builds "
+        f"{['%.3f' % v for v in p15['build_s']]}); "
+        + "; ".join(f"{name}: perm {'kept' if m.perm is not None else 'none'}"
+                    f", fwd nnzb={m.fwd.nnzb} rem={m.fwd.num_rem}, bwd "
+                    f"nnzb={m.bwd.nnzb} rem={m.bwd.num_rem}"
+                    for name, m in zip(("P_fwd", "P_bwd"), mats)))
+    if builds.calls != 2 or len(mats) != 2 or any(
+            m.perm is None or m.fwd.blocks.dtype != torch.float32
+            for m in mats):
+        raise SystemExit("phase 21: expected two reordered f32 operators")
+
+    # (e) four variants at the same parameters on the same batch
+    g2, perm, _ = reorder_graph(g_s)
+    perm_t = torch.from_numpy(perm).cuda().long()
+    x0r, y0r = x0s[:, :, perm_t], y0s[:, :, perm_t]
+    runs = {
+        "i": scrambled_variant(torch, "i", state, g_s, x0s, y0s, scaler,
+                               "auto"),
+        "ii": scrambled_variant(torch, "ii", state, g_s, x0s, y0s, scaler,
+                                "off"),
+        "iii": scrambled_variant(torch, "iii", state, g2, x0r, y0r, scaler,
+                                 "off"),
+        "iv": scrambled_variant(torch, "iv", state, g, x0, y0, scaler,
+                                "auto"),
+    }
+    def p_fwd_operator(graph, reorder):
+        # spmm's cache key for f32 tiles (ops/spmm.py: _auto_bcsr)
+        return diffusion_norms(graph)[0]._op_cache[("bcsr", "None", reorder)]
+
+    ops = {"i": p_fwd_operator(g_s, "auto"), "ii": p_fwd_operator(g_s, None),
+           "iii": p_fwd_operator(g2, None), "iv": p_fwd_operator(g, "auto")}
+    if ops["ii"].perm is not None or ops["iii"].perm is not None:
+        raise SystemExit("phase 21: spmm_reorder='off' reordered")
+    f_hop = bs * 2 * c["f"]
+    titles = {"i": "scrambled, reordered (auto)",
+              "ii": "scrambled, as the ids come (off)",
+              "iii": "reorder_graph once, no gathers a hop",
+              "iv": "unscrambled (phase 15)"}
+    for key, mat in ops.items():
+        half = mat.fwd
+        log(f"  ({key}) {titles[key]}: P_fwd forward half nnzb={half.nnzb} "
+            f"rem={half.num_rem}")
+        report_fused(torch, kernel_report, half, f_hop,
+                     f"PeMS scrambled ({key}) f32")
+        runs[key]["kernel_cold"] = kernel_report["paths"][-1][1]["ms"]
+        runs[key]["hop"] = hop_breakdown(torch, mat, f_hop)
+        hb = runs[key]["hop"]
+        log(f"    one hop at F={f_hop} (device ms, profiler, warm): forward "
+            f"{hb['fwd']['total']:.4f} (kernel {hb['fwd']['kernel']:.4f}, "
+            f"gathers {hb['fwd']['gather_fwd']:.4f}); forward + backward "
+            f"{hb['fwd_bwd']['total']:.4f} (kernel "
+            f"{hb['fwd_bwd']['kernel']:.4f}, gathers forward "
+            f"{hb['fwd_bwd']['gather_fwd']:.4f}, backward "
+            f"{hb['fwd_bwd']['gather_bwd']:.4f})")
+    log(f"  (e) a train step at the same parameters on the same batch, on "
+        f"{smi}:")
+    for key, r in runs.items():
+        log(f"    ({key}) {titles[key]}: device busy {r['busy_ms']:.3f} ms, "
+            f"fused kernel {r['kernel']:.3f} ms, gathers forward "
+            f"{r['gather_fwd']:.3f} ms and backward {r['gather_bwd']:.3f} ms; "
+            f"host step median {r['step_ms']:.3f} ms; the kernel cold at "
+            f"F={f_hop} {r['kernel_cold']:.4f} ms")
+    gi = runs["i"]
+    log(f"    (i)'s gathers: backward {gi['gather_bwd'] / gi['gather_fwd']:.2f}"
+        f" times the forward")
+
+    # (f) the cost model's decision beside the measurement
+    for name, q, m in zip(("P_fwd", "P_bwd"), norms, mats):
+        cm = reorder_costs(q, m)
+        log(f"  (f) {name}: host RCM {cm['rcm_s']:.3f} s, the two cost-model "
+            f"passes {cm['cost_s']:.3f} s; _reorder_costs (TPU v5e "
+            f"constants C_TILE_NS, C_EDGE_NS; expected_f 64): as the ids come "
+            f"{cm['cost0'] / 1e3:.1f} us, reordered {cm['cost1'] / 1e3:.1f} "
+            f"us + gathers {cm['gather'] / 1e3:.1f} us = "
+            f"{(cm['cost1'] + cm['gather']) / 1e3:.1f} us: "
+            f"{'reorder' if cm['keep'] else 'keep the order'}")
+        if cm["keep"] != (m.perm is not None):
+            raise SystemExit("phase 21: the decision differs from the build")
+    hop_i = runs["i"]["kernel_cold"] + runs["i"]["hop"]["fwd"]["gather_fwd"]
+    hop_ii = runs["ii"]["kernel_cold"]
+    step_i, step_ii = runs["i"]["busy_ms"], runs["ii"]["busy_ms"]
+    log(f"  (f) measured on {smi} at F={f_hop}: a forward hop (the kernel "
+        f"cold + the two gathers) reordered {hop_i:.4f} ms against "
+        f"{hop_ii:.4f} ms as the ids come "
+        f"({'right' if hop_i < hop_ii else 'wrong'} by the hop); device "
+        f"busy a train step {step_i:.3f} against {step_ii:.3f} ms "
+        f"({'right' if step_i < step_ii else 'wrong'} by the step)")
+
+
+def recovery_graph(torch):
+    """``bench.py:bench_reorder_recovery``'s draw: the banded graph under
+    scrambled ids, weights normalized by the weighted in-degree, and x."""
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph
+
+    c = RECOVERY
+    n, e = c["n"], c["n"] * c["deg"]
+    rng = np.random.default_rng(c["seed"])
+    s = rng.integers(0, n, size=e)
+    r = np.clip(s + rng.integers(-c["band"], c["band"] + 1, size=e), 0, n - 1)
+    scram = rng.permutation(n)
+    w = rng.uniform(0.1, 1.0, e).astype(np.float32)
+    d = np.bincount(r, weights=w, minlength=n).astype(np.float32)
+    w = w / np.maximum(d[r], 1e-6)
+    g = Graph.from_edge_index(np.stack([scram[s], scram[r]]), w,
+                              num_nodes=n)
+    x = torch.from_numpy(rng.normal(size=(n, c["f"])).astype(
+        np.float32)).cuda()
+    return g, x
+
+
+def phase_recovery(torch, kernel_report, smi):
+    """(a) the reorder-recovery twin: the fused kernel on the scrambled
+    N=20,000 operator as the ids come and reordered; (b) AVWGCN's sparse
+    top-k at N=20,000."""
+    from pytorch_geometric_temporal_tpu_torch.ops import (
+        BCSRMatrix, bcsr, bcsr_spmm, spmm_segment)
+
+    c = RECOVERY
+    n, f = c["n"], c["f"]
+    g, x = recovery_graph(torch)
+    mats = {}
+    for key, reorder in (("plain", None), ("reordered", "auto")):
+        t0 = time.perf_counter()
+        mats[key] = mat = BCSRMatrix.from_graph(
+            g, dtype=torch.bfloat16, min_block_edges="auto", expected_f=f,
+            reorder=reorder)
+        secs = time.perf_counter() - t0
+        tiles_b = mat.fwd.nnzb * 128 * 128 * 2
+        host_b = sum(a.nbytes for half in (mat.fwd, mat.bwd)
+                     for a in half._host.values())
+        log(f"  ({key}) reorder={reorder!r}: built in {secs:.2f} s (host); "
+            f"fwd nnzb={mat.fwd.nnzb} rem={mat.fwd.num_rem}, bwd "
+            f"nnzb={mat.bwd.nnzb} rem={mat.bwd.num_rem}; bf16 tiles "
+            f"{tiles_b / 1e9:.3f} GB a half, {operator_bytes(mat) / 1e9:.3f} "
+            f"GB on the card in all, {host_b / 1e9:.3f} GB of host arrays "
+            f"kept; perm {'kept' if mat.perm is not None else 'none'}")
+    if mats["plain"].perm is not None or mats["reordered"].perm is None:
+        raise SystemExit("phase 22: reorder='auto' did not reorder")
+
+    # the kernels against their plain versions on every half at F=64
+    x_pad = torch.nn.functional.pad(x, (0, 0, 0, mats["plain"].fwd.num_cols
+                                        - n))
+    for key, mat in mats.items():
+        for side in ("fwd", "bwd"):
+            errs = check_kernels(torch, bcsr, getattr(mat, side),
+                                 x_pad.to(torch.bfloat16))
+            log(f"  {key} {side} F={f}: {fmt_errs(errs)}")
+            if any(e > t for e, t in errs.values()):
+                raise SystemExit(f"phase 22: kernel mismatch on {key}.{side}")
+            kernel_report["H"]["max_abs_err"] = max(
+                kernel_report["H"]["max_abs_err"], errs["fused"][0])
+
+    # one bcsr_spmm a operator, against the segment path
+    want = spmm_segment(g, x)
+    scale = float(want.abs().max())
+    bcsr.reset_launch_counts()
+    outs = {key: bcsr_spmm(mat, x) for key, mat in mats.items()}
+    launches = launch_counts(bcsr)
+    if launches != {"H": 2, "K1": 0, "K2": 0}:
+        raise SystemExit(f"phase 22: launches {launches}, expected one a call")
+    kernel_report["H"]["launches"] += launches["H"]
+    for key, out in outs.items():
+        err = float((out - want).abs().max()) / scale
+        log(f"  {key}: bcsr_spmm against spmm_segment {err:.3e} of the "
+            f"largest output {scale:.4f} (tol {DYN_STEP_TOL}); one fused "
+            f"launch")
+        if not err <= DYN_STEP_TOL:
+            raise SystemExit(f"phase 22: {key} differs from the segment path")
+
+    ks = {}
+    for key, mat in mats.items():
+        report_fused(torch, kernel_report, mat.fwd, f,
+                     f"recovery N=20,000 {key} bf16")
+        ks[key] = kernel_report["paths"][-1][1]
+    mat_r = mats["reordered"]
+    out_pad = bcsr.bcsr_matmul(mat_r.fwd, x_pad)
+    g_in = cold_ms(torch, lambda: x_pad[mat_r.perm])
+    g_out = cold_ms(torch, lambda: out_pad[mat_r.iperm])
+    ratio = ks["plain"]["ms"] / ks["reordered"]["ms"]
+    ratio_g = ks["plain"]["ms"] / (ks["reordered"]["ms"] + g_in + g_out)
+    log(f"  (a) on {smi}: the fused kernel cold at F={f} as the ids come "
+        f"{ks['plain']['ms']:.4f} ms, reordered {ks['reordered']['ms']:.4f} ms "
+        f"(ratio {ratio:.2f}); the gathers cold x[perm] {g_in:.4f} ms and "
+        f"out[iperm] {g_out:.4f} ms (ratio with them {ratio_g:.2f}); the JAX "
+        f"package's record on a TPU v5e (BENCH_r05.json, another chip): "
+        f"{RECOVERY_RECORD_TPU_V5E}x")
+    del mats, outs, mat_r, x_pad, out_pad
+
+    avwgcn_topk_on_the_card(torch, smi)
+
+
+def avwgcn_topk_on_the_card(torch, smi):
+    from pytorch_geometric_temporal_tpu_torch.models import AVWGCN
+    from pytorch_geometric_temporal_tpu_torch.models.conv import (
+        _topk_support)
+
+    c = AVW
+    rng = np.random.default_rng(c["seed"])
+    e_np = rng.normal(size=(c["n"], c["d"])).astype(np.float32)
+    x_np = rng.normal(size=(c["n"], c["f"])).astype(np.float32)
+    model = AVWGCN(c["f"], c["out"], c["K"], c["d"], topk=c["topk"],
+                   generator=torch.Generator().manual_seed(0))
+    twin = AVWGCN(c["f"], c["out"], c["K"], c["d"], topk=c["topk"],
+                  device="cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    e = torch.from_numpy(e_np).cuda().requires_grad_()
+    x = torch.from_numpy(x_np).cuda()
+
+    def fwd_bwd():
+        out = model(x, e)
+        loss = (out ** 2).mean()
+        loss.backward()
+        return out, loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, loss = fwd_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    g_pool = float(model.weights_pool.grad.abs().sum())
+    g_e = float(e.grad.abs().sum())
+    cols = _topk_support(e.detach(), c["topk"])[0].cpu()
+    cols_cpu = _topk_support(torch.from_numpy(e_np), c["topk"])[0]
+    with torch.no_grad():
+        out_cpu = twin(torch.from_numpy(x_np), torch.from_numpy(e_np))
+    scale = float(out_cpu.abs().max())
+    err = float((out.detach().cpu() - out_cpu).abs().max())
+    agg, _ = device_time_by_kernel(torch, fwd_bwd, 3)
+    busy = sum(us for us, _ in agg.values()) / 3 / 1e3
+    log(f"  (b) AVWGCN(out 4, K=2, embeddings 4, topk=8) at N={c['n']}, f="
+        f"{c['f']}: loss {float(loss):.6f}; gradient sums weights_pool "
+        f"{g_pool:.4e}, E {g_e:.4e}; kept columns equal to the CPU's: "
+        f"{bool(torch.equal(cols, cols_cpu))}; outputs against the CPU "
+        f"{err:.3e} (tol {AVW_TOL} of the output scale {scale:.4f}); device "
+        f"busy forward + backward {busy:.3f} ms (profiler, 3 calls), peak "
+        f"memory {peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB "
+        f"held, on {smi}")
+    if not (np.isfinite(float(loss)) and g_pool > 0 and g_e > 0
+            and torch.equal(cols, cols_cpu) and err <= AVW_TOL * scale):
+        raise SystemExit("phase 22: AVWGCN's sparse top-k on the card "
+                         "differs from the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -3088,6 +3661,12 @@ def main() -> int:
     log("== phase 20: halo-partitioned DCRNN at PeMS scale, P=2 over gloo "
         "and P=1 over NCCL")
     phase_halo(torch, ranks, smi)
+    log("== phase 21: index-batched DCRNN on the PeMS stand-in with "
+        "scrambled sensor ids (spmm_reorder='auto')")
+    phase_pems_scrambled(torch, report, smi)
+    log("== phase 22: the reorder-recovery twin at N=20,000 and AVWGCN's "
+        "sparse top-k")
+    phase_recovery(torch, report, smi)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"

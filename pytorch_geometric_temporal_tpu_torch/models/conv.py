@@ -268,12 +268,42 @@ class GatedGraphConv(FlaxModule):
         return h
 
 
+def _order_key(scores: torch.Tensor) -> torch.Tensor:
+    """Integer keys in the float total order (-NaN < -inf < … < -0.0 < 0.0
+    < … < +inf < +NaN), the order ``jax.lax.top_k`` ranks by: int32 for
+    2- and 4-byte floats, int64 for 8-byte ones."""
+    size = scores.element_size()
+    vtype = {2: torch.int16, 4: torch.int32, 8: torch.int64}[size]
+    bits = scores.detach().view(vtype)
+    if size == 2:
+        bits = bits.int()
+    return torch.where(bits < 0, bits ^ torch.iinfo(vtype).max, bits)
+
+
 def _top_k(scores: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries along the last axis, the
-    lowest index first among equal scores (``jax.lax.top_k``'s order;
-    ``torch.topk`` promises none): a stable descending sort."""
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """(values, indices) of the k largest entries along the last axis in
+    ``jax.lax.top_k``'s order: by the float total order of
+    :func:`_order_key`, the lowest index first among equal scores
+    (``torch.topk`` promises no order among equals).
+
+    Linear in the row length: ``torch.topk`` finds the k-th largest key,
+    every key above it is kept and, of those equal to it, the lowest
+    indices; the k kept are then sorted."""
+    key = _order_key(scores)
+    kth = torch.topk(key, k, dim=-1).values[..., -1:]
+    above, equal = key > kth, key == kth
+    need = k - above.sum(-1, keepdim=True)
+    first = torch.cumsum(equal, -1, dtype=key.dtype) <= need
+    keep = above | (equal & first)
+    # the k kept positions in ascending order: the lowest index ranks first
+    n = scores.shape[-1]
+    rank = torch.where(keep, torch.arange(n, 0, -1, device=scores.device,
+                                          dtype=key.dtype), 0)
+    idx = torch.topk(rank, k, dim=-1).indices
+    order = torch.sort(key.gather(-1, idx), dim=-1, descending=True,
+                       stable=True).indices
+    idx = idx.gather(-1, order)
+    return scores.gather(-1, idx), idx
 
 
 def topk_pool(x: torch.Tensor, score_weight: torch.Tensor, ratio: float):

@@ -247,17 +247,26 @@ def tune_min_block_edges(rows, cols, n, block=BLOCK, dtype=None,
     return best_theta
 
 
-def _reorder_pays_off(r0, s0, r1, s1, n, block, dtype, expected_f,
-                      min_block_edges="auto") -> bool:
-    """``reorder='auto'``: keep the relabeled ordering only when its cost,
-    plus the per-call input gather and output un-gather, beats the
-    caller's, at the threshold the operator will be built with."""
+def _reorder_costs(r0, s0, r1, s1, n, block, dtype, expected_f,
+                   min_block_edges="auto"):
+    """The cost model's (cost0, cost1, gather_ns) in ns: the caller's
+    ordering, the relabeled one, and the charge for the per-call input
+    gather and output un-gather, at the threshold the operator will be
+    built with."""
     fixed = None if min_block_edges == "auto" else int(min_block_edges)
     _, cost0 = tune_min_block_edges(r0, s0, n, block, dtype, expected_f,
                                     _return_cost=True, _fixed_theta=fixed)
     _, cost1 = tune_min_block_edges(r1, s1, n, block, dtype, expected_f,
                                     _return_cost=True, _fixed_theta=fixed)
-    gather_ns = 2.0 * _round_up(n, block) * 2
+    return cost0, cost1, 2.0 * _round_up(n, block) * 2
+
+
+def _reorder_pays_off(r0, s0, r1, s1, n, block, dtype, expected_f,
+                      min_block_edges="auto") -> bool:
+    """``reorder='auto'``: keep the relabeled ordering only when its cost,
+    plus the gathers, beats the caller's (:func:`_reorder_costs`)."""
+    cost0, cost1, gather_ns = _reorder_costs(r0, s0, r1, s1, n, block, dtype,
+                                             expected_f, min_block_edges)
     return cost1 + gather_ns < cost0
 
 
@@ -635,12 +644,30 @@ class _BCSRSpmm(torch.autograd.Function):
         return bcsr_matmul(ctx.mat.bwd, g).to(ctx.x_dtype), None
 
 
+class _Permute(torch.autograd.Function):
+    """``x[index]`` for a permutation ``index`` of x's rows, with the
+    gradient ``g[inverse]``: a permutation's adjoint is its inverse, so
+    each row of the gradient is its one cotangent row, bit for bit what
+    indexing's backward (``index_put_`` with accumulation: a sort of the
+    indices and an accumulating scatter) computes, in one gather."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.inverse = inverse
+        return x[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.inverse], None, None
+
+
 def bcsr_spmm(mat: BCSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Aggregate (..., N, F) features through the block-sparse operator.
 
     Leading dims fold into the feature axis (one kernel launch per call);
     nodes are padded to the tile multiple and permuted when the operator
-    was reordered.  Returns f32, like the kernels."""
+    was reordered (:class:`_Permute`, in and out).  Returns f32, like the
+    kernels."""
     n = mat.num_nodes
     f = x.shape[-1]
     lead = x.shape[:-2]
@@ -651,10 +678,10 @@ def bcsr_spmm(mat: BCSRMatrix, x: torch.Tensor) -> torch.Tensor:
     if pad:
         x2 = torch.nn.functional.pad(x2, (0, 0, 0, pad))
     if mat.perm is not None:
-        x2 = x2[mat.perm]
+        x2 = _Permute.apply(x2, mat.perm, mat.iperm)
     out = _BCSRSpmm.apply(x2, mat)
-    if mat.iperm is not None:
-        out = out[mat.iperm]
+    if mat.perm is not None:
+        out = _Permute.apply(out, mat.iperm, mat.perm)
     out = out[:n].reshape(n, b, f).permute(1, 0, 2)
     return out.reshape(lead + (n, f))
 

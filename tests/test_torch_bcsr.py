@@ -334,14 +334,26 @@ def test_cpu_wrapper_takes_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize("batched,reorder", [(False, None), (True, None),
-                                              (True, "rcm")])
+                                              (True, "rcm"), (True, "auto")])
 def test_bcsr_spmm_autograd_matches_jax(batched, reorder):
-    n, f = 700, 6
-    ei, w = banded(8, n, 8000, scramble=reorder is not None)
+    # 'auto' on a sparse narrow band (two edges a node within ±8): its
+    # scrambled blocks fall under min_block_edges, so both packages' cost
+    # models keep the RCM order and the gradient runs through the
+    # permutations
+    f = 6
+    if reorder == "auto":
+        n = 1024
+        ei, w = banded(8, n, 2 * n, band=8, frac_local=1.0, scramble=True)
+    else:
+        n = 700
+        ei, w = banded(8, n, 8000, scramble=reorder is not None)
     jg, tg = both_graphs(ei, w, n)
     jm = jb.BCSRMatrix.from_graph(jg, reorder=reorder)
     tm = tb.BCSRMatrix.from_graph(tg, reorder=reorder)
     assert tm.fwd.num_rem > 0
+    assert (tm.perm is None) == (jm.perm is None) == (reorder is None)
+    if reorder is not None:
+        np.testing.assert_array_equal(tm.perm.numpy(), np.asarray(jm.perm))
     rng = np.random.default_rng(9)
     shape = (3, n, f) if batched else (n, f)
     x = rng.normal(size=shape).astype(np.float32)

@@ -769,3 +769,78 @@ def test_halo_aggregation_of_two_ranks_on_the_card(cuda, card_ranks):
         np.testing.assert_allclose(res["halo/out"], want, rtol=0,
                                    atol=1e-5 * float(np.abs(want).max()))
         assert int(res["halo/bytes"]) == int(res["halo/formula"]) > 0
+
+
+def scrambled_recovery_graph(cuda):
+    """The reorder-recovery draw (``bench.py:bench_reorder_recovery``):
+    20,000 nodes, 40 edges a node within ±96 under scrambled ids, weights
+    normalized by the weighted in-degree."""
+    n, e, band = 20_000, 800_000, 96
+    rng = np.random.default_rng(2)
+    s = rng.integers(0, n, size=e)
+    r = np.clip(s + rng.integers(-band, band + 1, size=e), 0, n - 1)
+    scram = rng.permutation(n)
+    w = rng.uniform(0.1, 1.0, e).astype(np.float32)
+    d = np.bincount(r, weights=w, minlength=n).astype(np.float32)
+    return Graph.from_edge_index(np.stack([scram[s], scram[r]]),
+                                 w / np.maximum(d[r], 1e-6), num_nodes=n,
+                                 device=cuda)
+
+
+def test_reordered_operator_through_spmm_on_the_card(cuda, monkeypatch):
+    """``spmm`` on a CUDA tensor builds the scrambled graph's operator
+    with ``spmm_reorder="auto"``, keeps the RCM order, and launches the
+    fused kernel once forward and once backward; output and x-gradient
+    match the segment path."""
+    from pytorch_geometric_temporal_tpu_torch.ops import spmm
+
+    builds = _Builds(monkeypatch)
+    g = scrambled_recovery_graph(cuda)
+    x = torch.randn(g.num_nodes, 16, device=cuda, requires_grad=True)
+    cot = torch.randn(g.num_nodes, 16, device=cuda)
+    bcsr.reset_launch_counts()
+    out = spmm(g, x)
+    assert bcsr.hybrid_spmm.launches == 1
+    (gx,) = torch.autograd.grad((out * cot).sum(), x)
+    assert (bcsr.hybrid_spmm.launches, bcsr.tile_spmm.launches,
+            bcsr.rem_scatter_.launches) == (2, 0, 0)
+    assert builds.calls == 1
+    mat = g._op_cache[("bcsr", "None", "auto")]
+    assert mat.perm is not None and mat.iperm is not None
+    xs = x.detach().requires_grad_()
+    want = spmm_segment(g, xs)
+    (want_gx,) = torch.autograd.grad((want * cot).sum(), xs)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(gx, want_gx, rtol=0,
+                               atol=1e-4 * float(want_gx.abs().max()))
+
+
+def test_avwgcn_topk_on_the_card_matches_the_cpu(cuda):
+    """AVWGCN(topk=8) at N=20,000 (``tests/test_learned_adjacency_large_n
+    .py``'s configuration): forward and backward on the card, the kept
+    columns and the outputs equal to the same module's on the CPU."""
+    from pytorch_geometric_temporal_tpu_torch.models import AVWGCN
+    from pytorch_geometric_temporal_tpu_torch.models.conv import (
+        _topk_support)
+
+    rng = np.random.default_rng(2)
+    e_np = rng.normal(size=(20_000, 4)).astype(np.float32)
+    x_np = rng.normal(size=(20_000, 3)).astype(np.float32)
+    model = AVWGCN(3, 4, 2, 4, topk=8, device=cuda,
+                   generator=torch.Generator().manual_seed(0))
+    twin = AVWGCN(3, 4, 2, 4, topk=8, device="cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    e = torch.from_numpy(e_np).to(cuda).requires_grad_()
+    out = model(torch.from_numpy(x_np).to(cuda), e)
+    loss = (out ** 2).mean()
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert float(model.weights_pool.grad.abs().sum()) > 0
+    assert float(e.grad.abs().sum()) > 0
+    cols = _topk_support(e.detach(), 8)[0].cpu()
+    assert torch.equal(cols, _topk_support(torch.from_numpy(e_np), 8)[0])
+    with torch.no_grad():
+        want = twin(torch.from_numpy(x_np), torch.from_numpy(e_np))
+    torch.testing.assert_close(out.detach().cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
