@@ -44,7 +44,8 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    F=64, the fused kernel against its plain version on every step's two
    halves at that width, every step against ``spmm_segment`` on that
    step's graph and the gradient to h0 against the segment path's, T + T
-   fused launches;
+   fused launches; each graph's ``min_block_edges="auto"`` θ under both
+   cost models (the build uses the default H100 one);
 8. the eight bundled-data accuracy protocols at their full epoch counts
    (PedalMe: DCRNN, TGCN, A3TGCN; TwitterTennis rg17: EvolveGCN-O,
    EvolveGCN-H, DyGrEncoder; EnglandCovid: DCRNN; MontevideoBus:
@@ -62,7 +63,8 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    same models normalizing in the loop over ``stack_graphs`` on the f32
    segment path (outputs per step, parameter gradients), T + T fused
    launches a model, and the fused kernel against its plain version at
-   F=16 on every half, timed;
+   F=16 on every half, timed; each GCN operator's θ under both cost
+   models;
 11. the METR-LA accuracy protocol at full size (``DCRNNSeq(2->2, K=3)``,
    207 sensors, 2880 steps of the seeded synthetic stand-in, 12 epochs of
    batches of 64, Adam 1e-3): falling training curve, the de-normalized
@@ -157,25 +159,45 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
 21. phase 15's recipe on the same stand-in with its sensor ids scrambled
    by one seeded permutation σ (edges (σ[s], σ[r]), series columns moved
    with σ), the raw ``Graph`` handed to ``spmm``'s auto route with
-   ``spmm_reorder="auto"``: exactly 2 operator builds, both keeping the
-   RCM order; the first batch's outputs and gradients against the segment
-   path and against phase 15's unscrambled run un-permuted by σ; 94 / 48
-   fused launches a train / eval batch; two epochs, falling; then four
-   variants at the same parameters on the same batch — reordered (auto),
-   as the ids come (off), ``reorder_graph`` once with no gathers a hop,
-   and the unscrambled graph — each with its device busy time a train step,
+   ``spmm_reorder="auto"``: exactly 2 f32 operator builds, laid out as the
+   default cost model (``ops/bcsr.py``: ``H100``) decides; the first
+   batch's outputs and gradients, on that layout and on the RCM order TPU
+   v5e's model keeps (through the permutation gathers forward and
+   backward), against the segment path and against phase 15's unscrambled
+   run un-permuted by σ; 94 / 48 fused launches a
+   train / eval batch; two epochs, falling; then five variants at the same
+   parameters on the same batch — the run's own layout (auto), the RCM
+   order TPU v5e's model keeps (i), as the ids come (ii), ``reorder_graph``
+   once with no gathers a hop (iii), and the unscrambled graph (iv), which
+   keeps no permutation — each with its device busy time a train step,
    the fused kernel's and the permutation gathers' forward and backward
-   time, the host step and the kernel cold at F=256; and
-   ``_reorder_costs``' two costs (TPU v5e constants) beside the
-   measured hop and step;
+   time, the host step and the kernel cold at F=256; both cost models'
+   ``_reorder_costs`` beside the measured hop and step.  The default
+   model's decision must be the build's and pick the variant of lower busy,
+   (i) or (ii), wherever they differ by more than ``DECISION_MARGIN``, and
+   the auto run's busy stay within ``AUTO_BUSY_TOL`` of that variant's;
 22. ``bench.py:bench_reorder_recovery``'s draw (N=20,000, 40 edges a node
    within ±96 under scrambled ids, bf16 tiles, ``min_block_edges="auto"``):
-   the operator as the ids come and reordered, the kernels against their
-   plain versions on every half at F=64, one ``bcsr_spmm`` each against
-   ``spmm_segment``, the fused kernel cold on both (the ratio beside the
-   JAX package's TPU v5e record) and the gathers; then AVWGCN(topk=8) at
+   the operator as the ids come at TPU v5e's θ and at the H100 model's,
+   and reordered as the H100 model decides (it must reorder), with θ under
+   both models; the kernels against their plain versions on every half at
+   F=64, one ``bcsr_spmm`` each against ``spmm_segment``, the fused kernel
+   cold on all three (the H100 θ no slower than v5e's), the ratios beside
+   the JAX package's TPU v5e record and the gathers; then AVWGCN(topk=8) at
    N=20,000 forward and backward on the card, its kept columns and outputs
-   against the same module on the CPU.
+   against the same module on the CPU;
+23. the BCSR builder's H100 cost model against the card: the fused kernel on
+   synthetic halves of ``COST_SHAPES`` (0-4 tiles and 0-5,000 remainder
+   edges a row block, under one wave of 132 CTAs and over two) at each
+   width of ``COST_SWEEP`` in bf16 and f32 tiles, warm (x just written, no
+   L2 flush) and cold, and the permutation gathers; every point is printed
+   (``cost-shape``, ``cost-point``, ``gather-point`` lines, which
+   ``tools/fit_kernel_costs.py`` refits from), with the committed
+   constants' prediction and the constants refitted on this run; the
+   operators of phases 15, 21 and 22 are held-out points.  The committed
+   model's median relative error of the warm prediction must stay within
+   ``COST_MEDIAN_TOL`` on the sweep, on the held-out points and on the
+   gathers.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
@@ -338,6 +360,46 @@ RECOVERY_RECORD_TPU_V5E = 18.9
 # the card against the CPU by the CPU output's largest entry
 AVW = dict(n=20_000, f=3, d=4, out=4, K=2, topk=8, seed=2)
 AVW_TOL = 1e-4
+# phase 21: the decision must pick the variant of lower device busy a step,
+# reordered (i) or as the ids come (ii), wherever the two differ by more
+# than DECISION_MARGIN, and the "auto" run's busy stay within AUTO_BUSY_TOL
+# of the variant whose layout it chose
+DECISION_MARGIN = 0.05
+AUTO_BUSY_TOL = 0.03
+# phase 23: the cost-model sweep.  Synthetic halves from the port's builder
+# (ops/bcsr.py: _build_half at threshold ``theta``): each of a shape's row
+# blocks holds a seeded number of tiles of ``tile_edges`` edges in distinct
+# column blocks and of remainder edges spread over its other column blocks
+# (under ``theta`` a block); every half at each width of ``fs`` in bf16
+# and f32 tiles, timed warm and cold; the permutation gathers at
+# ``gather_rows`` x ``fs``.  Shapes: (label, row blocks, tiles a row block
+# (low, high), remainder edges a row block (low, high)), under one wave of
+# 132 CTAs and over two
+COST_SWEEP = dict(fs=(32, 64, 96, 256, 768), seed=11, theta=400,
+                  tile_edges=600, warm_reps=20, cold_reps=10,
+                  gather_rows=(11_264, 20_096, 38_400))
+COST_SHAPES = (
+    ("s40-t2", 40, (2, 2), (0, 0)),
+    ("s40-mix", 40, (0, 4), (0, 5000)),
+    ("s100-t4", 100, (4, 4), (0, 0)),
+    ("s100-r2k", 100, (0, 0), (2000, 2000)),
+    ("s157-t1", 157, (1, 1), (0, 0)),
+    ("s157-r5k", 157, (0, 0), (4000, 5000)),
+    ("s157-mix", 157, (0, 4), (0, 400)),
+    ("s157-t2r1k", 157, (2, 2), (1000, 1000)),
+    ("s88-t1r700", 88, (1, 1), (600, 800)),
+    ("s200-sparse", 200, (0, 1), (0, 100)),
+    ("s300-t0-4", 300, (0, 4), (0, 0)),
+    ("s300-mix", 300, (1, 3), (0, 1000)),
+    ("s300-r0-2k", 300, (0, 0), (0, 2000)),
+)
+# cycles the card spins before each warm launch (~0.5 ms at 1.98 GHz), longer
+# than the host takes to launch the fused kernel from Python
+WARM_SPIN_CYCLES = 1_000_000
+# the committed H100 model's median |relative error| of the warm prediction
+# over the sweep, over the held-out operators of phases 15, 21 and 22, and
+# over the permutation gathers
+COST_MEDIAN_TOL = 0.20
 
 
 def log(*a):
@@ -379,6 +441,89 @@ def cold_ms(torch, fn, reps=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def warm_ms(torch, fn, x, reps=20):
+    """Median ms of one ``fn()`` launch, timed with CUDA events, each right
+    after x is rewritten from a copy (no L2 flush: what of x and of the
+    operator the L2 holds stays there, as in a training step).  A spin of
+    ``WARM_SPIN_CYCLES`` on the card between the copy and the first event
+    keeps the host's launch time out of the measurement, as the queue of a
+    step does (the spin touches no memory)."""
+    src = x.clone()
+    fn()
+    times = []
+    for _ in range(reps):
+        x.copy_(src)
+        torch.cuda._sleep(WARM_SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def cost_point(torch, report, half, f, label, held_out):
+    """One point of the cost model: the fused kernel on ``half`` at width
+    ``f``, warm and cold; logs the half's layout once (``cost-shape``) and
+    the point (``cost-point``), the lines tools/fit_kernel_costs.py reads,
+    and enters both into the run's record."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    if label not in report["cost_shapes"]:
+        tiles, rems = half.row_block_layout()
+        report["cost_shapes"][label] = (tiles, rems)
+        log("cost-shape " + json.dumps({"label": label,
+                                        "tiles": tiles.tolist(),
+                                        "rems": rems.tolist()}))
+    x = torch.randn(half.num_cols, f, device="cuda").to(half.blocks.dtype)
+
+    def run():
+        bcsr.hybrid_spmm(half, x)
+
+    c = COST_SWEEP
+    point = {"shape": label,
+             "dtype": "bf16" if half.blocks.dtype == torch.bfloat16
+             else "f32",
+             "f": f, "warm_ms": warm_ms(torch, run, x, c["warm_reps"]),
+             "cold_ms": cold_ms(torch, run, c["cold_reps"]),
+             "held_out": held_out}
+    log("cost-point " + json.dumps(point))
+    report["cost_points"].append(point)
+    return point
+
+
+@contextlib.contextmanager
+def default_costs(costs):
+    """Builds inside price their layout decisions by ``costs``."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    saved = bcsr.DEFAULT_COSTS
+    bcsr.DEFAULT_COSTS = costs
+    try:
+        yield
+    finally:
+        bcsr.DEFAULT_COSTS = saved
+
+
+def host_edges(graph):
+    """(senders, receivers) of ``graph``'s real edges, numpy."""
+    e = graph.num_edges
+    s_all, r_all, _ = graph.host_edges()
+    return np.asarray(s_all)[:e], np.asarray(r_all)[:e]
+
+
+def thetas(s, r, n, dtype, expected_f):
+    """``min_block_edges="auto"``'s θ for the operator of edges s -> r
+    under each cost model: {model name: θ}."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    return {costs.name: bcsr.tune_min_block_edges(
+        r, s, n, dtype=dtype, expected_f=expected_f, costs=costs)
+        for costs in (bcsr.TPU_V5E, bcsr.H100)}
 
 
 def tol_for(ref):
@@ -1339,6 +1484,10 @@ def phase_dynamic(torch, kernel_report):
                               min_block_edges="auto", pack=3)
         for g in graphs])
     sizes = [operator_bytes(m) for m in stacked]
+    log("  min_block_edges='auto' θ at F=64 under each cost model "
+        "(ops/bcsr.py: TPU_V5E, H100; the build used H100): "
+        + "; ".join(f"t={t} {thetas(*host_edges(g), n, torch.bfloat16, f)}"
+                    for t, g in enumerate(graphs)))
     log(f"  T={T} graphs of N={n}, E={e} each: operators built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{[round(b / 2**20, 1) for b in sizes]} MiB on the card "
@@ -1529,7 +1678,7 @@ def phase_evolve(torch, kernel_report):
     from pytorch_geometric_temporal_tpu_torch.models import (
         EvolveGCNHSeq, EvolveGCNOSeq)
     from pytorch_geometric_temporal_tpu_torch.ops import (
-        bcsr, stack_bcsr_gcn, stack_graphs)
+        bcsr, host_gcn_norm, stack_bcsr_gcn, stack_graphs)
     from pytorch_geometric_temporal_tpu_torch.train import mse
 
     c = DYNAMIC
@@ -1539,6 +1688,12 @@ def phase_evolve(torch, kernel_report):
     graphs = dynamic_graphs(rng)
     stacked = stack_bcsr_gcn(graphs, dtype=torch.bfloat16)
     dynamic = stack_graphs(graphs)
+    log("  min_block_edges='auto' θ of the GCN operators at "
+        "stack_bcsr_gcn's expected_f 64 under each cost model (ops/bcsr.py:"
+        " TPU_V5E, H100; the build used H100): " + "; ".join(
+            f"t={t} " + str(thetas(*host_edges(host_gcn_norm(g)), n,
+                                   torch.bfloat16, 64))
+            for t, g in enumerate(graphs)))
     log(f"  T={T} graphs of N={n}, E={n * c['deg']} each (+{n} self-loops): "
         f"GCN operators built in {time.perf_counter() - t0:.1f} s, "
         f"{sum(operator_bytes(m) for m in stacked) / 2**20:.1f} MiB on the "
@@ -2358,6 +2513,8 @@ def phase_index_pems(torch, kernel_report, smi):
     f_hop = bs * 2 * c["f"]
     report_fused(torch, kernel_report, mats[0].fwd, f_hop,
                  "PeMS index DCRNN f32")
+    cost_point(torch, kernel_report, mats[0].fwd, f_hop,
+               "pems-p15 P_fwd.fwd", held_out=True)
     sweep_f32_tile(torch, kernel_report, mats[0].fwd, f_hop,
                    "PeMS diffusion operator (N=11,160)")
     # the digest tiles the raw graph on the host: the diffusion operators'
@@ -3168,36 +3325,41 @@ def hop_breakdown(torch, mat, f, n=20):
     return out
 
 
-def reorder_costs(p, mat):
+def reorder_costs(p, mat, width):
     """``_reorder_costs`` on the diffusion graph ``p`` whose auto-built
-    operator is ``mat`` (ns, TPU v5e constants): the two orderings' costs,
-    the charge for the gathers, and the decision, at the arguments
-    ``spmm``'s auto route builds with (``from_graph``'s defaults); the host
-    seconds of the RCM pass and of the two cost-model passes."""
+    operator is ``mat``, under each cost model (ns): the two orderings'
+    costs, the charge for the gathers, and the decision, at the arguments
+    ``spmm``'s auto route builds with (``from_graph``'s defaults, the
+    flattened ``width``); the host seconds of the RCM pass and of each
+    model's two cost passes.  The default model's decision must be the
+    build's."""
     from pytorch_geometric_temporal_tpu_torch.native import (
         bandwidth_reduction_order)
     from pytorch_geometric_temporal_tpu_torch.ops import bcsr
 
     args = inspect.signature(bcsr.BCSRMatrix.from_graph).parameters
-    e, n = p.num_edges, p.num_nodes
-    s_all, r_all, _ = p.host_edges()
-    s, r = np.asarray(s_all)[:e], np.asarray(r_all)[:e]
+    n = p.num_nodes
+    s, r = host_edges(p)
     t0 = time.perf_counter()
     order = bandwidth_reduction_order(s, r, n)
-    t1 = time.perf_counter()
+    out = {"rcm_s": time.perf_counter() - t0}
     ip = np.empty_like(order)
     ip[order] = np.arange(n, dtype=np.int32)
-    cost0, cost1, gather = bcsr._reorder_costs(
-        r, s, ip[r], ip[s], n, bcsr.BLOCK, args["dtype"].default,
-        args["expected_f"].default, args["min_block_edges"].default)
-    t2 = time.perf_counter()
+    for costs in (bcsr.TPU_V5E, bcsr.H100):
+        t0 = time.perf_counter()
+        cost0, cost1, gather = bcsr._reorder_costs(
+            r, s, ip[r], ip[s], n, bcsr.BLOCK, args["dtype"].default, width,
+            args["min_block_edges"].default, costs=costs)
+        out[costs.name] = dict(cost0=cost0, cost1=cost1, gather=gather,
+                               keep=bool(cost1 + gather < cost0),
+                               cost_s=time.perf_counter() - t0)
+    if out[bcsr.DEFAULT_COSTS.name]["keep"] != (mat.perm is not None):
+        raise SystemExit("phase 21: the decision differs from the build")
     if mat.perm is not None and not np.array_equal(
             mat.perm.cpu().numpy()[:n], order):
         raise SystemExit("phase 21: the operator's permutation is not the "
                          "RCM order")
-    return dict(cost0=cost0, cost1=cost1, gather=gather,
-                keep=bool(cost1 + gather < cost0),
-                rcm_s=t1 - t0, cost_s=t2 - t1)
+    return out
 
 
 def scrambled_variant(torch, label, state, graph, x, y, scaler, reorder):
@@ -3251,7 +3413,8 @@ def scrambled_variant(torch, label, state, graph, x, y, scaler, reorder):
 
 def phase_pems_scrambled(torch, kernel_report, smi):
     """Phase 15's model and recipe on the same graph and series with the
-    sensor ids scrambled: spmm's auto route reorders both operators."""
+    sensor ids scrambled: spmm's auto route lays out both operators as the
+    default cost model decides, and the decision is held to the card."""
     from pytorch_geometric_temporal_tpu_torch import config_override
     from pytorch_geometric_temporal_tpu_torch.data._common import (
         make_index_loaders)
@@ -3296,14 +3459,37 @@ def phase_pems_scrambled(torch, kernel_report, smi):
     ref = outputs_and_param_grads(torch, model, lambda: model(x0, g), y0)
     trainer = BatchTrainer(model, lambda xb: model(xb, g_s), lr=1e-3,
                            scaler=scaler)
+    with config_override(spmm_backend="segment"):
+        want = outputs_and_param_grads(torch, model, lambda: model(x0s, g_s),
+                                       y0s)
+    # (b) the first batch on the RCM-reordered operators, which TPU v5e's
+    # model keeps here (built on another instance of the scrambled graph,
+    # so that they are cached apart): outputs and parameter gradients
+    # through _Permute and _PermuteBackward on the card, against the
+    # segment path and against the unscrambled run un-permuted by σ
+    g_rcm = Graph.from_edge_index(sigma[ei], w, num_nodes=n)
+    with default_costs(bcsr.TPU_V5E):
+        got = outputs_and_param_grads(torch, model,
+                                      lambda: model(x0s, g_rcm), y0s)
+    rcm_mats = [m for q in diffusion_norms(g_rcm)
+                for m in q._op_cache.values() if isinstance(m, BCSRMatrix)]
+    if len(rcm_mats) != 2 or any(m.perm is None for m in rcm_mats):
+        raise SystemExit("phase 21: TPU v5e's model did not reorder both "
+                         "operators")
+    log("  (b) the RCM-reordered operators (perm kept on both):")
+    compare_with_segment(torch, "scrambled-id DCRNN (RCM)", model, got, want,
+                         *PEMS_TOLS)
+    compare_with_segment(torch, "scrambled-id DCRNN (RCM)", model,
+                         (got[0][:, :, sigma_t], got[1]), ref, *PEMS_TOLS,
+                         against="the unscrambled run un-permuted by σ")
+    del got, rcm_mats
     with counted_builds() as builds:
-        # (b) the first batch against the segment path on the scrambled
-        # graph, and against the unscrambled run un-permuted by σ
+        # (b) the first batch on the run's own layout against the segment
+        # path on the scrambled graph, and against the unscrambled run
+        # un-permuted by σ
         got = outputs_and_param_grads(torch, model, lambda: model(x0s, g_s),
                                       y0s)
-        with config_override(spmm_backend="segment"):
-            want = outputs_and_param_grads(torch, model,
-                                           lambda: model(x0s, g_s), y0s)
+        log("  (b) the run's own layout (the default model's decision):")
         compare_with_segment(torch, "scrambled-id DCRNN", model, got, want,
                              *PEMS_TOLS)
         compare_with_segment(torch, "scrambled-id DCRNN", model,
@@ -3346,7 +3532,8 @@ def phase_pems_scrambled(torch, kernel_report, smi):
         raise SystemExit("phase 21: losses not finite or the epoch loss did "
                          "not fall")
 
-    # (a) the two auto-built operators, both reordered
+    # (a) the two auto-built operators, laid out as the default cost model
+    # decides ((f) holds the decision to the build)
     norms = diffusion_norms(g_s)
     mats = [m for q in norms for m in q._op_cache.values()
             if isinstance(m, BCSRMatrix)]
@@ -3359,41 +3546,60 @@ def phase_pems_scrambled(torch, kernel_report, smi):
                     f"nnzb={m.bwd.nnzb} rem={m.bwd.num_rem}"
                     for name, m in zip(("P_fwd", "P_bwd"), mats)))
     if builds.calls != 2 or len(mats) != 2 or any(
-            m.perm is None or m.fwd.blocks.dtype != torch.float32
-            for m in mats):
-        raise SystemExit("phase 21: expected two reordered f32 operators")
+            m.fwd.blocks.dtype != torch.float32 for m in mats):
+        raise SystemExit("phase 21: expected two f32 operators")
 
-    # (e) four variants at the same parameters on the same batch
+    # (e) five variants at the same parameters on the same batch: the run's
+    # own layout (auto, the default H100 model), the RCM order as TPU v5e's
+    # model keeps it (built on another instance of the scrambled graph, so
+    # that its operators are cached apart), as the ids come, reorder_graph
+    # once, and the unscrambled graph
+    g_v5e = Graph.from_edge_index(sigma[ei], w, num_nodes=n)
     g2, perm, _ = reorder_graph(g_s)
     perm_t = torch.from_numpy(perm).cuda().long()
     x0r, y0r = x0s[:, :, perm_t], y0s[:, :, perm_t]
-    runs = {
-        "i": scrambled_variant(torch, "i", state, g_s, x0s, y0s, scaler,
-                               "auto"),
+    runs = {"auto": scrambled_variant(torch, "auto", state, g_s, x0s, y0s,
+                                      scaler, "auto")}
+    with default_costs(bcsr.TPU_V5E):
+        runs["i"] = scrambled_variant(torch, "i", state, g_v5e, x0s, y0s,
+                                      scaler, "auto")
+    runs.update({
         "ii": scrambled_variant(torch, "ii", state, g_s, x0s, y0s, scaler,
                                 "off"),
         "iii": scrambled_variant(torch, "iii", state, g2, x0r, y0r, scaler,
                                  "off"),
         "iv": scrambled_variant(torch, "iv", state, g, x0, y0, scaler,
                                 "auto"),
-    }
+    })
+
     def p_fwd_operator(graph, reorder):
         # spmm's cache key for f32 tiles (ops/spmm.py: _auto_bcsr)
         return diffusion_norms(graph)[0]._op_cache[("bcsr", "None", reorder)]
 
-    ops = {"i": p_fwd_operator(g_s, "auto"), "ii": p_fwd_operator(g_s, None),
+    ops = {"auto": p_fwd_operator(g_s, "auto"),
+           "i": p_fwd_operator(g_v5e, "auto"),
+           "ii": p_fwd_operator(g_s, None),
            "iii": p_fwd_operator(g2, None), "iv": p_fwd_operator(g, "auto")}
     if ops["ii"].perm is not None or ops["iii"].perm is not None:
         raise SystemExit("phase 21: spmm_reorder='off' reordered")
+    if ops["i"].perm is None:
+        raise SystemExit("phase 21: TPU v5e's model did not reorder")
+    if ops["iv"].perm is not None:
+        raise SystemExit("phase 21: the unscrambled operator was reordered")
     f_hop = bs * 2 * c["f"]
-    titles = {"i": "scrambled, reordered (auto)",
+    titles = {"auto": "scrambled, spmm_reorder='auto' (H100 model)",
+              "i": "scrambled, reordered (TPU v5e model's choice)",
               "ii": "scrambled, as the ids come (off)",
               "iii": "reorder_graph once, no gathers a hop",
               "iv": "unscrambled (phase 15)"}
     for key, mat in ops.items():
         half = mat.fwd
         log(f"  ({key}) {titles[key]}: P_fwd forward half nnzb={half.nnzb} "
-            f"rem={half.num_rem}")
+            f"rem={half.num_rem}, perm "
+            f"{'kept' if mat.perm is not None else 'none'}")
+        if key in ("i", "ii"):
+            cost_point(torch, kernel_report, half, f_hop,
+                       f"pems-p21-{key} P_fwd.fwd", held_out=True)
         report_fused(torch, kernel_report, half, f_hop,
                      f"PeMS scrambled ({key}) f32")
         runs[key]["kernel_cold"] = kernel_report["paths"][-1][1]["ms"]
@@ -3418,46 +3624,76 @@ def phase_pems_scrambled(torch, kernel_report, smi):
     log(f"    (i)'s gathers: backward {gi['gather_bwd'] / gi['gather_fwd']:.2f}"
         f" times the forward")
 
-    # (f) the cost model's decision beside the measurement
+    # (f) both cost models' decisions beside the measurement; the default
+    # model's decision must be the build's and pick the faster variant
+    costs_of = {}
     for name, q, m in zip(("P_fwd", "P_bwd"), norms, mats):
-        cm = reorder_costs(q, m)
-        log(f"  (f) {name}: host RCM {cm['rcm_s']:.3f} s, the two cost-model "
-            f"passes {cm['cost_s']:.3f} s; _reorder_costs (TPU v5e "
-            f"constants C_TILE_NS, C_EDGE_NS; expected_f 64): as the ids come "
-            f"{cm['cost0'] / 1e3:.1f} us, reordered {cm['cost1'] / 1e3:.1f} "
-            f"us + gathers {cm['gather'] / 1e3:.1f} us = "
-            f"{(cm['cost1'] + cm['gather']) / 1e3:.1f} us: "
-            f"{'reorder' if cm['keep'] else 'keep the order'}")
-        if cm["keep"] != (m.perm is not None):
-            raise SystemExit("phase 21: the decision differs from the build")
+        cm = costs_of[name] = reorder_costs(q, m, f_hop)
+        log(f"  (f) {name}: host RCM {cm['rcm_s']:.3f} s; _reorder_costs at "
+            f"F={f_hop}, f32 tiles, min_block_edges 32: " + "; ".join(
+                f"{key} ({cm[key]['cost_s']:.3f} s) as the ids come "
+                f"{cm[key]['cost0'] / 1e3:.1f} us, reordered "
+                f"{cm[key]['cost1'] / 1e3:.1f} us + gathers "
+                f"{cm[key]['gather'] / 1e3:.1f} us = "
+                f"{(cm[key]['cost1'] + cm[key]['gather']) / 1e3:.1f} us: "
+                f"{'reorder' if cm[key]['keep'] else 'keep the ids'}"
+                for key in ("tpu_v5e", "h100")))
+    h = costs_of["P_fwd"][bcsr.H100.name]
+    hop_gathers = (runs["i"]["hop"]["fwd_bwd"]["gather_fwd"]
+                   + runs["i"]["hop"]["fwd_bwd"]["gather_bwd"]) * 1e3
+    log(f"  (f) P_fwd: the H100 model's charge for the four gathers a hop "
+        f"{h['gather'] / 1e3:.1f} us against {hop_gathers:.1f} us of gather "
+        f"kernels in (i)'s hop (profiler, forward + backward, warm), "
+        f"{(h['gather'] / 1e3 / hop_gathers - 1) * 100:+.1f}%; the decision "
+        f"would turn to reorder only below "
+        f"{(h['cost0'] - h['cost1']) / 1e3:.1f} us")
     hop_i = runs["i"]["kernel_cold"] + runs["i"]["hop"]["fwd"]["gather_fwd"]
     hop_ii = runs["ii"]["kernel_cold"]
-    step_i, step_ii = runs["i"]["busy_ms"], runs["ii"]["busy_ms"]
+    busy = {k: r["busy_ms"] for k, r in runs.items()}
+    faster = "i" if busy["i"] < busy["ii"] else "ii"
+    apart = abs(busy["i"] - busy["ii"]) > DECISION_MARGIN * min(
+        busy["i"], busy["ii"])
+    chose = "i" if ops["auto"].perm is not None else "ii"
     log(f"  (f) measured on {smi} at F={f_hop}: a forward hop (the kernel "
         f"cold + the two gathers) reordered {hop_i:.4f} ms against "
-        f"{hop_ii:.4f} ms as the ids come "
-        f"({'right' if hop_i < hop_ii else 'wrong'} by the hop); device "
-        f"busy a train step {step_i:.3f} against {step_ii:.3f} ms "
-        f"({'right' if step_i < step_ii else 'wrong'} by the step)")
+        f"{hop_ii:.4f} ms as the ids come; device busy a train step "
+        f"reordered (i) {busy['i']:.3f} against {busy['ii']:.3f} ms as the "
+        f"ids come (ii): ({faster}) faster by "
+        f"{abs(busy['i'] / busy['ii'] - 1) * 100:.1f}% (margin "
+        f"{DECISION_MARGIN * 100:.0f}%); the auto run chose ({chose}) and "
+        f"its busy {busy['auto']:.3f} ms is "
+        f"{(busy['auto'] / busy[chose] - 1) * 100:+.2f}% of ({chose})'s "
+        f"(limit {AUTO_BUSY_TOL * 100:.0f}%)")
+    if apart and chose != faster:
+        raise SystemExit("phase 21: the auto decision is the slower variant")
+    if abs(busy["auto"] / busy[chose] - 1) > AUTO_BUSY_TOL:
+        raise SystemExit("phase 21: the auto run's busy differs from its "
+                         "variant's")
 
 
-def recovery_graph(torch):
-    """``bench.py:bench_reorder_recovery``'s draw: the banded graph under
-    scrambled ids, weights normalized by the weighted in-degree, and x."""
-    from pytorch_geometric_temporal_tpu_torch.ops import Graph
-
+def recovery_edges(rng):
+    """``bench.py:bench_reorder_recovery``'s draw (the first draws of
+    ``rng``): the banded graph under scrambled ids, weights normalized by
+    the weighted in-degree; (edge_index, weights)."""
     c = RECOVERY
     n, e = c["n"], c["n"] * c["deg"]
-    rng = np.random.default_rng(c["seed"])
     s = rng.integers(0, n, size=e)
     r = np.clip(s + rng.integers(-c["band"], c["band"] + 1, size=e), 0, n - 1)
     scram = rng.permutation(n)
     w = rng.uniform(0.1, 1.0, e).astype(np.float32)
     d = np.bincount(r, weights=w, minlength=n).astype(np.float32)
-    w = w / np.maximum(d[r], 1e-6)
-    g = Graph.from_edge_index(np.stack([scram[s], scram[r]]), w,
-                              num_nodes=n)
-    x = torch.from_numpy(rng.normal(size=(n, c["f"])).astype(
+    return np.stack([scram[s], scram[r]]), w / np.maximum(d[r], 1e-6)
+
+
+def recovery_graph(torch):
+    """:func:`recovery_edges`' graph and x, on the card."""
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph
+
+    c = RECOVERY
+    rng = np.random.default_rng(c["seed"])
+    ei, w = recovery_edges(rng)
+    g = Graph.from_edge_index(ei, w, num_nodes=c["n"])
+    x = torch.from_numpy(rng.normal(size=(c["n"], c["f"])).astype(
         np.float32)).cuda()
     return g, x
 
@@ -3472,23 +3708,33 @@ def phase_recovery(torch, kernel_report, smi):
     c = RECOVERY
     n, f = c["n"], c["f"]
     g, x = recovery_graph(torch)
-    mats = {}
-    for key, reorder in (("plain", None), ("reordered", "auto")):
+    s_e, r_e = host_edges(g)
+    # the plain operator at TPU v5e's θ and at the default H100 model's,
+    # and the reordered one as the H100 model decides
+    mats, theta = {}, {}
+    for key, reorder, costs in (("plain_v5e", None, bcsr.TPU_V5E),
+                                ("plain", None, bcsr.H100),
+                                ("reordered", "auto", bcsr.H100)):
         t0 = time.perf_counter()
         mats[key] = mat = BCSRMatrix.from_graph(
             g, dtype=torch.bfloat16, min_block_edges="auto", expected_f=f,
-            reorder=reorder)
+            reorder=reorder, costs=costs)
         secs = time.perf_counter() - t0
+        ip = (np.arange(n) if mat.perm is None
+              else mat.iperm.cpu().numpy()[:n])
+        theta[key] = thetas(ip[s_e], ip[r_e], n, torch.bfloat16, f)
         tiles_b = mat.fwd.nnzb * 128 * 128 * 2
         host_b = sum(a.nbytes for half in (mat.fwd, mat.bwd)
                      for a in half._host.values())
-        log(f"  ({key}) reorder={reorder!r}: built in {secs:.2f} s (host); "
-            f"fwd nnzb={mat.fwd.nnzb} rem={mat.fwd.num_rem}, bwd "
-            f"nnzb={mat.bwd.nnzb} rem={mat.bwd.num_rem}; bf16 tiles "
+        log(f"  ({key}) reorder={reorder!r}, costs={costs.name}: built in "
+            f"{secs:.2f} s (host); min_block_edges='auto' θ at F={f} "
+            f"{theta[key]}; fwd nnzb={mat.fwd.nnzb} rem={mat.fwd.num_rem}, "
+            f"bwd nnzb={mat.bwd.nnzb} rem={mat.bwd.num_rem}; bf16 tiles "
             f"{tiles_b / 1e9:.3f} GB a half, {operator_bytes(mat) / 1e9:.3f} "
             f"GB on the card in all, {host_b / 1e9:.3f} GB of host arrays "
             f"kept; perm {'kept' if mat.perm is not None else 'none'}")
-    if mats["plain"].perm is not None or mats["reordered"].perm is None:
+    if (mats["plain_v5e"].perm is not None or mats["plain"].perm is not None
+            or mats["reordered"].perm is None):
         raise SystemExit("phase 22: reorder='auto' did not reorder")
 
     # the kernels against their plain versions on every half at F=64
@@ -3510,7 +3756,7 @@ def phase_recovery(torch, kernel_report, smi):
     bcsr.reset_launch_counts()
     outs = {key: bcsr_spmm(mat, x) for key, mat in mats.items()}
     launches = launch_counts(bcsr)
-    if launches != {"H": 2, "K1": 0, "K2": 0}:
+    if launches != {"H": len(mats), "K1": 0, "K2": 0}:
         raise SystemExit(f"phase 22: launches {launches}, expected one a call")
     kernel_report["H"]["launches"] += launches["H"]
     for key, out in outs.items():
@@ -3526,18 +3772,32 @@ def phase_recovery(torch, kernel_report, smi):
         report_fused(torch, kernel_report, mat.fwd, f,
                      f"recovery N=20,000 {key} bf16")
         ks[key] = kernel_report["paths"][-1][1]
+        cost_point(torch, kernel_report, mat.fwd, f,
+                   f"recovery-p22-{key} fwd", held_out=True)
+    v5e_theta, h100_theta = theta["plain_v5e"]["tpu_v5e"], theta["plain"][
+        "h100"]
+    log(f"  (a) on {smi}: the plain operator cold at F={f}: θ={h100_theta} "
+        f"(H100 model) {ks['plain']['ms']:.4f} ms against θ={v5e_theta} "
+        f"(TPU v5e model) {ks['plain_v5e']['ms']:.4f} ms (ratio "
+        f"{ks['plain_v5e']['ms'] / ks['plain']['ms']:.2f}); torch.sparse.mm "
+        f"{ks['plain']['library_ms']:.4f} ms")
+    if h100_theta != v5e_theta and ks["plain"]["ms"] > ks["plain_v5e"]["ms"]:
+        raise SystemExit("phase 22: the plain operator at the H100 model's "
+                         "θ is slower than at TPU v5e's")
     mat_r = mats["reordered"]
     out_pad = bcsr.bcsr_matmul(mat_r.fwd, x_pad)
     g_in = cold_ms(torch, lambda: x_pad[mat_r.perm])
     g_out = cold_ms(torch, lambda: out_pad[mat_r.iperm])
-    ratio = ks["plain"]["ms"] / ks["reordered"]["ms"]
-    ratio_g = ks["plain"]["ms"] / (ks["reordered"]["ms"] + g_in + g_out)
-    log(f"  (a) on {smi}: the fused kernel cold at F={f} as the ids come "
-        f"{ks['plain']['ms']:.4f} ms, reordered {ks['reordered']['ms']:.4f} ms "
-        f"(ratio {ratio:.2f}); the gathers cold x[perm] {g_in:.4f} ms and "
-        f"out[iperm] {g_out:.4f} ms (ratio with them {ratio_g:.2f}); the JAX "
-        f"package's record on a TPU v5e (BENCH_r05.json, another chip): "
-        f"{RECOVERY_RECORD_TPU_V5E}x")
+    for key in ("plain_v5e", "plain"):
+        ratio = ks[key]["ms"] / ks["reordered"]["ms"]
+        ratio_g = ks[key]["ms"] / (ks["reordered"]["ms"] + g_in + g_out)
+        log(f"  (a) on {smi}: the fused kernel cold at F={f} as the ids come "
+            f"({key}) {ks[key]['ms']:.4f} ms, reordered "
+            f"{ks['reordered']['ms']:.4f} ms (ratio {ratio:.2f}); the "
+            f"gathers cold x[perm] {g_in:.4f} ms and out[iperm] {g_out:.4f} "
+            f"ms (ratio with them {ratio_g:.2f})")
+    log(f"  the JAX package's record of the ratio at its θ on a TPU v5e "
+        f"(BENCH_r05.json, another chip): {RECOVERY_RECORD_TPU_V5E}x")
     del mats, outs, mat_r, x_pad, out_pad
 
     avwgcn_topk_on_the_card(torch, smi)
@@ -3596,6 +3856,90 @@ def avwgcn_topk_on_the_card(torch, smi):
                          "differs from the CPU")
 
 
+def sweep_edges(rng, nrb, tile_range, rem_range):
+    """(receivers, senders, tiles, rems) of one synthetic half of phase 23:
+    row block rb holds tiles[rb] blocks of ``tile_edges`` edges in distinct
+    column blocks and rems[rb] edges spread over its other column blocks."""
+    c = COST_SWEEP
+    tiles = rng.integers(tile_range[0], tile_range[1] + 1, size=nrb)
+    rems = rng.integers(rem_range[0], rem_range[1] + 1, size=nrb)
+    rows, cols = [], []
+    for rb in range(nrb):
+        cbs = rng.permutation(nrb)
+        k = tiles[rb] * c["tile_edges"]
+        rows.append(rb * 128 + rng.integers(0, 128, size=k + rems[rb]))
+        cols.append(np.concatenate([
+            np.repeat(cbs[:tiles[rb]], c["tile_edges"]),
+            rng.choice(cbs[tiles[rb]:], size=rems[rb])]) * 128
+            + rng.integers(0, 128, size=k + rems[rb]))
+    return (np.concatenate(rows).astype(np.int32),
+            np.concatenate(cols).astype(np.int32), tiles, rems)
+
+
+def phase_cost_model(torch, report, smi):
+    """The H100 cost model against the card: the fused kernel on phase 23's
+    synthetic halves at every width and tile dtype, warm and cold; the
+    permutation gathers; the committed constants' (ops/bcsr.py: H100)
+    predictions against every point, the held-out operators of phases 15,
+    21 and 22 among them, and the constants refitted on this run's sweep
+    (tools/fit_kernel_costs.py)."""
+    import importlib.util
+
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    spec = importlib.util.spec_from_file_location(
+        "fit_kernel_costs", Path(__file__).resolve().parent / "tools"
+        / "fit_kernel_costs.py")
+    fit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fit)
+    c = COST_SWEEP
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(c["seed"])
+    for label, nrb, tile_range, rem_range in COST_SHAPES:
+        rows, cols, tiles, rems = sweep_edges(rng, nrb, tile_range, rem_range)
+        vals = rng.uniform(0.1, 1.0, rows.size).astype(np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            half = bcsr._build_half(rows, cols, vals, nrb * 128, 128, dtype,
+                                    c["theta"], 1, device="cuda")
+            got = half.row_block_layout()
+            if not (np.array_equal(got[0], tiles)
+                    and np.array_equal(got[1], rems)):
+                raise SystemExit(f"phase 23: {label} is not laid out as "
+                                 f"drawn")
+            for f in c["fs"]:
+                cost_point(torch, report, half, f, label, held_out=False)
+            del half
+    gathers = []
+    for n_pad in c["gather_rows"]:
+        idx = torch.randperm(n_pad, device="cuda")
+        for f in c["fs"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(n_pad, f, device="cuda").to(dtype)
+                g = {"n_pad": n_pad, "f": f, "bytes": x.element_size(),
+                     "warm_ms": warm_ms(torch, lambda: x[idx], x,
+                                        c["warm_reps"])}
+                log("gather-point " + json.dumps(g))
+                gathers.append(g)
+    log(f"  {len(report['cost_points'])} points on {len(COST_SHAPES)} "
+        f"synthetic shapes x {len(c['fs'])} widths x 2 tile dtypes and the "
+        f"held-out operators, {len(gathers)} gathers, in "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    shapes, points = report["cost_shapes"], report["cost_points"]
+    med = fit.report(shapes, points, gathers, fit.committed(),
+                     f"the committed constants (ops/bcsr.py: H100) on {smi}",
+                     log=lambda line: log("  " + line))
+    fit.report(shapes, points, gathers, fit.fit(shapes, points, gathers),
+               f"refit on this run's sweep on {smi}",
+               log=lambda line: log("  " + line))
+    worst = max(med[0], med[1], med[3])
+    if worst > COST_MEDIAN_TOL:
+        raise SystemExit(f"phase 23: the committed model's median relative "
+                         f"error {worst * 100:.1f}% passes "
+                         f"{COST_MEDIAN_TOL * 100:.0f}% (sweep "
+                         f"{med[0] * 100:.1f}%, held out {med[1] * 100:.1f}%"
+                         f", gathers {med[3] * 100:.1f}%)")
+
+
 def main() -> int:
     import torch
 
@@ -3620,7 +3964,8 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     phase_kernel_cases(torch)
     log("== phase 3: DCRNNSeq training at N=50k over BCSR operators")
-    report = {"f32_other_libs": other_libs, "f32_sweep": []}
+    report = {"f32_other_libs": other_libs, "f32_sweep": [],
+              "cost_shapes": {}, "cost_points": []}
     phase_slice(torch, report)
     log("== phase 4: dense path (METR-LA shape)")
     phase_dense(torch)
@@ -3667,6 +4012,8 @@ def main() -> int:
     log("== phase 22: the reorder-recovery twin at N=20,000 and AVWGCN's "
         "sparse top-k")
     phase_recovery(torch, report, smi)
+    log("== phase 23: the BCSR builder's H100 cost model against the card")
+    phase_cost_model(torch, report, smi)
 
     kernels = []
     jax_bcsr = "pytorch_geometric_temporal_tpu/ops/bcsr.py"

@@ -110,6 +110,13 @@ class _BCSRHalf:
                                       torch.diff(self.rem_ptr).long())
         return rbs * BLOCK + self.rem_lrows.long()
 
+    def row_block_layout(self):
+        """(kept tiles, remainder edges) of each row block, int64 numpy:
+        what the makespan cost model (:func:`cta_loads`) prices."""
+        tiles = np.diff(self.tile_ptr.cpu().numpy()).astype(np.int64)
+        rems = np.diff(self.rem_row_ptr.cpu().numpy()[::BLOCK])
+        return tiles, rems.astype(np.int64)
+
 
 @dataclasses.dataclass(frozen=True)
 class BCSRMatrix:
@@ -130,16 +137,21 @@ class BCSRMatrix:
     @staticmethod
     def from_graph(graph: Graph, dtype=None, min_block_edges=32,
                    expected_f: int = 64, pack="auto", rem_k: int = REM_K,
-                   reorder=None) -> "BCSRMatrix":
+                   reorder=None,
+                   costs: Optional[KernelCosts] = None) -> "BCSRMatrix":
         """Host-side construction from a Graph (aggregation M[r,s] = w),
         on the graph's device, with 128×128 tiles (the kernels' size).
 
         ``dtype=torch.bfloat16`` stores bf16 tiles (x is then cast to bf16
         in the kernels; accumulation stays f32).  ``min_block_edges``,
         ``expected_f``, ``pack``, ``rem_k`` and ``reorder`` mean what they
-        mean in the JAX package, whose cost-model constants (fitted on a
-        TPU) are kept as they are for parity.  ``pack`` only shapes the
-        step arrays kept in ``_host``; the CUDA kernels do not use them.
+        mean in the JAX package.  Its two layout decisions,
+        ``min_block_edges="auto"`` and ``reorder="auto"``, are priced by
+        ``costs`` (default :data:`DEFAULT_COSTS`, the :data:`H100` makespan
+        model of the fused kernel at width ``expected_f``);
+        ``costs=TPU_V5E`` makes the JAX package's decisions.  ``pack``
+        only shapes the step arrays kept in ``_host``; the CUDA kernels do
+        not use them.
         """
         block = BLOCK
         device = graph.device
@@ -162,7 +174,7 @@ class BCSRMatrix:
             s_new, r_new = ip[s], ip[r]
             keep = reorder == "rcm" or _reorder_pays_off(
                 r, s, r_new, s_new, n, block, dtype, expected_f,
-                min_block_edges,
+                min_block_edges, costs,
             )
             if keep:
                 s, r = s_new, r_new
@@ -173,7 +185,7 @@ class BCSRMatrix:
                     [ip, np.arange(n, n_pad, dtype=np.int32)])
         if min_block_edges == "auto":
             min_block_edges = tune_min_block_edges(
-                r, s, n, block, dtype, expected_f)
+                r, s, n, block, dtype, expected_f, costs=costs)
 
         def index(a):
             return None if a is None else torch.from_numpy(a).to(
@@ -190,56 +202,272 @@ class BCSRMatrix:
         )
 
 
-# Kernel-time constants of the JAX package's cost model, fitted there on a
-# TPU (see the JAX package's ops/bcsr.py); kept unchanged so both packages
-# make the same spill and packing decisions.
+# ---------------------------------------------------------------------------
+# Cost models of the BCSR builder's two layout decisions: the spill threshold
+# (min_block_edges="auto") and whether to keep the RCM order (reorder="auto")
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCosts:
+    """Kernel-time constants of one device, in ns, that the builder prices
+    an operator's layout by.  Two forms:
+
+    - **linear** (``sms == 0``), the JAX package's TPU v5e model: a kept
+      tile costs ``tile_ns`` (its DMA share scaled by the tile's and x's
+      bytes), a spilled edge ``edge_ns``, a row of each of the two per-call
+      gathers ``row_ns``; one half (the forward one) is priced.
+    - **makespan** (``sms > 0``), ``csrc/hybrid_spmm.cu`` on an NVIDIA card:
+      ``sms`` persistent CTAs walk the items (row block rb, feature tile),
+      CTA c the items c, c + G, ... with G = min(items, sms).  Item cost is
+      ``a + b_tile·t(rb)·chunks + b_rem·⌈r(rb)/RE⌉`` over rb's kept tiles
+      t and spilled edges r, with the feature tile FT, the K chunks a tile
+      and the remainder stage's RE edges as the kernel derives them (see
+      :func:`_fused_shape`).  A half costs ``launch`` plus its most loaded
+      CTA's sum, floored by its bytes (kept tiles, 8 B a spilled edge, x
+      once, the f32 output once) at ``bytes_per_ns``; both halves are
+      priced.  ``bf16`` and ``f32`` hold, per tile dtype, (launch, a0, a1,
+      b0, b1, r0, r1): a = a0 + a1·FT, b_tile = b0 + b1·FT, b_rem = r0 +
+      r1·RE·FT.  ``gather`` is (g0, ns a row, bytes a ns) of one
+      permutation gather: g0 + rows·row_ns + bytes/bw.
+    """
+
+    name: str
+    tile_ns: float = 0.0
+    edge_ns: float = 0.0
+    row_ns: float = 0.0
+    sms: int = 0
+    bf16: tuple = ()
+    f32: tuple = ()
+    gather: tuple = ()
+    bytes_per_ns: float = 0.0
+
+    @property
+    def makespan(self) -> bool:
+        return self.sms > 0
+
+
+# The JAX package's model, fitted there on a TPU v5e (see its ops/bcsr.py):
+# a kept tile at pack=4 is 254 ns a grid step / 4 + 39 ns of DMA a slot; a
+# spilled edge ~2 ns of XLA row gather + ~2.9 ns of one-hot scatter, ×1.24
+# of chunk padding; a permuted row 2 ns.  Kept so that ``costs=TPU_V5E``
+# makes the JAX package's decisions, float for float.
 C_TILE_NS = 254.0 / 4 + 39.0
 C_EDGE_NS = (2.0 + 2.9) * 1.24
+TPU_V5E = KernelCosts("tpu_v5e", tile_ns=C_TILE_NS, edge_ns=C_EDGE_NS,
+                      row_ns=2.0)
+# Fitted by tools/fit_kernel_costs.py on the warm times of chip_smoke.py's
+# phase 23 (the fused kernel on 13 synthetic halves of 0-4 tiles and 0-5,000
+# remainder edges a row block, 40 to 300 row blocks, F in {32, 64, 96, 256,
+# 768}, bf16 and f32 tiles; x just written, no L2 flush; the gathers at
+# 11,264 to 38,400 rows) on an NVIDIA H100 80GB HBM3 at 700.00 W: median
+# relative error 2.8% over those 130 points, 8.4% over six held-out
+# operators of phases 15, 21 and 22.  132 SMs; HBM3 at 3.35 TB/s.
+H100 = KernelCosts(
+    "h100", sms=132, bytes_per_ns=3350.0,
+    bf16=(6229.0, 157.8, 13.98, 72.26, 5.857, 1105.0, 0.01899),
+    f32=(6501.0, 1055.0, 0.0, 180.8, 24.76, 312.2, 0.1378),
+    gather=(4873.0, 0.5364, 6492.0),
+)
+# what every build prices by unless given ``costs=`` (looked up at call
+# time, so a test may patch it)
+DEFAULT_COSTS = H100
+# at most this many candidate thresholds a makespan sweep
+MAX_THETA_CANDIDATES = 256
+# the widest f32 feature tile hybrid_spmm.cu is built with (PGTT_F32_MAX_FT)
+F32_MAX_FT = 96
+
+
+def _costs(costs) -> KernelCosts:
+    return DEFAULT_COSTS if costs is None else costs
+
+
+def _fused_shape(f: int, bf16: bool):
+    """(FT, feature tiles, K chunks a tile, RE) of ``hybrid_spmm.cu`` at
+    width ``f``: its ``pgtt_hybrid_spmm`` (feature tiles of at most 128
+    bf16 or ``F32_MAX_FT`` f32 features, the n-tile count from its
+    instantiations) and ``Cfg`` (128-byte K chunks; RE, the remainder
+    edges a stage, the largest power of two, at most 128, whose x rows fit
+    in a stage's tile and x boxes)."""
+    f = max(int(f), 1)
+    nft = -(-f // (128 if bf16 else F32_MAX_FT))
+    width = -(-f // nft)
+    ft = 8 * next((t for t in (1, 2, 4, 5, 6, 8, 12, 16) if 8 * t >= width),
+                  16)
+    s = 2 if bf16 else 4
+    kc = 128 // s
+    a_bytes = BLOCK * 128
+    b_bytes = -(-ft * s // 128) * kc * 128
+    row = -(-ft * s // 16) * 16
+    fit = min((a_bytes + b_bytes) // row, 128)
+    return ft, nft, BLOCK // kc, 1 << (fit.bit_length() - 1)
+
+
+def cta_loads(tiles, rems, f: int, bf16: bool, sms: int):
+    """What each CTA of one fused-kernel launch walks: ``tiles`` and
+    ``rems`` are (C, row blocks) arrays of kept tiles and remainder edges a
+    row block, one row a candidate layout.  CTA c takes items c, c + G, ...
+    (G = min(items, sms); item i is row block i mod nrb).  Returns (items,
+    tile K chunks, remainder stages), each (C, G) summed over a CTA's
+    items, and the kernel's FT and RE at width ``f``."""
+    ft, nft, chunks, re = _fused_shape(f, bf16)
+    tiles = np.atleast_2d(np.asarray(tiles, np.float64))
+    rems = np.atleast_2d(np.asarray(rems, np.float64))
+    nrb = tiles.shape[1]
+    items = nrb * nft
+    g = min(items, sms)
+    waves = -(-items // g)
+    rb_of_slot = np.arange(waves * g) % nrb
+    real = np.arange(waves * g) < items
+    per_item = (np.broadcast_to(1.0, tiles.shape), tiles * chunks,
+                np.ceil(rems / re))
+    out = [np.empty((tiles.shape[0], g)) for _ in per_item]
+    step = max(1, (1 << 22) // (waves * g))
+    for c0 in range(0, tiles.shape[0], step):
+        for q, o in zip(per_item, out):
+            slots = q[c0:c0 + step][:, rb_of_slot] * real
+            o[c0:c0 + step] = slots.reshape(-1, waves, g).sum(1)
+    return (*out, ft, re)
+
+
+def fused_kernel_ns(costs: KernelCosts, tiles, rems, f: int, bf16: bool):
+    """The makespan model's ns of one fused-kernel launch on the layouts of
+    :func:`cta_loads`: launch plus the most loaded CTA's items; (C,) ns,
+    not yet floored by bytes (:func:`_half_ns` does that)."""
+    launch, a0, a1, b0, b1, r0, r1 = costs.bf16 if bf16 else costs.f32
+    n, chunks, stages, ft, re = cta_loads(tiles, rems, f, bf16, costs.sms)
+    work = (n * (a0 + a1 * ft) + chunks * (b0 + b1 * ft)
+            + stages * (r0 + r1 * re * ft))
+    return launch + work.max(1)
+
+
+def half_bytes(tiles, rems, f: int, bf16: bool):
+    """(C,) bytes one half must move on the layouts of :func:`cta_loads`:
+    its kept tiles, 8 B a remainder edge, x once in the tiles' type and the
+    f32 output once."""
+    s = 2 if bf16 else 4
+    tiles = np.atleast_2d(tiles)
+    rems = np.atleast_2d(rems)
+    return (tiles.sum(1) * BLOCK * BLOCK * s + rems.sum(1) * 8
+            + tiles.shape[1] * BLOCK * f * (s + 4))
+
+
+def _half_ns(costs, tiles, rems, f, bf16):
+    """:func:`fused_kernel_ns` floored by :func:`half_bytes` at
+    ``costs.bytes_per_ns``."""
+    return np.maximum(fused_kernel_ns(costs, tiles, rems, f, bf16),
+                      half_bytes(tiles, rems, f, bf16) / costs.bytes_per_ns)
+
+
+def gather_ns(gather, rows: int, f: int, size: int) -> float:
+    """One permutation gather of ``rows`` rows of ``f`` elements of
+    ``size`` bytes: g0 + rows·row_ns + (read + write bytes)/bw."""
+    g0, row_ns, bw = gather
+    return g0 + rows * row_ns + 2 * rows * f * size / bw
+
+
+def _theta_candidates(order, fixed, subsample):
+    """The thresholds a sweep prices: ``fixed`` alone, or each distinct
+    count of the sorted ``order`` and one past the largest (spill all),
+    ``subsample``d to ``MAX_THETA_CANDIDATES`` evenly by rank."""
+    if fixed is not None:
+        return np.asarray([fixed])
+    cands = np.unique(np.concatenate([order, [order[-1] + 1]]))
+    if subsample and len(cands) > MAX_THETA_CANDIDATES:
+        pick = np.linspace(0, len(cands) - 1, MAX_THETA_CANDIDATES)
+        cands = cands[np.unique(np.round(pick).astype(np.int64))]
+    return cands
+
+
+def _makespan_costs(costs, cnt, block_rows, block_cols, nb, bf16, f, cands):
+    """(C,) ns of both halves at each candidate threshold: per row block,
+    the kept tiles and spilled edges at θ by cumulative sums over the
+    (row block, occupancy) histogram; the backward half's row blocks are
+    the forward half's column blocks."""
+    first_spill = np.searchsorted(cands, cnt, side="right")
+    total = np.zeros(len(cands))
+    for rb in (block_rows, block_cols):
+        key = first_spill * nb + rb
+        size = (len(cands) + 1) * nb
+        spilled = np.cumsum(np.bincount(key, minlength=size).reshape(
+            -1, nb), axis=0)[:-1]
+        spilled_edges = np.cumsum(np.bincount(
+            key, weights=cnt, minlength=size).reshape(-1, nb), axis=0)[:-1]
+        tiles = np.bincount(rb, minlength=nb)[None, :] - spilled
+        total += _half_ns(costs, tiles, spilled_edges, f, bf16)
+    return total
 
 
 def tune_min_block_edges(rows, cols, n, block=BLOCK, dtype=None,
                          expected_f: int = 64,
-                         tile_ns: float = C_TILE_NS,
-                         edge_ns: float = C_EDGE_NS,
+                         tile_ns: Optional[float] = None,
+                         edge_ns: Optional[float] = None,
                          max_tile_bytes: int = 1 << 30,
                          _return_cost: bool = False,
-                         _fixed_theta=None):
-    """Pick the tile/COO spill threshold from the block-occupancy histogram.
+                         _fixed_theta=None,
+                         costs: Optional[KernelCosts] = None):
+    """Pick the tile/COO spill threshold θ (edges of a 128×128 block below
+    which they spill to the remainder) from the block-occupancy histogram.
 
-    Total cost = kept_tiles(θ)·tile_ns + spilled_edges(θ)·edge_ns over the
-    distinct occupancy counts θ, with kept tiles capped at
-    ``max_tile_bytes``; returns the argmin θ (see the JAX package).
+    Candidates are the distinct occupancy counts and one past the largest
+    (spill everything); kept tiles are capped at ``max_tile_bytes``.  Under
+    ``costs`` (default :data:`DEFAULT_COSTS`):
+
+    - the linear model (:data:`TPU_V5E`): kept_tiles(θ)·tile_ns +
+      spilled_edges(θ)·edge_ns over the half ``rows`` receive, θ and cost
+      exactly the JAX package's; ``tile_ns`` / ``edge_ns`` override the
+      model's own;
+    - the makespan model (:data:`H100`): both halves' fused-kernel ns at
+      width ``expected_f`` (:func:`fused_kernel_ns`, floored by bytes).
+      With more than ``MAX_THETA_CANDIDATES`` distinct counts, that many
+      are taken evenly by rank among them, the smallest and the spill-all
+      candidate always among them.
+
+    Returns θ, or (θ, cost in ns) with ``_return_cost``;
+    ``_fixed_theta`` prices that θ alone.
     """
     from ..native import bcsr_structure
 
+    costs = _costs(costs)
+    if costs.makespan and (tile_ns is not None or edge_ns is not None):
+        raise ValueError("tile_ns / edge_ns belong to the linear (TPU v5e) "
+                         f"cost model, not to {costs.name!r}")
     rows = np.ascontiguousarray(rows, np.int32)
     cols = np.ascontiguousarray(cols, np.int32)
     n_pad = _round_up(max(n, 1), block)
-    nnzb, block_of_edge, _, _ = bcsr_structure(cols, rows, block,
-                                               n_pad // block)
+    nnzb, block_of_edge, block_rows, block_cols = bcsr_structure(
+        cols, rows, block, n_pad // block)
     e = len(rows)
     if nnzb == 0 or e == 0:
         return (0, 0.0) if _return_cost else 0
     cnt = np.bincount(block_of_edge, minlength=nnzb)
     s_tile = 2 if _is_bf16(dtype) else 4
-    f_eff = expected_f if expected_f <= 128 else _round_up(expected_f, 128)
-    dma_scale = (block * block * s_tile + block * f_eff * s_tile) / 49152.0
-    t_tile = (tile_ns - 39.0) + 39.0 * dma_scale
     order = np.sort(cnt)
-    if _fixed_theta is not None:
-        cands = np.asarray([_fixed_theta])
-    else:
-        cands = np.unique(np.concatenate([order, [order[-1] + 1]]))
+    cands = _theta_candidates(order, _fixed_theta, costs.makespan)
     csum = np.cumsum(order)
     total = csum[-1]
+    if costs.makespan:
+        cost_of = _makespan_costs(costs, cnt, block_rows, block_cols,
+                                  n_pad // block, _is_bf16(dtype),
+                                  expected_f, cands)
+    else:
+        tile_ns = costs.tile_ns if tile_ns is None else tile_ns
+        edge_ns = costs.edge_ns if edge_ns is None else edge_ns
+        f_eff = (expected_f if expected_f <= 128
+                 else _round_up(expected_f, 128))
+        dma_scale = (block * block * s_tile + block * f_eff * s_tile) / 49152.0
+        t_tile = (tile_ns - 39.0) + 39.0 * dma_scale
     best_theta, best_cost = int(cands[-1]), np.inf
-    for theta in cands:
+    for j, theta in enumerate(cands):
         k = np.searchsorted(order, theta, side="left")
         kept_tiles = len(order) - k
         kept_edges = total - (csum[k - 1] if k > 0 else 0)
         if kept_tiles * block * block * s_tile > max_tile_bytes:
             continue
-        cost = kept_tiles * t_tile + (e - kept_edges) * edge_ns
+        if costs.makespan:
+            cost = float(cost_of[j])
+        else:
+            cost = kept_tiles * t_tile + (e - kept_edges) * edge_ns
         if cost < best_cost:
             best_cost, best_theta = cost, int(theta)
     if _return_cost:
@@ -247,26 +475,46 @@ def tune_min_block_edges(rows, cols, n, block=BLOCK, dtype=None,
     return best_theta
 
 
+def _gather_ns(costs, n_pad, dtype, expected_f):
+    """The charge for a reordered operator's permutation gathers, ns a
+    call: the linear model's input gather and output un-gather at
+    ``row_ns`` a row; the makespan model's four of a training hop
+    (``_Permute`` in and out, forward and backward), each g0, a charge a
+    row (the gather kernel is bound by its row rate at narrow widths) and
+    n_pad rows of ``expected_f`` features read and written once, x and its
+    gradient in the tiles' dtype, the output and its gradient in f32."""
+    if not costs.makespan:
+        return 2 * n_pad * costs.row_ns
+    s_x = 2 if _is_bf16(dtype) else 4
+    return sum(gather_ns(costs.gather, n_pad, expected_f, s)
+               for s in (s_x, s_x, 4, 4))
+
+
 def _reorder_costs(r0, s0, r1, s1, n, block, dtype, expected_f,
-                   min_block_edges="auto"):
+                   min_block_edges="auto", costs=None):
     """The cost model's (cost0, cost1, gather_ns) in ns: the caller's
-    ordering, the relabeled one, and the charge for the per-call input
-    gather and output un-gather, at the threshold the operator will be
-    built with."""
+    ordering, the relabeled one, and the charge for the gathers
+    (:func:`_gather_ns`), at the threshold the operator will be built with
+    (the fixed one, or each ordering's own tuned θ)."""
+    costs = _costs(costs)
     fixed = None if min_block_edges == "auto" else int(min_block_edges)
     _, cost0 = tune_min_block_edges(r0, s0, n, block, dtype, expected_f,
-                                    _return_cost=True, _fixed_theta=fixed)
+                                    _return_cost=True, _fixed_theta=fixed,
+                                    costs=costs)
     _, cost1 = tune_min_block_edges(r1, s1, n, block, dtype, expected_f,
-                                    _return_cost=True, _fixed_theta=fixed)
-    return cost0, cost1, 2.0 * _round_up(n, block) * 2
+                                    _return_cost=True, _fixed_theta=fixed,
+                                    costs=costs)
+    return cost0, cost1, _gather_ns(costs, _round_up(n, block), dtype,
+                                    expected_f)
 
 
 def _reorder_pays_off(r0, s0, r1, s1, n, block, dtype, expected_f,
-                      min_block_edges="auto") -> bool:
+                      min_block_edges="auto", costs=None) -> bool:
     """``reorder='auto'``: keep the relabeled ordering only when its cost,
     plus the gathers, beats the caller's (:func:`_reorder_costs`)."""
     cost0, cost1, gather_ns = _reorder_costs(r0, s0, r1, s1, n, block, dtype,
-                                             expected_f, min_block_edges)
+                                             expected_f, min_block_edges,
+                                             costs)
     return cost1 + gather_ns < cost0
 
 

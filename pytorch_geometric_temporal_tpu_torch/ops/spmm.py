@@ -61,17 +61,21 @@ def spmm_segment(graph: Graph, x: torch.Tensor, weights=None) -> torch.Tensor:
     return out.index_add_(-2, graph.receivers, msgs)
 
 
-def _auto_bcsr(graph: Graph, x_dtype):
+def _auto_bcsr(graph: Graph, x_dtype, width: int = 64):
     """Build (once, host-side) and cache the BCSR operator for this graph:
     bf16 tiles for bf16 activations, f32 otherwise; reordered per
-    ``spmm_reorder``."""
+    ``spmm_reorder``, the decision priced at ``width`` features (``spmm``
+    passes the width ``bcsr_spmm`` flattens the building call's x to).
+    The memo key holds no width: the first call's width decides the
+    layout for every later call on this graph, at any width."""
     from .bcsr import BCSRMatrix
 
     tile_dtype = torch.bfloat16 if x_dtype == torch.bfloat16 else None
     reorder = "auto" if get_config().spmm_reorder == "auto" else None
     return _memo(graph, ("bcsr", str(tile_dtype), reorder),
                  lambda: BCSRMatrix.from_graph(graph, dtype=tile_dtype,
-                                               reorder=reorder))
+                                               reorder=reorder,
+                                               expected_f=width))
 
 
 def spmm(
@@ -109,7 +113,9 @@ def spmm(
         if (weights is not None or graph.num_src is not None
                 or graph.transient):
             return spmm_segment(graph, x, weights)
-        return bcsr_spmm(_auto_bcsr(graph, x.dtype), x)
+        # leading dims fold into the feature axis (bcsr_spmm)
+        width = max(x.numel() // max(graph.num_nodes, 1), 1)
+        return bcsr_spmm(_auto_bcsr(graph, x.dtype, width), x)
     raise ValueError(f"unknown spmm backend {b!r}")
 
 

@@ -142,7 +142,8 @@ def test_from_graph_matches_jax(reorder, mbe):
     ei, w = banded(5, n, 15000, scramble=reorder is not None)
     jg, tg = both_graphs(ei, w, n)
     jm = jb.BCSRMatrix.from_graph(jg, min_block_edges=mbe, reorder=reorder)
-    tm = tb.BCSRMatrix.from_graph(tg, min_block_edges=mbe, reorder=reorder)
+    tm = tb.BCSRMatrix.from_graph(tg, min_block_edges=mbe, reorder=reorder,
+                                  costs=tb.TPU_V5E)
     assert (jm.perm is None) == (tm.perm is None)
     if jm.perm is not None:
         np.testing.assert_array_equal(tm.perm.numpy(), np.asarray(jm.perm))
@@ -171,13 +172,14 @@ def test_tuners_match_jax():
     n = 2000
     ei, w = banded(1, n, 30000)
     for bf16 in (False, True):
-        assert tb.tune_min_block_edges(ei[1], ei[0], n, dtype=t_dtype(bf16)) \
+        assert tb.tune_min_block_edges(ei[1], ei[0], n, dtype=t_dtype(bf16),
+                                       costs=tb.TPU_V5E) \
             == jb.tune_min_block_edges(ei[1], ei[0], n, dtype=j_dtype(bf16))
     cnt = np.random.default_rng(0).integers(0, 9, size=50)
     assert tb.tune_pack(cnt) == jb.tune_pack(cnt)
     jg, tg = both_graphs(ei, w, n)
     jm = jb.BCSRMatrix.from_graph(jg, dtype=jnp.bfloat16)
-    tm = tb.BCSRMatrix.from_graph(tg, dtype=torch.bfloat16)
+    tm = tb.BCSRMatrix.from_graph(tg, dtype=torch.bfloat16, costs=tb.TPU_V5E)
     for f in (64, 300):
         assert tb.hybrid_hbm_bytes(tm.fwd, f) == jb.hybrid_hbm_bytes(jm.fwd, f)
 
@@ -337,8 +339,8 @@ def test_cpu_wrapper_takes_plain_and_counts_nothing():
                                               (True, "rcm"), (True, "auto")])
 def test_bcsr_spmm_autograd_matches_jax(batched, reorder):
     # 'auto' on a sparse narrow band (two edges a node within ±8): its
-    # scrambled blocks fall under min_block_edges, so both packages' cost
-    # models keep the RCM order and the gradient runs through the
+    # scrambled blocks fall under min_block_edges, so both packages' TPU
+    # v5e cost models keep the RCM order and the gradient runs through the
     # permutations
     f = 6
     if reorder == "auto":
@@ -349,7 +351,7 @@ def test_bcsr_spmm_autograd_matches_jax(batched, reorder):
         ei, w = banded(8, n, 8000, scramble=reorder is not None)
     jg, tg = both_graphs(ei, w, n)
     jm = jb.BCSRMatrix.from_graph(jg, reorder=reorder)
-    tm = tb.BCSRMatrix.from_graph(tg, reorder=reorder)
+    tm = tb.BCSRMatrix.from_graph(tg, reorder=reorder, costs=tb.TPU_V5E)
     assert tm.fwd.num_rem > 0
     assert (tm.perm is None) == (jm.perm is None) == (reorder is None)
     if reorder is not None:

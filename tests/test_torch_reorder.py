@@ -32,6 +32,7 @@ from pytorch_geometric_temporal_tpu_torch import config_override
 from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq, _cells
 from pytorch_geometric_temporal_tpu_torch.models import conv as tconv
 from pytorch_geometric_temporal_tpu_torch.ops import Graph as TGraph
+from pytorch_geometric_temporal_tpu_torch.ops import bcsr as tb
 from pytorch_geometric_temporal_tpu_torch.ops import reorder_graph
 from pytorch_geometric_temporal_tpu_torch.ops.graph import diffusion_norms
 
@@ -88,11 +89,13 @@ def assert_close_by_scale(got, want, msg=""):
                                err_msg=msg)
 
 
-def test_dcrnnseq_reordered_bcsr_matches_jax():
+def test_dcrnnseq_reordered_bcsr_matches_jax(monkeypatch):
     """Both packages build the reordered operator through their spmm auto
     route (the port's ``bcsr`` backend, the JAX package's ``pallas``
     backend and its CPU fallback), keep the same permutation, and give the
-    same outputs and parameter gradients."""
+    same outputs and parameter gradients; the port's decisions priced by
+    the JAX package's TPU v5e cost model."""
+    monkeypatch.setattr(tb, "DEFAULT_COSTS", tb.TPU_V5E)
     ei, w, sigma = pems_like()
     ei_s, _ = scramble(ei, np.zeros((N, 1), np.float32), sigma)
     x, cot = inputs()
@@ -142,10 +145,12 @@ def _recipe_run(model, tg_s, x_s, cot_s):
 
 
 @pytest.mark.parametrize("route", ["auto", "off", "reorder_graph"])
-def test_scrambled_run_is_equivariant(route):
+def test_scrambled_run_is_equivariant(route, monkeypatch):
     """The port's run on the scrambled graph and series, un-permuted by σ,
     equals its run on the graph in its own ids: with the operator
-    reordered (auto), as the ids come (off), and through the recipe."""
+    reordered (auto, priced by the TPU v5e cost model, which keeps the
+    RCM order here), as the ids come (off), and through the recipe."""
+    monkeypatch.setattr(tb, "DEFAULT_COSTS", tb.TPU_V5E)
     ei, w, sigma = pems_like()
     x, cot = inputs()
     ei_s, x_s = scramble(ei, x, sigma)
@@ -250,11 +255,10 @@ def test_permutation_gradient_equals_indexing_bit_for_bit():
     """``bcsr_spmm``'s permutations (``_Permute``: a gather forward, the
     inverse gather backward) give indexing's values and gradients bit for
     bit, alone and around the reordered operator."""
-    from pytorch_geometric_temporal_tpu_torch.ops import bcsr as tb
-
     ei, w, sigma = pems_like()
     tg = TGraph.from_edge_index(sigma[ei], w, num_nodes=N, device="cpu")
-    mat = tb.BCSRMatrix.from_graph(tg, reorder="auto")
+    # the TPU v5e cost model keeps the RCM order here
+    mat = tb.BCSRMatrix.from_graph(tg, reorder="auto", costs=tb.TPU_V5E)
     assert mat.perm is not None
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(N, 5)).astype(np.float32))
