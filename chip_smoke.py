@@ -269,6 +269,18 @@ WATCHDOG_S = 1150
 # tiles at F=200; the f32 digests of phases 2 and 15 draw x from DIGEST_SEED
 KERNEL_CASE_FS = (1, 8, 14, 16, 32, 36, 48, 64, 96, 128, 200)
 DIGEST_SEED = 7
+# the f32 digests of phases 2 and 15: each output one fmaf chain, the tile
+# products k ascending then the remainder edges in column order, as every
+# fused kernel has summed (a change of the sum order changes them)
+PHASE2_F32_DIGEST = ("3c72d6bd71379c9426008c1b6f044b6b"
+                     "ba6fe83c8f20385372fcbaf974b9707b")
+PHASE15_F32_DIGEST = ("856eaabe6b3df0ee496da8b67344d9d8"
+                      "39cf1b7c67d7e8b11f206b2f0a19080e")
+# phase 2's remainder cases: a remainder-only operator of ~1,000 tasks, a
+# row of HUB_EDGES edges beside a banded graph, and x rows that are not
+# 16-byte aligned on a remainder-only operator
+REMAINDER_CASE = dict(n=16_384, e=400_000, band=300, seed=6)
+HUB_CASE = dict(n=1500, e=12_000, hub=700, hub_edges=20_000, seed=3)
 # the widest f32 feature tiles phases 14 and 15 time against each other
 F32_FT_SWEEP = (64, 96, 128)
 # phase 11: the protocol at full size, and at the size at which the JAX
@@ -374,7 +386,10 @@ AUTO_BUSY_TOL = 0.03
 # and f32 tiles, timed warm and cold; the permutation gathers at
 # ``gather_rows`` x ``fs``.  Shapes: (label, row blocks, tiles a row block
 # (low, high), remainder edges a row block (low, high)), under one wave of
-# 132 CTAs and over two
+# 132 CTAs and over two, the remainder-only ones cut into tasks (s64-r20k:
+# ~20 a row block).  Beside the sweep, phase 2's hub graph is timed at
+# every width (``hub-point`` lines, which the fit does not read: the model
+# sees row blocks, not rows)
 COST_SWEEP = dict(fs=(32, 64, 96, 256, 768), seed=11, theta=400,
                   tile_edges=600, warm_reps=20, cold_reps=10,
                   gather_rows=(11_264, 20_096, 38_400))
@@ -392,6 +407,7 @@ COST_SHAPES = (
     ("s300-t0-4", 300, (0, 4), (0, 0)),
     ("s300-mix", 300, (1, 3), (0, 1000)),
     ("s300-r0-2k", 300, (0, 0), (0, 2000)),
+    ("s64-r20k", 64, (0, 0), (15000, 20000)),
 )
 # cycles the card spins before each warm launch (~0.5 ms at 1.98 GHz), longer
 # than the host takes to launch the fused kernel from Python
@@ -587,8 +603,8 @@ def finish_hybrid_build(started):
         raise SystemExit(f"nvcc failed on {out.name}:\n{stderr}")
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, p, p, i, p, i, i,
-                                     p]
+    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, i, i, p, p, p, p, i, p,
+                                     i, p]
     lib.pgtt_hybrid_spmm.restype = i
     return lib
 
@@ -600,10 +616,11 @@ def hybrid_with(torch, lib, half, x):
     out = torch.empty((half.num_rows, f), dtype=torch.float32, device="cuda")
     rc = lib.pgtt_hybrid_spmm(
         half.blocks.data_ptr(), half.blocks.shape[0],
-        int(half.blocks.dtype == torch.bfloat16), half.tile_ptr.data_ptr(),
-        half.block_cols.data_ptr(), half.rem_row_ptr.data_ptr(),
+        int(half.blocks.dtype == torch.bfloat16), half.block_cols.data_ptr(),
+        half.items.data_ptr(), half.num_block_items, half.items.shape[0],
+        half.rem_row_ptr.data_ptr(),
         half.rem_row_cols.data_ptr(), half.rem_row_vals.data_ptr(),
-        x.data_ptr(), half.num_cols, out.data_ptr(), half.num_rows // 128, f,
+        x.data_ptr(), half.num_cols, out.data_ptr(), f,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise SystemExit(f"hybrid_spmm of another build: CUDA error {rc}")
@@ -707,6 +724,13 @@ def phase_kernel_cases(torch):
                                              num_nodes=n), 32),
         "gcn": (host_gcn_norm(whole), 32),
     }
+    c = REMAINDER_CASE
+    ei_r, w_r = banded_graph(np.random.default_rng(c["seed"]), c["n"],
+                             c["e"], c["band"])
+    graphs["remainder-large"] = (
+        Graph.from_edge_index(ei_r, w_r, num_nodes=c["n"]), 10**6)
+    graphs["hub"] = (hub_graph(Graph), 10**6)
+    graphs["ragged-remainder"] = (whole, 10**6)
     worst = 0.0
     for name, (g, mbe) in graphs.items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -716,6 +740,8 @@ def phase_kernel_cases(torch):
                 for f in KERNEL_CASE_FS:
                     x = torch.randn(half.num_cols, f, device="cuda")
                     x = x.to(dtype)
+                    if name == "ragged-remainder":
+                        x = unaligned(torch, x)
                     errs = check_kernels(torch, bcsr, half, x)
                     ok = all(e <= t for e, t in errs.values())
                     log(f"  {name:13s} {str(dtype)[6:]:8s} {side} F={f:3d} "
@@ -729,6 +755,34 @@ def phase_kernel_cases(torch):
     digest = f32_digest(torch, (mat.fwd, mat.bwd), KERNEL_CASE_FS, DIGEST_SEED)
     log(f"  f32 digest, the hybrid operator's two halves at F in "
         f"{KERNEL_CASE_FS}, x from numpy seed {DIGEST_SEED}: {digest}")
+    if digest != PHASE2_F32_DIGEST:
+        raise SystemExit(f"phase 2: the f32 digest {digest} is not "
+                         f"{PHASE2_F32_DIGEST}: a sum's order changed")
+
+
+def hub_graph(Graph):
+    """``HUB_CASE``'s graph: a banded graph and one row that receives
+    ``hub_edges`` edges from random senders."""
+    c = HUB_CASE
+    rng = np.random.default_rng(c["seed"])
+    ei, w = banded_graph(rng, c["n"], c["e"], band=40)
+    hub_s = rng.integers(0, c["n"], c["hub_edges"])
+    ei = np.concatenate([ei, np.stack([hub_s, np.full_like(hub_s, c["hub"])])],
+                        1)
+    w = np.concatenate([w, rng.uniform(0.1, 1.0, c["hub_edges"]).astype(
+        np.float32)])
+    return Graph.from_edge_index(ei, w, num_nodes=c["n"])
+
+
+def unaligned(torch, x):
+    """A contiguous copy of x whose rows start one element past a 16-byte
+    boundary, so that no kernel can read it in 16-byte units."""
+    n, f = x.shape
+    buf = torch.empty(n * f + 8, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + n * f].view(n, f)
+    out.copy_(x)
+    assert out.data_ptr() % 16
+    return out
 
 
 def _csr_of(torch, rows, cols, vals, shape):
@@ -836,13 +890,16 @@ def log_kernel(name, k):
 
 
 def report_fused(torch, kernel_report, half, f, label):
-    """:func:`fused_report` at width ``f`` on ``half``, logged and entered
-    into the run's record as the path ``label``."""
+    """:func:`fused_report` at width ``f`` on ``half``, logged with the
+    half's item list, and entered into the run's record as the path
+    ``label``."""
     x = torch.randn(half.num_cols, f, device="cuda").to(half.blocks.dtype)
     k = fused_report(torch, half, x)
     log_kernel(f"fused hybrid_spmm F={f}", k)
     log(f"    fused / torch.sparse.mm {k['ms'] / k['library_ms']:.3f}; "
-        f"err {k['max_abs_err']:.2e}")
+        f"err {k['max_abs_err']:.2e}; nnzb={half.nnzb} rem={half.num_rem}: "
+        f"{half.num_block_items} row-block items + "
+        f"{half.items.shape[0] - half.num_block_items} remainder-only tasks")
     kernel_report["H"]["max_abs_err"] = max(
         kernel_report["H"]["max_abs_err"], k["max_abs_err"])
     kernel_report["paths"].append((f"{label} F={f}", k))
@@ -2521,9 +2578,13 @@ def phase_index_pems(torch, kernel_report, smi):
     # weights are normalized on the card with atomics, so their last bits
     # may change from run to run
     raw = BCSRMatrix.from_graph(g, dtype=torch.float32).fwd
+    digest = f32_digest(torch, [raw], [f_hop], DIGEST_SEED)
     log(f"  f32 digest, the raw PeMS graph's forward half (nnzb={raw.nnzb} "
         f"rem={raw.num_rem}) at F={f_hop}, x from numpy seed {DIGEST_SEED}: "
-        f"{f32_digest(torch, [raw], [f_hop], DIGEST_SEED)}")
+        f"{digest}")
+    if digest != PHASE15_F32_DIGEST:
+        raise SystemExit(f"phase 15: the f32 digest {digest} is not "
+                         f"{PHASE15_F32_DIGEST}: a sum's order changed")
 
 
 def rel_err(got, want):
@@ -3909,6 +3970,29 @@ def phase_cost_model(torch, report, smi):
             for f in c["fs"]:
                 cost_point(torch, report, half, f, label, held_out=False)
             del half
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph
+
+    for dtype in (torch.bfloat16, torch.float32):
+        hub = bcsr.BCSRMatrix.from_graph(hub_graph(Graph), dtype=dtype,
+                                         min_block_edges=10**6).fwd
+        tiles, rems = hub.row_block_layout()
+        hub_csr = _csr_of(torch, hub.rem_rows, hub.rem_cols.long(),
+                          hub.rem_vals.to(dtype),
+                          (hub.num_rows, hub.num_cols))
+        for f in c["fs"]:
+            x = torch.randn(hub.num_cols, f, device="cuda").to(dtype)
+            log("hub-point " + json.dumps({
+                "dtype": "bf16" if dtype == torch.bfloat16 else "f32",
+                "f": f, "edges": hub.num_rem,
+                "longest_row": int(torch.diff(hub.rem_row_ptr).max()),
+                "cold_ms": cold_ms(torch, lambda: bcsr.hybrid_spmm(hub, x),
+                                   c["cold_reps"]),
+                "library_ms": cold_ms(
+                    torch, lambda: torch.sparse.mm(hub_csr, x),
+                    c["cold_reps"]),
+                "model_ms": float(bcsr._half_ns(
+                    bcsr.H100, tiles, rems, f,
+                    dtype == torch.bfloat16)[0]) / 1e6}))
     gathers = []
     for n_pad in c["gather_rows"]:
         idx = torch.randperm(n_pad, device="cuda")

@@ -20,9 +20,17 @@
 // for ~3.7 GFLOP, ~55 flop/byte, far under the ~295 flop/byte at which the
 // bf16 tensor cores would bind.  What the design does about it:
 //  - Persistent CTAs, one per SM (as many as fit), each walking work items
-//    (row block, feature tile) item = blockIdx.x, += gridDim.x.  No tail
-//    wave; the load pipeline runs on across item boundaries, so one row
-//    block's epilogue overlaps the next one's loads.
+//    item = blockIdx.x, += gridDim.x over a static list the builder makes
+//    (ops/bcsr.py _kernel_items, one 32-byte descriptor a row range):
+//    first the (row block, feature tile) items of the row blocks that keep
+//    tiles (and of those with neither tiles nor remainder edges, which come
+//    out zero), then the (remainder-only task, feature tile) items, where a
+//    task is a range of rows of a row block that keeps no tile, cut so that
+//    tasks hold about equal remainder edges (a row is never split; a longer
+//    row is a task of its own).  Each warp copies the next item's
+//    descriptor (cp.async) while the current one runs.  No tail wave; the
+//    load pipeline runs on across item boundaries, so one item's epilogue
+//    overlaps the next one's loads.
 //  - Warp specialisation and TMA: a producer thread keeps a ring of up to
 //    six ~33 KB stages (as many as shared memory holds beside the epilogue
 //    block: five at F=96) full with 2-D tensor-map copies
@@ -72,18 +80,28 @@
 //    0.89-1.00 ms).  96 keeps more device time a step on the paths the
 //    port drives: 94 launches at F=256 a DCRNN step, 2 at F=768 an ASTGCN
 //    one.
-//  - Remainder in the epilogue: the accumulator goes to a shared-memory
-//    block (128 x FT f32) and each warp adds the remainder edges of its own
-//    16 rows there (rem_row_ptr over the (row, col)-sorted edges), each lane
-//    on (row, 16-byte feature unit) pairs: no atomics, no second pass over
-//    the output, deterministic sums.  The x rows those edges gather travel
-//    through the same ring: after a row block's tile stages the producer
-//    warps fill remainder stages of up to 128 edges (one bulk copy per
-//    gathered x row over the whole stage, the values after it), with the
-//    indices of up to EDGE_BATCH edges loaded before the row block's
-//    tiles, so the gathers are in flight while the consumers still
-//    multiply.  (cp.async for these gathers measured slower.)  The block
-//    is then written once with coalesced 16-byte stores.
+//  - Remainder in the epilogue, spread over all 256 consumer threads.  The
+//    accumulator goes to a shared-memory block (128 x FT f32) and the
+//    item's row pointers to shared memory (cp.async, issued before the
+//    tiles).  The x rows the remainder edges gather travel through the same
+//    ring: after an item's tile stages the producer warps fill remainder
+//    stages of up to 128 edges, the values after the rows, from the edges'
+//    indices a batch of EDGE_BATCH at a time (the item's first loaded
+//    before its tiles), so the gathers are in flight while the consumers
+//    still multiply.  A row of 192 bytes or more comes by one bulk copy, a
+//    narrower one by 16-byte cp.async copies that the stage's "full"
+//    barrier waits for (cp.async.mbarrier.arrive): each measured ahead of
+//    the other at those widths.  Consumer thread t owns 16-byte feature
+//    unit u = t % nu of the rows t / nu, + 256 / nu, ... (nu units a row):
+//    consecutive rows land on different warps, every warp works every
+//    stage, and each output has one owner for the whole item, which adds
+//    its row's edges in edge order, four edges' loads ahead of their FMAs,
+//    from the tile products (or 0), and writes the output once its last
+//    edge is in: no atomics, deterministic sums, no second pass.  (The
+//    first design gave a stage's rows to the one warp that owned them,
+//    ~1.2 us a stage, and walked 128-row blocks; gathering x straight from
+//    global memory, each owner a window of loads ahead, measured slower
+//    still: its latency chains bound it, not bytes.)
 //  - A ragged F (x rows not 16-byte aligned, which a tensor map cannot
 //    describe) has the producer warps store x element by element into the
 //    same swizzled layout, zero past F; nothing is copied to pad F.
@@ -103,11 +121,12 @@ namespace {
 constexpr int BLK = 128;          // tile edge (ops/bcsr.py BLOCK)
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr int MAX_STAGES = 6;     // ring depth, where shared memory allows
-constexpr int CONSUMER_WARPS = 8; // warp w owns rows 16w .. 16w + 15
+constexpr int CONSUMER_WARPS = 8; // warp w: rows 16w .. 16w + 15 of a tile
+constexpr int CT = CONSUMER_WARPS * 32;  // consumer threads
 // producer threads: thread 0 issues the tensor-map copies, all of them the
 // remainder's row copies (four warps measured faster than one or two)
 constexpr int NP = 4 * 32;
-constexpr int THREADS = CONSUMER_WARPS * 32 + NP;
+constexpr int THREADS = CT + NP;
 constexpr int UNIT = 16;          // bytes per vector access
 constexpr int SW = 128;           // bytes per swizzled row (TMA box width)
 // remainder edges whose indices a producer thread holds at once
@@ -137,13 +156,18 @@ struct Cfg {
       pow2_floor((A_BYTES + B_BYTES) / RROW < 128 ? (A_BYTES + B_BYTES) / RROW
                                                   : 128);
   static constexpr int V_BYTES = RE * 4;
+  // the remainder's x rows by TMA bulk copies from 192 bytes a row, by
+  // 16-byte cp.async below (measured: bulk ahead at 192 and 384 bytes,
+  // cp.async at 128)
+  static constexpr bool BULK = RROW >= 192;
   static constexpr int STAGE_BYTES =
       (A_BYTES + B_BYTES + V_BYTES + 1023) / 1024 * 1024;  // swizzle atoms
   static constexpr int CS = FT + 8;                   // f32 stride of the epilogue block
   static constexpr int C_BYTES = BLK * CS * 4;
   static constexpr int FIXED = 1024 /* alignment */ + C_BYTES +
                                2 * MAX_STAGES * 8 /* barriers */ +
-                               CONSUMER_WARPS * 17 * 4 /* row pointers */;
+                               2 * CONSUMER_WARPS * 32 /* item slots */ +
+                               2 * (BLK + 1) * 4 /* row pointers */;
   // as deep a ring as shared memory holds
   static constexpr int STAGES =
       (SMEM_MAX - FIXED) / STAGE_BYTES < MAX_STAGES
@@ -320,18 +344,78 @@ __device__ __forceinline__ void fma_unit(float (&a)[8], float v, uint4 q,
   a[3] = fmaf(v, __uint_as_float(q.w), a[3]);
 }
 
+// the consumer warps' own barrier (the producers never wait on it)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CT) : "memory");
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, L2 only)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes global -> shared through L1 (cp.async.ca)
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes global -> shared (cp.async.ca)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// one more pending arrival on `bar`, made when this thread's cp.async
+// copies so far have landed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// an item's descriptor (ops/bcsr.py _kernel_items): rows [row0, row0 +
+// nrows), tiles [t0, t1), remainder edges [p0, p1)
+struct Item {
+  int row0, nrows, t0, t1, p0, p1, pad0, pad1;
+};
+
+// item i of the list: the row blocks' items for each feature tile, then the
+// tasks' (num_block of the num_base descriptors are row blocks)
+__device__ __forceinline__ int item_base(int i, int num_block, int num_base,
+                                         int nft, int& ft) {
+  const int nb = num_block * nft;
+  if (i < nb) {
+    ft = i / num_block;
+    return i - ft * num_block;
+  }
+  const int nk = num_base - num_block;
+  ft = (i - nb) / nk;
+  return num_block + (i - nb - ft * nk);
+}
+
 template <typename T, int NT>
 __device__ __forceinline__ void produce(
     unsigned char* smem, uint32_t full0, uint32_t empty0,
     const CUtensorMap* map_a, const CUtensorMap* map_x,
-    const int* __restrict__ tile_ptr, const int* __restrict__ block_cols,
-    const int* __restrict__ rem_row_ptr, const int* __restrict__ rem_cols,
-    const float* __restrict__ rem_vals, const T* __restrict__ x,
-    int num_row_blocks, int num_items, int F, int x_vec) {
+    const int* __restrict__ block_cols, const Item* __restrict__ items,
+    int num_block, int num_base, const int* __restrict__ rem_cols,
+    const float* __restrict__ rem_vals, const T* __restrict__ x, int F,
+    int x_vec) {
   using C = Cfg<T, NT>;
   // raw bits of one element: zero bits are +0.0 in both dtypes
   using Raw = std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>;
-  const int pt = threadIdx.x - CONSUMER_WARPS * 32;  // producer thread
+  const int pt = threadIdx.x - CT;  // producer thread
   const uint32_t smem0 = smem_u32(smem);
   int stage = 0;
   uint32_t phase = 0;
@@ -341,25 +425,22 @@ __device__ __forceinline__ void produce(
       phase ^= 1;
     }
   };
-  // the next item's remainder edge range, loaded one item ahead
-  int next_p0 = 0, next_p1 = 0;
-  if (blockIdx.x < num_items) {
-    const int rb = blockIdx.x % num_row_blocks;
-    next_p0 = rem_row_ptr[rb * BLK];
-    next_p1 = rem_row_ptr[rb * BLK + BLK];
-  }
+  const int nft = (F + C::FT - 1) / C::FT;
+  const int num_items = num_base * nft;
+  int ft;
+  // the next item's descriptor, loaded one item ahead
+  Item next{};
+  if (blockIdx.x < num_items)
+    next = items[item_base(blockIdx.x, num_block, num_base, nft, ft)];
   for (int item = blockIdx.x; item < num_items; item += gridDim.x) {
-    const int ft = item / num_row_blocks;
-    const int rb = item - ft * num_row_blocks;
+    const Item it = next;
+    if (item + gridDim.x < num_items)
+      next = items[item_base(item + gridDim.x, num_block, num_base, nft, ft)];
+    item_base(item, num_block, num_base, nft, ft);
     const int f0 = ft * C::FT;
     const int nf = min(C::FT, F - f0);
     const uint32_t x_bytes = nf * sizeof(T);  // one x row of this tile
-    const int p0 = next_p0, p1 = next_p1;
-    if (item + gridDim.x < num_items) {
-      const int nrb = (item + gridDim.x) % num_row_blocks;
-      next_p0 = rem_row_ptr[nrb * BLK];
-      next_p1 = rem_row_ptr[nrb * BLK + BLK];
-    }
+    const int p0 = it.p0, p1 = it.p1;
     // a batch of EDGE_BATCH remainder edges (this thread's slots: edge
     // batch0 + pt + NP q), loaded before the tiles so that the indices of
     // the gathers are at hand when their stages come
@@ -377,8 +458,7 @@ __device__ __forceinline__ void produce(
     };
     load_batch(p0);
 
-    const int t_end = tile_ptr[rb + 1];
-    for (int t = tile_ptr[rb]; t < t_end; ++t) {
+    for (int t = it.t0; t < it.t1; ++t) {
       const int xrow0 = block_cols[t] * BLK;
       for (int kc = 0; kc < C::CHUNKS; ++kc) {
         mbar_wait(empty0 + 8 * stage, phase ^ 1);
@@ -422,75 +502,249 @@ __device__ __forceinline__ void produce(
       unsigned char* rs = smem + stage * C::STAGE_BYTES;
       float* vs = reinterpret_cast<float*>(rs + C::A_BYTES + C::B_BYTES);
       const int e1 = min(e0 + C::RE, p1);
-      uint32_t bytes = 0;
-#pragma unroll
-      for (int q = 0; q < EDGE_SLOTS; ++q) {
-        const int e = batch0 + pt + NP * q;
-        if (e < e0 || e >= e1) continue;
-        vs[e - e0] = bval[q];
-        if (x_vec) {
-          bytes += x_bytes;
-        } else {
-          Raw* row = reinterpret_cast<Raw*>(rs + (e - e0) * C::RROW);
-          const Raw* xr = reinterpret_cast<const Raw*>(
-              x + (size_t)bcol[q] * F + f0);
-          for (int j = 0; j < C::FT; ++j) row[j] = j < nf ? xr[j] : Raw(0);
-        }
-      }
-      mbar_arrive_expect_tx(full, bytes);
-      if (x_vec) {
+      if constexpr (C::BULK) {  // one bulk copy per gathered x row
+        uint32_t bytes = 0;
 #pragma unroll
         for (int q = 0; q < EDGE_SLOTS; ++q) {
           const int e = batch0 + pt + NP * q;
           if (e < e0 || e >= e1) continue;
-          bulk_copy(r_s + (e - e0) * C::RROW, x + (size_t)bcol[q] * F + f0,
-                    x_bytes, full);
+          vs[e - e0] = bval[q];
+          if (x_vec) {
+            bytes += x_bytes;
+          } else {
+            Raw* row = reinterpret_cast<Raw*>(rs + (e - e0) * C::RROW);
+            const Raw* xr = reinterpret_cast<const Raw*>(
+                x + (size_t)bcol[q] * F + f0);
+            for (int j = 0; j < C::FT; ++j) row[j] = j < nf ? xr[j] : Raw(0);
+          }
         }
+        mbar_arrive_expect_tx(full, bytes);
+        if (x_vec) {
+#pragma unroll
+          for (int q = 0; q < EDGE_SLOTS; ++q) {
+            const int e = batch0 + pt + NP * q;
+            if (e < e0 || e >= e1) continue;
+            bulk_copy(r_s + (e - e0) * C::RROW, x + (size_t)bcol[q] * F + f0,
+                      x_bytes, full);
+          }
+        }
+      } else {  // 16-byte cp.async copies, each edge's by its index's holder
+#pragma unroll
+        for (int q = 0; q < EDGE_SLOTS; ++q) {
+          const int e = batch0 + pt + NP * q;
+          if (e < e0 || e >= e1) continue;
+          vs[e - e0] = bval[q];
+          unsigned char* row = rs + (e - e0) * C::RROW;
+          const T* xr = x + (size_t)bcol[q] * F + f0;
+          if (x_vec) {
+            const auto* xb = reinterpret_cast<const unsigned char*>(xr);
+            for (int b = 0; b < (int)x_bytes; b += UNIT)
+              cp_async16_ca(row + b, xb + b);
+          } else {
+            for (int j = 0; j < C::FT; ++j)
+              reinterpret_cast<Raw*>(row)[j] =
+                  j < nf ? reinterpret_cast<const Raw*>(xr)[j] : Raw(0);
+          }
+        }
+        if (x_vec) cp_async_mbar_arrive(full);
+        mbar_arrive(full);
       }
       advance();
     }
   }
 }
 
+// zeros into out rows [row0, row0 + nrows) at features [f0, f0 + nf), by
+// every consumer thread
+__device__ __forceinline__ void write_zeros(float* __restrict__ out,
+                                            int row0, int nrows, int f0,
+                                            int nf, int F, int out_vec) {
+  if (out_vec) {  // nf % 4 == 0
+    const int u4 = nf / 4;
+    for (int s = threadIdx.x; s < nrows * u4; s += CT) {
+      const int r = s / u4;
+      *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * F + f0 +
+                                 4 * (s - r * u4)) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int s = threadIdx.x; s < nrows * nf; s += CT) {
+      const int r = s / nf;
+      out[(size_t)(row0 + r) * F + f0 + (s - r * nf)] = 0.f;
+    }
+  }
+}
+
+// a consumer warp hands its stage back to the producers
+template <int STAGES>
+__device__ __forceinline__ void release(uint32_t empty0, int& stage,
+                                        uint32_t& phase) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty0 + 8 * stage);
+  if (++stage == STAGES) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// An item's remainder stages, spread over every consumer thread: thread t
+// owns the 16-byte feature unit fc = (t % nu) VEC of the rows t / nu,
+// + rstep, ... (nu units a row, rstep = 256 / nu), so consecutive rows land
+// on different warps; its cursor row lr takes each stage's edges in edge
+// order, starting from the tile products (or 0), and goes out once its last
+// edge is added.  Every warp hands every stage back.  An item whose edges
+// fit one stage walks each row whole, with no cursor across stages (on the
+// PeMS band's items of ~25 edges 2-3% faster than the cursor's walk).
+template <typename T, int NT>
+__device__ __forceinline__ void rem_stages(
+    const unsigned char* smem, const float* cblk, const int* rp,
+    uint32_t full0, uint32_t empty0, int& stage, uint32_t& phase,
+    const Item& it, int f0, int nf, int F, bool tiles,
+    float* __restrict__ out, int out_vec) {
+  using C = Cfg<T, NT>;
+  const int nu = (nf + C::VEC - 1) / C::VEC;  // owners a row
+  const int rstep = CT / nu;                  // rows a round of the map
+  const int fc = (threadIdx.x % nu) * C::VEC;
+  const int nval = nf - fc;  // real features of this thread's unit
+  int lr = threadIdx.x / nu < rstep ? threadIdx.x / nu : it.nrows;
+  float* ob = out + (size_t)it.row0 * F + f0 + fc;
+  float a[8];
+  bool open = false;
+  auto start = [&]() {
+#pragma unroll
+    for (int j = 0; j < C::VEC; j += 4) {
+      const float4 b =
+          tiles ? *reinterpret_cast<const float4*>(cblk + lr * C::CS + fc + j)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[j] = b.x;
+      a[j + 1] = b.y;
+      a[j + 2] = b.z;
+      a[j + 3] = b.w;
+    }
+    open = true;
+  };
+  auto flush = [&]() {
+    float* o = ob + (size_t)lr * F;
+    if (out_vec) {  // F % 4 == 0: 16-byte aligned rows
+#pragma unroll
+      for (int j = 0; j < C::VEC; j += 4)
+        if (j < nval)
+          *reinterpret_cast<float4*>(o + j) =
+              make_float4(a[j], a[j + 1], a[j + 2], a[j + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < C::VEC; ++j)
+        if (j < nval) o[j] = a[j];
+    }
+    open = false;
+    lr += rstep;
+  };
+  // a[..] += v * x's unit of edge row e of the stage at xs
+  auto add = [&](const unsigned char* xs, const float* vs, int e) {
+    fma_unit(a, vs[e], *reinterpret_cast<const uint4*>(xs + e * C::RROW),
+             static_cast<const T*>(nullptr));
+  };
+  if (it.p1 - it.p0 <= C::RE) {  // one stage: each owned row whole
+    mbar_wait(full0 + 8 * stage, phase);
+    const unsigned char* xs =
+        smem + stage * C::STAGE_BYTES + fc * (int)sizeof(T);
+    const float* vs = reinterpret_cast<const float*>(
+        smem + stage * C::STAGE_BYTES + C::A_BYTES + C::B_BYTES);
+#pragma unroll 2
+    while (lr < it.nrows) {
+      const int rb = rp[lr] - it.p0, re = rp[lr + 1] - it.p0;
+      start();
+      for (int e = rb; e < re; ++e) add(xs, vs, e);
+      flush();
+    }
+    release<C::STAGES>(empty0, stage, phase);
+    return;
+  }
+  for (int e0 = it.p0; e0 < it.p1; e0 += C::RE) {
+    mbar_wait(full0 + 8 * stage, phase);
+    const int e1 = min(e0 + C::RE, it.p1);
+    const unsigned char* xs =
+        smem + stage * C::STAGE_BYTES + fc * (int)sizeof(T);
+    const float* vs = reinterpret_cast<const float*>(
+        smem + stage * C::STAGE_BYTES + C::A_BYTES + C::B_BYTES);
+    while (lr < it.nrows) {
+      const int rb = rp[lr], re = rp[lr + 1];
+      if (rb >= e1) break;  // the row starts in a later stage
+      if (!open) start();
+      const int hi_e = min(re, e1) - e0;
+      int e = max(rb, e0) - e0;
+      for (; e + 4 <= hi_e; e += 4) {  // loads ahead of FMAs, edge order
+#pragma unroll
+        for (int k = 0; k < 4; ++k) add(xs, vs, e + k);
+      }
+      for (; e < hi_e; ++e) add(xs, vs, e);
+      if (re > e1) break;  // the row goes on in the next stage
+      flush();
+    }
+    release<C::STAGES>(empty0, stage, phase);
+  }
+  // the rows after the item's last edge
+  while (lr < it.nrows) {
+    start();
+    flush();
+  }
+}
+
 template <typename T, int NT>
 __device__ __forceinline__ void consume(
-    unsigned char* smem, float* cblk, int* wptr, uint32_t full0,
-    uint32_t empty0, const int* __restrict__ tile_ptr,
-    const int* __restrict__ rem_row_ptr, float* __restrict__ out,
-    int num_row_blocks, int num_items, int F, int out_vec) {
+    unsigned char* smem, float* cblk, int* rptr, Item* dslots,
+    uint32_t full0, uint32_t empty0, const Item* __restrict__ items,
+    int num_block, int num_base, const int* __restrict__ rem_row_ptr,
+    float* __restrict__ out, int F, int out_vec) {
   using C = Cfg<T, NT>;
   constexpr bool MMA = sizeof(T) == 2;
   constexpr int NACC = MMA ? NT * 4 : C::FT / 2;
-  constexpr int NCH = C::FT / C::VEC;  // 16-byte x units per feature tile
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16;
-  int* wp = wptr + warp * 17;  // this warp's 17 row pointers
   const uint32_t smem0 = smem_u32(smem);
   // ldmatrix rows of this lane (bf16 path): A row r0 + lrow, x row lrow
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int hi = lane >> 4;  // second 8-column half of the x4 load
   int stage = 0;
   uint32_t phase = 0;
-  auto advance = [&]() {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
-    if (++stage == C::STAGES) {
-      stage = 0;
-      phase ^= 1;
+  const int nft = (F + C::FT - 1) / C::FT;
+  const int num_items = num_base * nft;
+  // each warp's two descriptor slots: lane 0 copies the next item's while
+  // this one runs
+  Item* mine = dslots + 2 * warp;
+  auto fetch = [&](int item, int slot) {
+    if (lane == 0 && item < num_items) {
+      int ft;
+      const Item* src = items + item_base(item, num_block, num_base, nft, ft);
+      cp_async16(&mine[slot], src);
+      cp_async16(reinterpret_cast<int*>(&mine[slot]) + 4,
+                 reinterpret_cast<const int*>(src) + 4);
     }
   };
+  fetch(blockIdx.x, 0);
+  int slot = 0;
+  // the block or the row pointers were read across warps since the last
+  // consumer_sync
+  bool shared_reads = false;
+  int rem_items = 0;  // items with remainder edges so far
   for (int item = blockIdx.x; item < num_items; item += gridDim.x) {
-    const int ft = item / num_row_blocks;
-    const int rb = item - ft * num_row_blocks;
+    cp_async_wait_all();
+    __syncwarp();
+    const Item it = mine[slot];
+    fetch(item + gridDim.x, slot ^= 1);
+    // the item's row pointers, copied while its tiles run (two buffers:
+    // the previous item's may still be read)
+    int* rp = rptr + (rem_items & 1) * (BLK + 1);
+    if (it.p0 != it.p1 && (int)threadIdx.x <= it.nrows)
+      cp_async4(rp + threadIdx.x, rem_row_ptr + it.row0 + threadIdx.x);
+    int ft;
+    item_base(item, num_block, num_base, nft, ft);
     const int f0 = ft * C::FT;
-    const int row_base = rb * BLK + r0;
-    // row pointers, loaded now and used after the tiles
-    const int my_ptr = lane <= 16 ? rem_row_ptr[row_base + lane] : 0;
-    const int p0 = rem_row_ptr[rb * BLK], p1 = rem_row_ptr[rb * BLK + BLK];
+    const int nf = min(C::FT, F - f0);
+    const int n_stages = (it.t1 - it.t0) * C::CHUNKS;
     float acc[NACC];
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-    const int n_stages = (tile_ptr[rb + 1] - tile_ptr[rb]) * C::CHUNKS;
     for (int c = 0; c < n_stages; ++c) {
       mbar_wait(full0 + 8 * stage, phase);
       const uint32_t a_s = smem0 + stage * C::STAGE_BYTES;
@@ -565,70 +819,58 @@ __device__ __forceinline__ void consume(
           }
         }
       }
-      advance();
+      release<C::STAGES>(empty0, stage, phase);
     }
 
-    // epilogue: accumulator -> shared block (this warp's 16 rows)
-    if constexpr (MMA) {
-      const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        *reinterpret_cast<float2*>(&cblk[(r0 + g) * C::CS + 8 * j + 2 * t4]) =
-            make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(
-            &cblk[(r0 + g + 8) * C::CS + 8 * j + 2 * t4]) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    if (it.p0 == it.p1) {  // no remainder edges: no shared reads, no sync
+      if (n_stages == 0) {
+        write_zeros(out, it.row0, it.nrows, f0, nf, F, out_vec);
+        continue;
       }
+      if (shared_reads) consumer_sync();
+      shared_reads = false;
     } else {
-      using M = F32Tile<C::FT>;
-      const int fg = lane % M::FG, rg = lane / M::FG;
+      consumer_sync();  // the previous item's remainder is done
+      shared_reads = true;
+    }
+    // epilogue: accumulator -> shared block (this warp's 16 rows)
+    if (n_stages > 0) {
+      if constexpr (MMA) {
+        const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-      for (int i = 0; i < M::R; ++i)
-#pragma unroll
-        for (int m = 0; m < M::U; ++m) {
-          const float* d = &acc[(i * M::U + m) * 4];
-          *reinterpret_cast<float4*>(
-              &cblk[(r0 + rg + M::RG * i) * C::CS + 4 * (fg + M::FG * m)]) =
-              make_float4(d[0], d[1], d[2], d[3]);
+        for (int j = 0; j < NT; ++j) {
+          *reinterpret_cast<float2*>(
+              &cblk[(r0 + g) * C::CS + 8 * j + 2 * t4]) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(
+              &cblk[(r0 + g + 8) * C::CS + 8 * j + 2 * t4]) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
         }
-    }
-    if (lane <= 16) wp[lane] = my_ptr;
-    __syncwarp();
-    const int nf = min(C::FT, F - f0);
-
-    // remainder stages: each lane adds, for its (row, 16-byte unit) pairs,
-    // the row's edges that lie in the stage, in edge order
-    for (int e0 = p0; e0 < p1; e0 += C::RE) {
-      mbar_wait(full0 + 8 * stage, phase);
-      const int e1 = min(e0 + C::RE, p1);
-      const unsigned char* xs = smem + stage * C::STAGE_BYTES;
-      const float* vs =
-          reinterpret_cast<const float*>(xs + C::A_BYTES + C::B_BYTES);
-      for (int s = lane; s < 16 * NCH; s += 32) {
-        const int lr = s / NCH, fc = (s - lr * NCH) * C::VEC;
-        const int lo = max(wp[lr], e0), hi_e = min(wp[lr + 1], e1);
-        if (fc >= nf || lo >= hi_e) continue;
-        float* cp = cblk + (r0 + lr) * C::CS + fc;
-        float a[8];
+      } else {
+        using M = F32Tile<C::FT>;
+        const int fg = lane % M::FG, rg = lane / M::FG;
 #pragma unroll
-        for (int q = 0; q < C::VEC; q += 4)
-          *reinterpret_cast<float4*>(&a[q]) =
-              *reinterpret_cast<const float4*>(cp + q);
-        for (int e = lo; e < hi_e; ++e)
-          fma_unit(a, vs[e - e0],
-                   *reinterpret_cast<const uint4*>(
-                       xs + (e - e0) * C::RROW + fc * sizeof(T)),
-                   static_cast<const T*>(nullptr));
+        for (int i = 0; i < M::R; ++i)
 #pragma unroll
-        for (int q = 0; q < C::VEC; q += 4)
-          *reinterpret_cast<float4*>(cp + q) =
-              *reinterpret_cast<const float4*>(&a[q]);
+          for (int m = 0; m < M::U; ++m) {
+            const float* d = &acc[(i * M::U + m) * 4];
+            *reinterpret_cast<float4*>(
+                &cblk[(r0 + rg + M::RG * i) * C::CS + 4 * (fg + M::FG * m)]) =
+                make_float4(d[0], d[1], d[2], d[3]);
+          }
       }
-      advance();
     }
-
-    // one write of the block's 16 rows
-    float* orow = out + (size_t)row_base * F + f0;
+    if (it.p0 != it.p1) {
+      cp_async_wait_all();
+      consumer_sync();  // the block and the row pointers are in place
+      ++rem_items;
+      rem_stages<T, NT>(smem, cblk, rp, full0, empty0, stage, phase, it, f0,
+                        nf, F, n_stages > 0, out, out_vec);
+      continue;
+    }
+    // the tile products alone: each warp writes its own 16 rows once
+    __syncwarp();
+    float* orow = out + (size_t)(it.row0 + r0) * F + f0;
     if (out_vec) {  // F % 4 == 0: rows and f0 are 16-byte aligned
       constexpr int U4 = C::FT / 4;
       for (int s = lane; s < 16 * U4; s += 32) {
@@ -646,27 +888,28 @@ __device__ __forceinline__ void consume(
     }
     __syncwarp();
   }
+  cp_async_wait_all();
 }
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(THREADS, 1)
 hybrid_spmm_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_x,
-                   const int* __restrict__ tile_ptr,
                    const int* __restrict__ block_cols,
-                   const int* __restrict__ rem_row_ptr,
+                   const Item* __restrict__ items, int num_block,
+                   int num_base, const int* __restrict__ rem_row_ptr,
                    const int* __restrict__ rem_cols,
                    const float* __restrict__ rem_vals,
-                   const T* __restrict__ x, float* __restrict__ out,
-                   int num_row_blocks, int num_items, int F, int x_vec,
-                   int out_vec) {
+                   const T* __restrict__ x, float* __restrict__ out, int F,
+                   int x_vec, int out_vec) {
   using C = Cfg<T, NT>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* cblk = reinterpret_cast<float*>(smem + C::STAGES * C::STAGE_BYTES);
   unsigned char* bars = smem + C::STAGES * C::STAGE_BYTES + C::C_BYTES;
-  int* wptr = reinterpret_cast<int*>(bars + 2 * C::STAGES * 8);
+  Item* dslots = reinterpret_cast<Item*>(bars + 2 * MAX_STAGES * 8);
+  int* rptr = reinterpret_cast<int*>(dslots + 2 * CONSUMER_WARPS);
   const uint32_t full0 = smem_u32(bars);
   const uint32_t empty0 = full0 + C::STAGES * 8;
   if (threadIdx.x == 0) {
@@ -678,12 +921,11 @@ hybrid_spmm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
   if ((threadIdx.x >> 5) >= CONSUMER_WARPS)
-    produce<T, NT>(smem, full0, empty0, &map_a, &map_x, tile_ptr, block_cols,
-                   rem_row_ptr, rem_cols, rem_vals, x, num_row_blocks,
-                   num_items, F, x_vec);
+    produce<T, NT>(smem, full0, empty0, &map_a, &map_x, block_cols, items,
+                   num_block, num_base, rem_cols, rem_vals, x, F, x_vec);
   else
-    consume<T, NT>(smem, cblk, wptr, full0, empty0, tile_ptr, rem_row_ptr,
-                   out, num_row_blocks, num_items, F, out_vec);
+    consume<T, NT>(smem, cblk, rptr, dslots, full0, empty0, items,
+                   num_block, num_base, rem_row_ptr, out, F, out_vec);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
@@ -728,10 +970,10 @@ bool encode(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
 }
 
 template <typename T, int NT>
-int launch(const void* blocks, int num_tiles, const int* tile_ptr,
-           const int* block_cols, const int* rem_row_ptr, const int* rem_cols,
-           const float* rem_vals, const void* x, int num_cols, float* out,
-           int num_row_blocks, int F, cudaStream_t s) {
+int launch(const void* blocks, int num_tiles, const int* block_cols,
+           const int* items, int num_block, int num_base,
+           const int* rem_row_ptr, const int* rem_cols, const float* rem_vals,
+           const void* x, int num_cols, float* out, int F, cudaStream_t s) {
   using C = Cfg<T, NT>;
   auto kern = hybrid_spmm_kernel<T, NT>;
   static int cached_dev = -1, max_ctas = 0;  // CTAs resident at once
@@ -752,9 +994,8 @@ int launch(const void* blocks, int num_tiles, const int* tile_ptr,
     max_ctas = sms * per_sm;
     cached_dev = dev;
   }
-  const int nft = (F + C::FT - 1) / C::FT;
-  const int items = num_row_blocks * nft;
-  // x rows as tensor-map boxes and bulk copies need 16-byte alignment
+  const int items_all = num_base * ((F + C::FT - 1) / C::FT);
+  // x rows as tensor-map boxes and 16-byte gathers need 16-byte alignment
   const int x_vec = (F % C::VEC == 0) &&
                     (reinterpret_cast<uintptr_t>(x) % UNIT == 0);
   const int out_vec = (F % 4 == 0) &&
@@ -763,9 +1004,10 @@ int launch(const void* blocks, int num_tiles, const int* tile_ptr,
   if (!encode<T>(&map_a, blocks, (uint64_t)num_tiles * BLK, BLK, BLK) ||
       (x_vec && !encode<T>(&map_x, x, num_cols, F, C::KC)))
     return (int)cudaErrorInvalidValue;
-  kern<<<items < max_ctas ? items : max_ctas, THREADS, C::SMEM, s>>>(
-      map_a, map_x, tile_ptr, block_cols, rem_row_ptr, rem_cols, rem_vals,
-      static_cast<const T*>(x), out, num_row_blocks, items, F, x_vec, out_vec);
+  kern<<<items_all < max_ctas ? items_all : max_ctas, THREADS, C::SMEM, s>>>(
+      map_a, map_x, block_cols, reinterpret_cast<const Item*>(items),
+      num_block, num_base, rem_row_ptr, rem_cols, rem_vals,
+      static_cast<const T*>(x), out, F, x_vec, out_vec);
   return (int)cudaGetLastError();
 }
 
@@ -784,16 +1026,16 @@ int pick_nt(int width) {
 }
 
 template <typename T>
-int dispatch(int nt, const void* blocks, int num_tiles, const int* tile_ptr,
-             const int* block_cols, const int* rem_row_ptr,
-             const int* rem_cols, const float* rem_vals, const void* x,
-             int num_cols, float* out, int num_row_blocks, int F,
-             cudaStream_t s) {
-#define PGTT_NT(N)                                                         \
-  case N:                                                                  \
-    return launch<T, N>(blocks, num_tiles, tile_ptr, block_cols,           \
-                        rem_row_ptr, rem_cols, rem_vals, x, num_cols, out, \
-                        num_row_blocks, F, s);
+int dispatch(int nt, const void* blocks, int num_tiles, const int* block_cols,
+             const int* items, int num_block, int num_base,
+             const int* rem_row_ptr, const int* rem_cols,
+             const float* rem_vals, const void* x, int num_cols, float* out,
+             int F, cudaStream_t s) {
+#define PGTT_NT(N)                                                       \
+  case N:                                                                \
+    return launch<T, N>(blocks, num_tiles, block_cols, items, num_block, \
+                        num_base, rem_row_ptr, rem_cols, rem_vals, x,    \
+                        num_cols, out, F, s);
   switch (nt) {
     PGTT_NT(1)
     PGTT_NT(2)
@@ -812,30 +1054,34 @@ int dispatch(int nt, const void* blocks, int num_tiles, const int* tile_ptr,
 
 extern "C" {
 
-// blocks (num_tiles >= nnzb, 128, 128) f32 or bf16 (is_bf16); tile_ptr
-// (num_row_blocks + 1) int32 row pointers over the row-sorted tiles;
-// block_cols (nnzb) int32; rem_row_ptr (num_row_blocks * 128 + 1) int32 row
-// pointers over the remainder edges sorted by (row, col), whose columns and
-// f32 values are rem_cols, rem_vals; x (num_cols, F) in the tiles' dtype;
-// out (num_row_blocks * 128, F) f32, fully written.
+// blocks (num_tiles >= nnzb, 128, 128) f32 or bf16 (is_bf16), the
+// row-sorted tiles; block_cols (nnzb) int32; items (num_base, 8) int32, the
+// item list's descriptors (row0, rows, first tile, end tile, first
+// remainder edge, end edge, 0, 0; 16-byte aligned), the first num_block of
+// them row blocks, the rest remainder-only tasks; rem_row_ptr (num_rows + 1)
+// int32 row pointers over the remainder edges sorted by (row, col), whose
+// columns and f32 values are rem_cols, rem_vals; x (num_cols, F) in the
+// tiles' dtype; out (num_rows, F) f32, fully written (the items cover every
+// row).
 int pgtt_hybrid_spmm(const void* blocks, int num_tiles, int is_bf16,
-                     const int* tile_ptr, const int* block_cols,
-                     const int* rem_row_ptr, const int* rem_cols,
-                     const float* rem_vals, const void* x, int num_cols,
-                     float* out, int num_row_blocks, int F, void* stream) {
-  if (num_row_blocks == 0 || F == 0) return 0;
+                     const int* block_cols, const int* items, int num_block,
+                     int num_base, const int* rem_row_ptr,
+                     const int* rem_cols, const float* rem_vals,
+                     const void* x, int num_cols, float* out, int F,
+                     void* stream) {
+  if (num_base == 0 || F == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int max_ft = is_bf16 ? 128 : PGTT_F32_MAX_FT;
   const int nft = (F + max_ft - 1) / max_ft;
   const int nt = pick_nt((F + nft - 1) / nft);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(nt, blocks, num_tiles, tile_ptr,
-                                   block_cols, rem_row_ptr, rem_cols,
-                                   rem_vals, x, num_cols, out,
-                                   num_row_blocks, F, s);
-  return dispatch<float>(nt, blocks, num_tiles, tile_ptr, block_cols,
-                         rem_row_ptr, rem_cols, rem_vals, x, num_cols, out,
-                         num_row_blocks, F, s);
+    return dispatch<__nv_bfloat16>(nt, blocks, num_tiles, block_cols, items,
+                                   num_block, num_base, rem_row_ptr,
+                                   rem_cols, rem_vals, x, num_cols, out, F,
+                                   s);
+  return dispatch<float>(nt, blocks, num_tiles, block_cols, items, num_block,
+                         num_base, rem_row_ptr, rem_cols, rem_vals, x,
+                         num_cols, out, F, s);
 }
 
 }  // extern "C"

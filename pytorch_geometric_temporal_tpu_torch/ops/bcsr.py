@@ -80,6 +80,14 @@ class _BCSRHalf:
     order — are what the fused kernel walks: ``rem_row_cols``,
     ``rem_row_vals`` (num_rem,) and ``rem_row_ptr`` (num_rows + 1,).
 
+    The fused kernel's item list (:func:`_kernel_items`): ``items`` (B +
+    K, 8) int32 descriptors (first row, rows, first and end tile, first and
+    end remainder edge, two zeros), the first ``num_block_items`` = B of
+    them the row blocks it walks whole, ascending — those that keep tiles
+    and those with neither tiles nor remainder edges — the other K its
+    remainder-only tasks, which cut the other row blocks into about equal
+    remainder edges (``block_rbs`` and ``rem_tasks`` read them back).
+
     Index tensors are int32, the kernels' type.  ``_host`` keeps the numpy
     arrays of the JAX package's ``_host`` dict (``blocks`` before the cast
     to the tile dtype, the remainder padded to ``rem_k``-edge chunks).
@@ -97,11 +105,24 @@ class _BCSRHalf:
     rem_row_cols: torch.Tensor
     rem_row_vals: torch.Tensor
     rem_row_ptr: torch.Tensor
+    items: torch.Tensor
+    num_block_items: int
     num_rows: int
     num_cols: int
     nnzb: int
     num_rem: int
     pack: int = 1
+
+    @property
+    def block_rbs(self) -> torch.Tensor:
+        """(B,) int32 the row blocks the fused kernel walks whole."""
+        return self.items[:self.num_block_items, 0] // BLOCK
+
+    @property
+    def rem_tasks(self) -> torch.Tensor:
+        """(K, 2) int32 [first row, end row) of its remainder-only tasks."""
+        task = self.items[self.num_block_items:]
+        return torch.stack([task[:, 0], task[:, 0] + task[:, 1]], 1)
 
     @property
     def rem_rows(self) -> torch.Tensor:
@@ -218,16 +239,16 @@ class KernelCosts:
       bytes), a spilled edge ``edge_ns``, a row of each of the two per-call
       gathers ``row_ns``; one half (the forward one) is priced.
     - **makespan** (``sms > 0``), ``csrc/hybrid_spmm.cu`` on an NVIDIA card:
-      ``sms`` persistent CTAs walk the items (row block rb, feature tile),
-      CTA c the items c, c + G, ... with G = min(items, sms).  Item cost is
-      ``a + b_tile·t(rb)·chunks + b_rem·⌈r(rb)/RE⌉`` over rb's kept tiles
-      t and spilled edges r, with the feature tile FT, the K chunks a tile
-      and the remainder stage's RE edges as the kernel derives them (see
-      :func:`_fused_shape`).  A half costs ``launch`` plus its most loaded
-      CTA's sum, floored by its bytes (kept tiles, 8 B a spilled edge, x
-      once, the f32 output once) at ``bytes_per_ns``; both halves are
-      priced.  ``bf16`` and ``f32`` hold, per tile dtype, (launch, a0, a1,
-      b0, b1, r0, r1): a = a0 + a1·FT, b_tile = b0 + b1·FT, b_rem = r0 +
+      ``sms`` persistent CTAs walk the kernel's item list (see
+      :func:`cta_loads`), CTA c the items c, c + G, ... with G = min(items,
+      sms).  An item costs ``a + b_tile·t·chunks + b_rem·⌈e/RE⌉`` over
+      its kept tiles t and remainder edges e, with the feature tile FT, the K
+      chunks a tile and the remainder stage's RE edges as the kernel derives
+      them (see :func:`_fused_shape`).  A half costs ``launch`` plus its
+      most loaded CTA's sum, floored by its bytes (kept tiles, 8 B a spilled
+      edge, x once, the f32 output once) at ``bytes_per_ns``; both halves
+      are priced.  ``bf16`` and ``f32`` hold, per tile dtype, (launch, a0,
+      a1, b0, b1, r0, r1): a = a0 + a1·FT, b_tile = b0 + b1·FT, b_rem = r0 +
       r1·RE·FT.  ``gather`` is (g0, ns a row, bytes a ns) of one
       permutation gather: g0 + rows·row_ns + bytes/bw.
     """
@@ -257,17 +278,19 @@ C_EDGE_NS = (2.0 + 2.9) * 1.24
 TPU_V5E = KernelCosts("tpu_v5e", tile_ns=C_TILE_NS, edge_ns=C_EDGE_NS,
                       row_ns=2.0)
 # Fitted by tools/fit_kernel_costs.py on the warm times of chip_smoke.py's
-# phase 23 (the fused kernel on 13 synthetic halves of 0-4 tiles and 0-5,000
+# phase 23 (the fused kernel on 14 synthetic halves of 0-4 tiles and 0-20,000
 # remainder edges a row block, 40 to 300 row blocks, F in {32, 64, 96, 256,
 # 768}, bf16 and f32 tiles; x just written, no L2 flush; the gathers at
-# 11,264 to 38,400 rows) on an NVIDIA H100 80GB HBM3 at 700.00 W: median
-# relative error 2.8% over those 130 points, 8.4% over six held-out
-# operators of phases 15, 21 and 22.  132 SMs; HBM3 at 3.35 TB/s.
+# 11,264 to 38,400 rows) on an NVIDIA H100 80GB HBM3 at 700.00 W, for the
+# kernel whose remainder stages all consumer threads share; in the run they
+# were fitted on, median relative error 3.4% over those 140 points, 9.0%
+# over six held-out operators of phases 15, 21 and 22, 5.9% over 30
+# gathers.  132 SMs; HBM3 at 3.35 TB/s.
 H100 = KernelCosts(
     "h100", sms=132, bytes_per_ns=3350.0,
-    bf16=(6229.0, 157.8, 13.98, 72.26, 5.857, 1105.0, 0.01899),
-    f32=(6501.0, 1055.0, 0.0, 180.8, 24.76, 312.2, 0.1378),
-    gather=(4873.0, 0.5364, 6492.0),
+    bf16=(6029.0, 323.0, 17.14, 118.9, 5.496, 453.6, 0.03834),
+    f32=(5911.0, 1302.0, 13.4, 280.9, 23.36, 553.4, 0.0),
+    gather=(4859.0, 0.5351, 6370.0),
 )
 # what every build prices by unless given ``costs=`` (looked up at call
 # time, so a test may patch it)
@@ -276,6 +299,10 @@ DEFAULT_COSTS = H100
 MAX_THETA_CANDIDATES = 256
 # the widest f32 feature tile hybrid_spmm.cu is built with (PGTT_F32_MAX_FT)
 F32_MAX_FT = 96
+# the remainder edges a remainder-only task of the fused kernel holds at
+# most (a longer row is a task of its own): eight to sixteen remainder
+# stages, few enough items that a task's two barriers stay small
+REM_TASK_EDGES = 1024
 
 
 def _costs(costs) -> KernelCosts:
@@ -306,28 +333,46 @@ def _fused_shape(f: int, bf16: bool):
 def cta_loads(tiles, rems, f: int, bf16: bool, sms: int):
     """What each CTA of one fused-kernel launch walks: ``tiles`` and
     ``rems`` are (C, row blocks) arrays of kept tiles and remainder edges a
-    row block, one row a candidate layout.  CTA c takes items c, c + G, ...
-    (G = min(items, sms); item i is row block i mod nrb).  Returns (items,
-    tile K chunks, remainder stages), each (C, G) summed over a CTA's
-    items, and the kernel's FT and RE at width ``f``."""
+    row block, one row a candidate layout.  The kernel's item list, for
+    each feature tile in turn: the row blocks walked whole (those that keep
+    tiles or hold nothing), then the remainder-only tasks, priced as
+    :func:`_task_count` tasks of equal edges for a row block of r edges and
+    no tile (:func:`_kernel_items` cuts them at rows).  CTA c takes items
+    c, c + G, ... (G = min(items, sms)); an item of e remainder edges runs
+    ⌈e / RE⌉ remainder stages.  Returns (items, tile K chunks, remainder
+    stages), each (C, sms) summed over a CTA's items (0 past G), and the
+    kernel's FT and RE at width ``f``."""
     ft, nft, chunks, re = _fused_shape(f, bf16)
     tiles = np.atleast_2d(np.asarray(tiles, np.float64))
     rems = np.atleast_2d(np.asarray(rems, np.float64))
-    nrb = tiles.shape[1]
-    items = nrb * nft
-    g = min(items, sms)
-    waves = -(-items // g)
-    rb_of_slot = np.arange(waves * g) % nrb
-    real = np.arange(waves * g) < items
-    per_item = (np.broadcast_to(1.0, tiles.shape), tiles * chunks,
-                np.ceil(rems / re))
-    out = [np.empty((tiles.shape[0], g)) for _ in per_item]
-    step = max(1, (1 << 22) // (waves * g))
-    for c0 in range(0, tiles.shape[0], step):
-        for q, o in zip(per_item, out):
-            slots = q[c0:c0 + step][:, rb_of_slot] * real
-            o[c0:c0 + step] = slots.reshape(-1, waves, g).sum(1)
-    return (*out, ft, re)
+    whole = (tiles > 0) | (rems == 0)
+    k = np.where(whole, 0, _task_count(rems))
+    n_whole = whole.sum(1)
+    n_items = n_whole + k.sum(1)
+    g = np.minimum(n_items * nft, sms)
+    # one entry an item of one feature tile: its candidate, its position in
+    # the list and its (tile chunks, remainder stages)
+    c_w, rb_w = np.nonzero(whole)
+    pos_w = (np.cumsum(whole, 1) - 1)[c_w, rb_w]
+    c_f, rb_f = np.nonzero(k)
+    kk = k[c_f, rb_f]
+    first = np.repeat(np.cumsum(kk) - kk, kk)
+    pos_t = (np.repeat(n_whole[c_f] + (np.cumsum(k, 1) - k)[c_f, rb_f], kk)
+             + np.arange(kk.sum()) - first)
+    cand = np.concatenate([c_w, np.repeat(c_f, kk)])
+    pos = np.concatenate([pos_w, pos_t])
+    weights = (None,
+               np.concatenate([tiles[c_w, rb_w] * chunks,
+                               np.zeros(len(pos_t))]),
+               np.ceil(np.concatenate([rems[c_w, rb_w],
+                                       np.repeat(rems[c_f, rb_f] / kk, kk)])
+                       / re))
+    out = [np.zeros(tiles.shape[0] * sms) for _ in weights]
+    for q in range(nft):
+        key = cand * sms + (pos + q * n_items[cand]) % g[cand]
+        for o, w in zip(out, weights):
+            o += np.bincount(key, weights=w, minlength=len(o))
+    return (*(o.reshape(-1, sms) for o in out), ft, re)
 
 
 def fused_kernel_ns(costs: KernelCosts, tiles, rems, f: int, bf16: bool):
@@ -587,6 +632,50 @@ def tune_pack(tile_cnt, candidates=(1, 2, 3, 4, 6, 8),
     return int(best_p)
 
 
+def _task_count(edges):
+    """Remainder-only tasks a tile-free row block of ``edges`` edges is cut
+    into: shares of at most 7/8 of ``REM_TASK_EDGES``, so that cutting at
+    the row nearest a share leaves room under the cap."""
+    return -(-np.asarray(edges, np.int64) * 8 // (7 * REM_TASK_EDGES))
+
+
+def _kernel_items(tile_cnt, rem_row_ptr, block=BLOCK):
+    """The fused kernel's item list over one half: (block_rbs, rem_tasks).
+
+    ``block_rbs`` (int32, ascending) are the row blocks it walks whole:
+    those that keep tiles (their tiles, then their remainder) and those
+    with neither tiles nor remainder edges (written as zeros).  Every other
+    row block is cut into remainder-only tasks, ``rem_tasks`` (int32, (K,
+    2), [first row, end row)), of about equal edges: a row block of r edges
+    into tasks cut in turn, each at the row end nearest to an equal share of
+    the edges still left (:func:`_task_count` shares), never past
+    ``REM_TASK_EDGES`` edges.  A row is never split, so a row longer than
+    that is a task of its own."""
+    cap = REM_TASK_EDGES
+    ptr = np.asarray(rem_row_ptr, np.int64)
+    rems = ptr[block::block] - ptr[:-1:block]
+    whole = (np.asarray(tile_cnt) > 0) | (rems == 0)
+    tasks = []
+    for rb in np.flatnonzero(~whole):
+        start, hi = rb * block, (rb + 1) * block
+        while start < hi:
+            e0, rest = ptr[start], ptr[hi] - ptr[start]
+            left = int(_task_count(rest))  # tasks for what is left
+            end = hi
+            if left > 1:
+                want = e0 + rest / left
+                end = int(np.searchsorted(ptr, want, "right")) - 1
+                end = min(max(end, start), hi - 1)
+                # the nearer row end, if it stays under the cap
+                if end == start or (ptr[end + 1] - want < want - ptr[end]
+                                    and ptr[end + 1] - e0 <= cap):
+                    end += 1
+            tasks.append((start, end))
+            start = end
+    return (np.flatnonzero(whole).astype(np.int32),
+            np.asarray(tasks, np.int32).reshape(-1, 2))
+
+
 def _build_half(rows, cols, vals, n, block, dtype=None,
                 min_block_edges: int = 0, pack="auto",
                 rem_k: int = REM_K, device="cpu") -> _BCSRHalf:
@@ -651,6 +740,17 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
     by_row = np.argsort(rem_rows, kind="stable")
     rem_row_ptr = np.concatenate(
         [[0], np.cumsum(np.bincount(rem_rows, minlength=n_pad))])
+    block_rbs, rem_tasks = _kernel_items(tile_cnt, rem_row_ptr, block)
+    tile_ptr = np.concatenate([[0], np.cumsum(tile_cnt)])
+    first = np.concatenate([block_rbs * block, rem_tasks[:, 0]])
+    end = np.concatenate([block_rbs * block + block, rem_tasks[:, 1]])
+    no_tiles = np.zeros(len(rem_tasks), np.int64)
+    items = np.stack([
+        first, end - first,
+        np.concatenate([tile_ptr[block_rbs], no_tiles]),
+        np.concatenate([tile_ptr[block_rbs + 1], no_tiles]),
+        rem_row_ptr[first], rem_row_ptr[end],
+        np.zeros_like(first), np.zeros_like(first)], 1)
 
     def put(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
@@ -659,7 +759,7 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         blocks=put(blocks, dtype or torch.float32),
         block_rows=put(block_rows),
         block_cols=put(block_cols),
-        tile_ptr=put(np.concatenate([[0], np.cumsum(tile_cnt)])),
+        tile_ptr=put(tile_ptr),
         rem_cols=put(rem_cols),
         rem_vals=put(rem_vals, torch.float32),
         rem_lrows=put(rem_lrows),
@@ -668,6 +768,8 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         rem_row_cols=put(rem_cols[by_row]),
         rem_row_vals=put(rem_vals[by_row], torch.float32),
         rem_row_ptr=put(rem_row_ptr),
+        items=put(items),
+        num_block_items=len(block_rbs),
         num_rows=n_pad,
         num_cols=n_pad,
         nnzb=int(nnzb),
@@ -853,10 +955,11 @@ def hybrid_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     if f:
         _launch(hybrid_spmm, "pgtt_hybrid_spmm", x, half.blocks.data_ptr(),
                 half.blocks.shape[0], int(_is_bf16(half.blocks.dtype)),
-                half.tile_ptr.data_ptr(), half.block_cols.data_ptr(),
+                half.block_cols.data_ptr(), half.items.data_ptr(),
+                half.num_block_items, half.items.shape[0],
                 half.rem_row_ptr.data_ptr(), half.rem_row_cols.data_ptr(),
                 half.rem_row_vals.data_ptr(), x.data_ptr(), half.num_cols,
-                out.data_ptr(), half.num_rows // BLOCK, f)
+                out.data_ptr(), f)
     return out
 
 

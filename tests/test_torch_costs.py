@@ -5,7 +5,9 @@
   cost (float equality) and the same ``_reorder_pays_off`` on the banded
   draws of ``test_torch_bcsr.py``, in bf16 and f32 tiles.
 - The H100 makespan model: ``fused_kernel_ns`` equals a brute-force walk of
-  the fused kernel's persistent item loop, under and over one wave of CTAs;
+  the fused kernel's persistent loop over its item list (row blocks with
+  tiles or nothing, then remainder-only tasks), under and over one wave of
+  CTAs;
   the threshold sweep's per-row-block counts equal those of the halves
   built at each θ.
 - The H100 default's decisions on the scrambled PeMS stand-in (keep the
@@ -202,21 +204,35 @@ def kernel_config(f, bf16):
     return ft, nft, chunks, re
 
 
+def kernel_items(tiles, rems):
+    """The item list of one feature tile as the model prices it, built
+    item by item: (kept tiles, remainder edges) of the row blocks walked
+    whole (tiles, or nothing at all), in order, then of each remainder-only
+    row block's ⌈r / (7/8 · REM_TASK_EDGES)⌉ tasks of equal edges."""
+    items = [(t, r) for t, r in zip(tiles, rems) if t > 0 or r == 0]
+    for t, r in zip(tiles, rems):
+        if t == 0 and r > 0:
+            k = -(-int(r) * 8 // (7 * tb.REM_TASK_EDGES))
+            items += [(0, r / k)] * k
+    return items
+
+
 def brute_force_ns(costs, tiles, rems, f, bf16):
     """One launch by walking the kernel's loop: CTA b takes items b, b + G,
-    ... (``item = blockIdx.x; item += gridDim.x``), item = ft·nrb + rb."""
+    ... (``item = blockIdx.x; item += gridDim.x``) over the item list, one
+    feature tile after another."""
     launch, a0, a1, b0, b1, r0, r1 = costs.bf16 if bf16 else costs.f32
     ft, nft, chunks, re = kernel_config(f, bf16)
-    nrb = len(tiles)
-    items = nrb * nft
+    per_ft = kernel_items(tiles, rems)
+    items = len(per_ft) * nft
     grid = min(items, costs.sms)
     worst = 0.0
     for block in range(grid):
         total = 0.0
         for item in range(block, items, grid):
-            rb = item % nrb
-            total += ((a0 + a1 * ft) + (b0 + b1 * ft) * chunks * tiles[rb]
-                      + (r0 + r1 * re * ft) * -(-rems[rb] // re))
+            t, r = per_ft[item % len(per_ft)]
+            total += ((a0 + a1 * ft) + (b0 + b1 * ft) * chunks * t
+                      + (r0 + r1 * re * ft) * -(-r // re))
         worst = max(worst, total)
     return launch + worst
 

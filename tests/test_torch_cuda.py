@@ -107,6 +107,48 @@ def test_fused_kernel_matches_plain(cuda, shape, dtype, f):
         assert bcsr.hybrid_spmm.launches == before + 1
 
 
+def remainder_case(name, seed=6):
+    """(edge_index, weights, n, min_block_edges) of the remainder cases: a
+    remainder-only operator of several hundred tasks, a row of 20,000 edges
+    beside a banded graph, and a remainder-only operator that is given x
+    rows off the 16-byte grid (``ragged``)."""
+    if name == "hub":
+        rng = np.random.default_rng(seed)
+        ei, w = banded(1500, 12000, seed=seed)
+        hub_s = rng.integers(0, 1500, 20000)
+        ei = np.concatenate([ei, np.stack([hub_s, np.full_like(hub_s, 700)])],
+                            1)
+        w = np.concatenate([w, rng.uniform(0.1, 1.0, 20000).astype(
+            np.float32)])
+        return ei, w, 1500, 10**6
+    ei, w = banded(8192, 200000, seed=seed, band=300)
+    return ei, w, 8192, 10**6
+
+
+@pytest.mark.parametrize("case", ["remainder-large", "hub", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 8, 14, 64, 96, 200])
+def test_fused_kernel_remainder_cases(cuda, case, dtype, f):
+    """The fused kernel's remainder (all consumer threads, remainder-only
+    tasks, one hub row, x rows a kernel cannot read 16 bytes at a time)
+    against its plain version, one launch a call."""
+    ei, w, n, mbe = remainder_case(case)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    mat = bcsr.BCSRMatrix.from_graph(g, dtype=dtype, min_block_edges=mbe)
+    for half in (mat.fwd, mat.bwd):
+        x = torch.randn(half.num_cols, f, device=cuda).to(dtype)
+        if case == "ragged":
+            buf = torch.empty(x.numel() + 8, dtype=dtype, device=cuda)
+            x = buf[1:1 + x.numel()].view_as(x).copy_(x)
+            assert x.data_ptr() % 16
+        before = bcsr.hybrid_spmm.launches
+        out = bcsr.hybrid_spmm(half, x)
+        ref = bcsr.hybrid_spmm_plain(half, x)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-4 * max(1.0, float(ref.abs().max())))
+        assert bcsr.hybrid_spmm.launches == before + 1
+
+
 def test_one_fused_launch_per_bcsr_matmul(cuda):
     ei, w, n, mbe = operator_shape("hybrid")
     g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)

@@ -9,7 +9,9 @@ The log's ``cost-shape`` lines give each operator half's kept tiles and
 remainder edges a row block, its ``cost-point`` lines the fused kernel's
 warm and cold ms on it at one width and tile dtype (``held_out`` marks the
 operators of the model paths, which the fit does not see), and its
-``gather-point`` lines the warm ms of one permutation gather.  The fit is
+``gather-point`` lines the warm ms of one permutation gather (its
+``hub-point`` lines, a row of 20,000 edges, are not read: the model prices
+row blocks and their tasks, not rows).  The fit is
 that of ``ops/bcsr.py``'s makespan model (``KernelCosts``): per tile dtype,
 (launch, a0, a1, b0, b1, r0, r1) in ns with every constant at least 0,
 minimizing the squared relative error of the warm prediction over the
@@ -58,9 +60,9 @@ def read_points(lines):
 
 
 def cta_features(tiles, rems, f, bf16, costs=bcsr.H100):
-    """(G, 7) per-CTA sums the prediction is linear in, from the kernel's
-    item loop (``bcsr.cta_loads``): [1, items, items·FT, tile chunks,
-    tile chunks·FT, remainder stages, stages·RE·FT]."""
+    """(sms, 7) per-CTA sums the prediction is linear in, from the kernel's
+    loop over its item list (``bcsr.cta_loads``): [1, items, items·FT, tile
+    chunks, tile chunks·FT, remainder stages, stages·RE·FT]."""
     n, t, s, ft, re = bcsr.cta_loads(tiles[None], rems[None], f, bf16,
                                      costs.sms)
     n, t, s = n[0], t[0], s[0]
