@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
+Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX).  Every
+phase that trains through ``BatchTrainer`` or ``SnapshotTrainer`` runs its
+steps as replays of CUDA graphs, the trainers' default on the card (one
+graph a step signature; phases 3, 6, 9, 15 and 21 assert how many), but
+MTGNN's in phase 12, whose step makes a CUDA generator (``capture=False``);
+launch counts stay kernels executed under replay.
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    nvcc build of the kernels (``csrc/*.cu``, one nvcc per source, in
@@ -197,14 +202,22 @@ Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX):
    operators of phases 15, 21 and 22 are held-out points.  The committed
    model's median relative error of the warm prediction must stay within
    ``COST_MEDIAN_TOL`` on the sweep, on the held-out points and on the
-   gathers.
+   gathers;
+24. (run after phase 16) phases 3, 6 and 15's paths eager (``capture=False``)
+   and captured, from the same parameters on the same batches: host time
+   a step or epoch, device busy time and busy share both ways, the
+   profiler's top kernels both ways (a replay runs no host op, so only the
+   eager run attributes kernels to operations), the captured run's losses
+   and parameters against the eager run's within ``CAPTURE_LOSS_RTOL`` /
+   ``CAPTURE_PARAM_ATOL`` and whether the first step's loss is bit-equal,
+   one CUDA graph a path, and the launch counts under replay.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
 without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
 its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16, 19
-(both ranks), 21 and 22; the
+(both ranks), 21 and 22 (phase 24's are checked, not summed); the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -264,6 +277,15 @@ EVOLVE = dict(f=16)
 TGCN_FWD_TOL, TGCN_GRAD_TOL = 1.5e-3, 1e-1
 EVO_STEP_TOL, EVO_GRAD_TOL = 1.7e-2, 5e-4
 WATCHDOG_S = 1150
+# phase 24: phases 3, 6 and 15's paths eager (capture=False) and captured
+# from the same parameters on the same batches: counted steps (epochs for
+# phase 6), then steps timed on the host clock.  Both runs build Adam with
+# capturable=True and launch the same kernels on the same inputs, so a
+# difference can come only from a library choosing another algorithm under
+# capture: losses within 1e-5 relative, parameters within 1e-5 absolute
+# (an Adam step moves a parameter by up to its learning rate, 1e-3-1e-2)
+CAPTURE = dict(steps=6, timed=20)
+CAPTURE_LOSS_RTOL, CAPTURE_PARAM_ATOL = 1e-5, 1e-5
 # phase 2's widths: each f32 and bf16 instantiation of the fused kernel
 # (n-tile counts 1, 2, 4, 5, 6, 8, 12, 16; 1 and 14 ragged), two feature
 # tiles at F=200; the f32 digests of phases 2 and 15 draw x from DIGEST_SEED
@@ -1096,6 +1118,7 @@ def phase_slice(torch, kernel_report):
     for key in ("H", "K1", "K2"):
         kernel_report[key]["launches"] = launches[key]
     busy = profile_steps(torch, lambda: trainer.train_step(x, y), med * 1e3)
+    check_captures(trainer, 1, "the train step")
     # phase 16 trains the same model and operators in bf16 compute
     kernel_report["slice"] = dict(ops=ops, ops_seg=ops_seg, x=x, y=y,
                                   busy_ms=busy, step_ms=med * 1e3)
@@ -1105,11 +1128,19 @@ def device_time_by_kernel(torch, fn, n, op_totals=None):
     """({kernel name: (device us, count)}, wall us) over ``n`` calls of
     ``fn`` under torch.profiler: device-side kernels and copies only.
     ``op_totals`` ({host op name: 0.0}) receives the device us of the
-    kernels each named host op launched, its children's included."""
+    kernels each named host op launched, its children's included.
+
+    The profiler can lose records of a CUDA graph's replay (one in a window
+    of ~100 as a rule, a quarter of them once; profiling the window again
+    did not recover them): a window whose fused-kernel records fall short
+    of the fused launches counted in it logs the shortfall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
     torch.cuda.synchronize()
+    launched = bcsr.hybrid_spmm.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1117,17 +1148,26 @@ def device_time_by_kernel(torch, fn, n, op_totals=None):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    agg = {}
+    launched = bcsr.hybrid_spmm.launches - launched
+    agg, totals = {}, dict.fromkeys(op_totals or (), 0.0)
     for ev in prof.events():
-        if op_totals is not None and ev.name in op_totals:
-            op_totals[ev.name] += ev.device_time_total
-        # GPU user annotations (the optimizer's range) overlap the kernels
-        # and are left out
+        if ev.name in totals:
+            totals[ev.name] += ev.device_time_total
+        # GPU user annotations (the optimizer's range) overlap the
+        # kernels and are left out
         if (ev.device_type == DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)
                 and not ev.name.startswith("Optimizer.")):
             us, cnt = agg.get(ev.name, (0.0, 0))
             agg[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    fused = sum(cnt for name, (_, cnt) in agg.items()
+                if FUSED_KERNEL.search(name))
+    if fused < launched:
+        log(f"  profile: {fused} fused-kernel records of {launched} fused "
+            f"launches in the window (busy reads short by the lost "
+            f"records)")
+    if op_totals is not None:
+        op_totals.update(totals)
     return agg, wall_us
 
 
@@ -1157,6 +1197,34 @@ def profile_steps(torch, step, step_ms, n=2, top=12, unit="step",
         log(f"    {dev / n / 1e3:8.3f} ms/{unit} {count // n:5d}x/{unit}  "
             f"{100 * dev / busy:5.1f}%  {key[:90]}")
     return busy_ms
+
+
+def predicted_captures(calls):
+    """The CUDA graphs a capturing trainer holds after ``calls``, the
+    signatures of its step calls in order: the first call of a signature
+    runs eagerly and the second captures, so one graph for each signature
+    called twice or more."""
+    counts = {}
+    for sig in calls:
+        counts[sig] = counts.get(sig, 0) + 1
+    return sum(1 for n in counts.values() if n >= 2)
+
+
+def check_captures(trainer, want, what):
+    """Log ``trainer``'s CUDA graphs and replays; fail unless it captured
+    ``want`` graphs (its steps ran as replays)."""
+    log(f"  {what}: {trainer.captures} CUDA graphs captured (predicted "
+        f"{want}), {trainer.replays} replays")
+    if not trainer.capture or trainer.captures != want:
+        raise SystemExit(f"{what}: {trainer.captures} CUDA graphs captured, "
+                         f"predicted {want}")
+
+
+def batch_sizes(loader):
+    """The batch sizes an ``IndexLoader`` (one rank, the last batch
+    kept) yields an epoch, in order."""
+    n, bs = len(loader.indices), loader.batch_size
+    return [bs] * (n // bs) + ([n % bs] if n % bs else [])
 
 
 def around_kernel_ms(torch, mat, f, backward, n=20):
@@ -1228,8 +1296,7 @@ def phase_dense(torch):
 
 
 def launch_counts(bcsr):
-    return {"H": bcsr.hybrid_spmm.launches, "K1": bcsr.tile_spmm.launches,
-            "K2": bcsr.rem_scatter_.launches}
+    return dict(zip(("H", "K1", "K2"), bcsr.launch_counts()))
 
 
 def make_net(torch, make_cell, hidden, seed):
@@ -1378,8 +1445,10 @@ def counted_epochs(torch, trainer, signal, c, kernel_report, want, edges):
         f"{edges * T * 3 / med:.4e} edges/s (E*T*3/epoch, forward "
         f"aggregations); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return profile_steps(torch, lambda: trainer.train_epoch(signal, None),
+    busy = profile_steps(torch, lambda: trainer.train_epoch(signal, None),
                          med * 1e3, unit="epoch")
+    check_captures(trainer, 1, "the train epoch")
+    return busy
 
 
 def phase_cheb(torch, kernel_report):
@@ -1452,6 +1521,8 @@ def phase_cheb(torch, kernel_report):
     busy_ms = counted_epochs(torch, trainer, signal, c, kernel_report,
                              cheb_launches(T, c["K"], c["epochs"]),
                              ei.shape[1])
+    # phase 24 trains this path again, eager and captured
+    kernel_report["cheb"] = dict(op=op, signal=signal)
 
     # the copies around each aggregation in bcsr_spmm (node padding, cast
     # to bf16, and backward the padded gradient of the output slice),
@@ -1900,12 +1971,13 @@ def phase_metrla(torch, smi):
         raise SystemExit("the METR-LA protocol launched a BCSR kernel")
 
 
-def adam_steps(torch, model, forward, x, y, steps):
+def adam_steps(torch, model, forward, x, y, steps, capture=None):
     """``steps`` updates of ``model`` through ``BatchTrainer`` (MSE, Adam
-    1e-3); returns (losses, trainer)."""
+    1e-3; captured unless ``capture=False``); returns (losses, trainer)."""
     from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
 
-    trainer = BatchTrainer(model, forward, lr=1e-3, loss_fn=mse)
+    trainer = BatchTrainer(model, forward, lr=1e-3, loss_fn=mse,
+                           capture=capture)
     losses = [float(trainer.train_step(x, y)) for _ in range(steps)]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"{type(model).__name__}: losses not finite or not "
@@ -1967,15 +2039,18 @@ def phase_attention(torch, smi):
         return any(not torch.equal(v, before[k])
                    for k, v in model.named_buffers())
 
-    def three_steps(name, model, forward, xs, ys, has_stats=True):
+    def three_steps(name, model, forward, xs, ys, has_stats=True,
+                    capture=None):
         before = {k: v.clone() for k, v in model.named_buffers()}
         t0 = time.perf_counter()
-        losses, _ = adam_steps(torch, model, forward, xs, ys, 3)
+        losses, trainer = adam_steps(torch, model, forward, xs, ys, 3,
+                                     capture)
         torch.cuda.synchronize()
         log(f"  {name}: MSE {['%.5f' % v for v in losses]} in train mode, "
             f"{sum(p.numel() for p in model.parameters())} parameters, "
             f"{time.perf_counter() - t0:.2f} s for three steps, the first "
-            f"included")
+            f"included; {trainer.captures} CUDA graph(s), "
+            f"{trainer.replays} replays")
         if has_stats and not moved(model, before):
             raise SystemExit(f"{name}: the batch statistics did not move")
 
@@ -1997,12 +2072,15 @@ def phase_attention(torch, smi):
               128, t, 2, 12, 3, 0.05, 3.0, True, generator=gen)
 
     def mtgnn_forward(xb):
-        # the same dropout mask every step, drawn on the card
+        # the same dropout mask every step, drawn on the card from a
+        # generator made in the step, which a CUDA graph cannot capture:
+        # this path runs eagerly
         mask_gen = torch.Generator(device="cuda").manual_seed(7)
         return m(xb, train=True, generator=mask_gen)
 
     three_steps("MTGNN(3 layers, 32/32/64/128)", m, mtgnn_forward,
-                cuda(b, 2, n, t), cuda(b, 12, n, 1), has_stats=False)
+                cuda(b, 2, n, t), cuda(b, 12, n, 1), has_stats=False,
+                capture=False)
     # AAGCN: 3 -> 64 channels, 25 joints, 64 frames
     joints = np.unique(rng.integers(0, 25, size=(2, 48)), axis=1)
     m = AAGCN(3, 64, joints, 25, generator=gen)
@@ -2563,10 +2641,23 @@ def phase_index_pems(torch, kernel_report, smi):
         f"{['%.3f' % v for v in builds.seconds]}")
     if builds.calls != 2:
         raise SystemExit("PeMS index path: operator builds differ from 2")
-    # phase 21 runs the same model on the same graph with scrambled ids
+    # the step signatures (train or eval, batch size) in the order called:
+    # (d)'s batch, the epochs and the test pass, one more epoch timed, the
+    # profile, the epochs device-resident and streamed
+    tr_sizes = batch_sizes(train)
+    calls = ([("train", bs), ("eval", bs)]
+             + c["epochs"] * ([("train", b) for b in tr_sizes]
+                              + [("eval", b) for b in batch_sizes(val)])
+             + [("eval", b) for b in batch_sizes(test)]
+             + 3 * [("train", b) for b in tr_sizes] + 2 * [("train", bs)])
+    check_captures(trainer, predicted_captures(calls),
+                   "train and eval steps (one graph a batch size)")
+    # phase 21 runs the same model on the same graph with scrambled ids;
+    # phase 24 runs this path again, eager and captured
     kernel_report["pems"] = dict(curve=curve, test_mae=test_mae,
                                  busy_ms=busy, step_ms=med * 1e3,
-                                 build_s=list(builds.seconds))
+                                 build_s=list(builds.seconds), graph=g,
+                                 loader=train, scaler=scaler)
     f_hop = bs * 2 * c["f"]
     report_fused(torch, kernel_report, mats[0].fwd, f_hop,
                  "PeMS index DCRNN f32")
@@ -2585,6 +2676,162 @@ def phase_index_pems(torch, kernel_report, smi):
     if digest != PHASE15_F32_DIGEST:
         raise SystemExit(f"phase 15: the f32 digest {digest} is not "
                          f"{PHASE15_F32_DIGEST}: a sum's order changed")
+
+
+def eager_and_captured(torch, label, make, call, per_call, unit, smi):
+    """One path run eagerly (``capture=False``) and captured, from the same
+    parameters on the same inputs: ``make(capture)`` → (trainer, model),
+    ``call(trainer, i)`` → the i-th step's loss.  ``CAPTURE["steps"]``
+    counted calls (launches, losses, parameters after them), then
+    ``CAPTURE["timed"]`` on the host clock and two under the profiler.
+    Memory, both ways, above what was held before the trainer was made:
+    the peaks allocated and reserved over the run (reserved counts the
+    allocator's cache and each graph's private pool), and what the
+    trainer still holds after it once the free cache is released
+    (parameters and Adam's state; with capture also each graph's pool).
+    Returns both runs' numbers."""
+    import gc
+
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    steps, timed = CAPTURE["steps"], CAPTURE["timed"]
+    runs = {}
+    for capture in (False, True):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_alloc = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, model = make(capture)
+        torch.cuda.synchronize()
+        bcsr.reset_launch_counts()
+        losses = torch.stack([call(trainer, i) for i in range(steps)])
+        torch.cuda.synchronize()
+        launches = launch_counts(bcsr)
+        params = [p.detach().clone() for p in model.parameters()]
+        times = []
+        for i in range(timed):
+            t0 = time.perf_counter()
+            call(trainer, steps + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times) * 1e3
+        log(f"  {label}, {'captured' if capture else 'eager'}: host "
+            f"{unit} median {med:.3f} ms (min {min(times) * 1e3:.3f}, max "
+            f"{max(times) * 1e3:.3f}; {timed} {unit}s, synchronized) on "
+            f"{smi}")
+        busy = profile_steps(torch, lambda: call(trainer, 0), med, top=6,
+                             unit=unit)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base_alloc) / 2**30
+        peak_reserved = (torch.cuda.max_memory_reserved()
+                         - base_reserved) / 2**30
+        torch.cuda.empty_cache()
+        held = (torch.cuda.memory_reserved() - base_reserved) / 2**30
+        runs[capture] = dict(losses=losses, params=params, launches=launches,
+                             host_ms=med, busy_ms=busy, peak_gib=peak,
+                             peak_reserved_gib=peak_reserved, held_gib=held, captures=trainer.captures,
+                             replays=trainer.replays)
+        del trainer, model
+    e, c = runs[False], runs[True]
+    loss_rel = float((c["losses"] - e["losses"]).abs().max()
+                     / e["losses"].abs().max())
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(c["params"], e["params"]))
+    first_bits = bool(torch.equal(c["losses"][0], e["losses"][0]))
+    want = {"H": steps * per_call, "K1": 0, "K2": 0}
+    log(f"  {label}: captured against eager after {steps} {unit}s: losses "
+        f"max rel err {loss_rel:.3e} (limit {CAPTURE_LOSS_RTOL}), parameters "
+        f"max abs err {param_err:.3e} (limit {CAPTURE_PARAM_ATOL}); the "
+        f"first {unit}'s loss (eager in both) "
+        f"{'bit-equal' if first_bits else 'not bit-equal'}; CUDA graphs "
+        f"{c['captures']} (predicted 1), {c['replays']} replays; fused "
+        f"launches over the counted {unit}s eager {e['launches']['H']}, "
+        f"captured {c['launches']['H']} (expected {want['H']}: {per_call} a "
+        f"{unit}), K1/K2 {c['launches']['K1']}/{c['launches']['K2']}")
+    log(f"  {label}: memory above the run's start, eager → captured: peak "
+        f"allocated {e['peak_gib']:.3f} → {c['peak_gib']:.3f} GiB "
+        f"({c['peak_gib'] / e['peak_gib'] - 1:+.1%}), peak reserved "
+        f"{e['peak_reserved_gib']:.3f} → {c['peak_reserved_gib']:.3f} GiB "
+        f"({c['peak_reserved_gib'] / e['peak_reserved_gib'] - 1:+.1%}), held "
+        f"after the run with the free cache released {e['held_gib']:.3f} → "
+        f"{c['held_gib']:.3f} GiB; on {smi}")
+    for mode, r in (("eager", e), ("captured", c)):
+        if r["busy_ms"] is not None:
+            log(f"  {label}, {mode}: device busy {r['busy_ms']:.3f} ms a "
+                f"{unit}, host {r['host_ms']:.3f} ms, busy share "
+                f"{r['busy_ms'] / r['host_ms']:.3f}")
+    if e["launches"] != want or c["launches"] != want:
+        raise SystemExit(f"{label}: launch counts differ under replay")
+    if (e["captures"], c["captures"]) != (0, 1):
+        raise SystemExit(f"{label}: CUDA graphs {e['captures']} eager, "
+                         f"{c['captures']} captured (predicted 0 and 1)")
+    if not (loss_rel <= CAPTURE_LOSS_RTOL and param_err <= CAPTURE_PARAM_ATOL
+            and torch.isfinite(c["losses"]).all()):
+        raise SystemExit(f"{label}: the captured run differs from the eager "
+                         f"one")
+    return dict(eager=e, captured=c, loss_rel=loss_rel, param_err=param_err,
+                first_bits=first_bits)
+
+
+def phase_capture(torch, report, smi):
+    """Phases 3, 6 and 15's paths eager and captured, from the same
+    parameters on the same batches."""
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.signal import IndexLoader
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        BatchTrainer, SnapshotTrainer, mse)
+
+    sl, ch, pm = report["slice"], report["cheb"], report["pems"]
+    c = SLICE
+
+    def make_slice(capture):
+        model = DCRNNSeq(c["f"], c["hidden"], K=2,
+                         generator=torch.Generator().manual_seed(0))
+        return BatchTrainer(model, lambda xb: model(xb, sl["ops"]), lr=1e-3,
+                            loss_fn=mse, capture=capture), model
+
+    eager_and_captured(torch, "phase 3's path (DCRNNSeq, N=50k, bf16 BCSR)",
+                       make_slice, lambda tr, i: tr.train_step(sl["x"],
+                                                               sl["y"]),
+                       expected_launches(c["t"], 2, 1), "step", smi)
+
+    def make_cheb(capture):
+        net = gconv_gru_net(torch, CHEB["lags"], CHEB["hidden"], CHEB["K"],
+                            seed=1)
+
+        def loss_and_state(carry, x, y, graph):
+            out, h = net(x, ch["op"], carry)
+            return mse(out, y), h
+
+        return SnapshotTrainer(net, loss_and_state, lr=1e-2,
+                               capture=capture), net
+
+    eager_and_captured(torch, "phase 6's path (GConvGRU, N=50k, Chebyshev "
+                       "BCSR, T=8)", make_cheb,
+                       lambda tr, i: tr.train_epoch(ch["signal"], None),
+                       cheb_launches(CHEB["t"], CHEB["K"], 1), "epoch", smi)
+
+    p, loader = PEMS, pm["loader"]
+    batches = []
+    for xb, yb in IndexLoader(loader.indices, loader.windower,
+                              p["batch_size"], shuffle=True, seed=1):
+        if len(batches) == CAPTURE["steps"]:
+            break
+        batches.append((xb, yb))
+
+    def make_pems(capture):
+        model = DCRNNSeq(p["f"], p["f"], p["K"],
+                         generator=torch.Generator().manual_seed(0))
+        return BatchTrainer(model, lambda xb: model(xb, pm["graph"]),
+                            lr=1e-3, scaler=pm["scaler"],
+                            capture=capture), model
+
+    eager_and_captured(torch, "phase 15's path (index-batched DCRNN, PeMS "
+                       "N=11,160, batches of 64)", make_pems,
+                       lambda tr, i: tr.train_step(*batches[i % len(batches)]),
+                       expected_launches(p["lags"], p["K"], 1), "step", smi)
 
 
 def rel_err(got, want):
@@ -3457,18 +3704,34 @@ def scrambled_variant(torch, label, state, graph, x, y, scaler, reorder):
         f"{['%.3f' % v for v in builds.seconds]}; step median {med:.3f} ms "
         f"(min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}; host "
         f"clock, synchronized, {len(step_s)} steps)")
-    agg, ops = {}, dict.fromkeys(PERMUTE_OPS, 0.0)
-    busy = profile_steps(torch, step, med, top=8, agg_out=agg, op_totals=ops)
+    check_captures(trainer, 1, f"({label}) the train step")
+    agg = {}
+    busy = profile_steps(torch, step, med, top=8, agg_out=agg)
     if busy is None:
         raise SystemExit("phase 21: the profiler recorded no device time")
     kernel, launches, _ = kernel_share(agg, FUSED_KERNEL, 2)
+    # a replay runs no host op, so the gathers' kernels are attributed to
+    # _Permute / _PermuteBackward on an eager step of the same model
+    twin = BatchTrainer(model, lambda xb: model(xb, graph), lr=1e-3,
+                        scaler=scaler, capture=False)
+    ops = dict.fromkeys(PERMUTE_OPS, 0.0)
+
+    def eager_step():
+        with config_override(spmm_reorder=reorder):
+            twin.train_step(x, y)
+
+    eager_step()
+    eager_agg, eager_wall = device_time_by_kernel(torch, eager_step, 2, ops)
+    eager_busy = sum(us for us, _ in eager_agg.values()) / 2e3
     out = dict(step_ms=med, busy_ms=busy, kernel=kernel,
                gather_fwd=ops["_Permute"] / 2e3,
                gather_bwd=ops["_PermuteBackward"] / 2e3)
     log(f"    the fused kernel {kernel:.3f} ms a step in {launches} launches;"
-        f" the permutation gathers (the kernels of _Permute and "
-        f"_PermuteBackward) {out['gather_fwd']:.3f} ms forward and "
-        f"{out['gather_bwd']:.3f} ms backward a step")
+        f" on an eager step (device busy {eager_busy:.3f} ms, "
+        f"{eager_wall / 2e3:.3f} ms wall under the profiler) the "
+        f"permutation gathers (the kernels of _Permute and _PermuteBackward) "
+        f"{out['gather_fwd']:.3f} ms forward and {out['gather_bwd']:.3f} ms "
+        f"backward a step")
     return out
 
 
@@ -3576,6 +3839,12 @@ def phase_pems_scrambled(torch, kernel_report, smi):
             tl, tn = tl + trainer.eval_step(xb, yb), tn + 1
         test_mae = float(tl) / tn
         launches = launch_counts(bcsr)
+    calls = ([("train", bs), ("eval", bs)]
+             + SCRAMBLED["epochs"] * ([("train", b) for b in batch_sizes(train)]
+                                      + [("eval", b) for b in batch_sizes(val)])
+             + [("eval", b) for b in batch_sizes(test)])
+    check_captures(trainer, predicted_captures(calls),
+                   "(c) train and eval steps (one graph a batch size)")
     want_h = SCRAMBLED["epochs"] * per_epoch + len(test) * per_eval
     log(f"  (c) fused launches over {SCRAMBLED['epochs']} epochs and the test "
         f"pass {launches['H']} (expected {want_h}); K1 {launches['K1']} and "
@@ -4079,7 +4348,10 @@ def main() -> int:
     log("== phase 16: DCRNNSeq at N=50k in bf16 compute "
         "(make_mixed_precision_step), then f16 with a loss scale")
     phase_mixed(torch, report, smi)
-    del report["slice"]
+    log("== phase 24: phases 3, 6 and 15's paths eager and captured (CUDA "
+        "graphs) from the same parameters on the same batches")
+    phase_capture(torch, report, smi)
+    del report["slice"], report["cheb"]
     log("== phase 17: HeteroGCLSTM at N=50k + 20k through SnapshotTrainer")
     phase_hetero(torch, report, smi)
     log("== phase 18: the training harness on Chickenpox")

@@ -972,6 +972,20 @@ def reset_launch_counts() -> None:
     rem_scatter_.launches = 0
 
 
+def launch_counts() -> tuple:
+    """The launch counts of the fused kernel, K1 and K2, in that order."""
+    return hybrid_spmm.launches, tile_spmm.launches, rem_scatter_.launches
+
+
+def add_launch_counts(delta) -> None:
+    """Add ``delta`` (a :func:`launch_counts` tuple) to the counts.  A
+    CUDA graph's capture calls the wrappers, which count launches that do
+    not run; the trainers take those back out and add them again at every
+    replay, where the captured kernels do run."""
+    for wrapper, d in zip((hybrid_spmm, tile_spmm, rem_scatter_), delta):
+        wrapper.launches += d
+
+
 def bcsr_matmul(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     """out (num_rows, F) f32 = tiles @ x + remainder, one fused kernel
     launch; x (num_cols, F) is cast to the tiles' dtype first (bf16 tiles

@@ -70,12 +70,23 @@ class StackedSignal:
         return self.features.device
 
     def graph(self, t: Optional[int] = None) -> Graph:
-        """The static graph, or (for dynamic graphs) the graph at step t."""
-        if not self.graph_dynamic:
-            return Graph(self.senders, self.receivers, self.weights,
-                         self.num_nodes, self.num_edges)
-        return Graph(self.senders[t], self.receivers[t], self.weights[t],
-                     self.num_nodes, self.num_edges)
+        """The static graph, or (for dynamic graphs) the graph at step t.
+
+        Each is built once and kept on the signal, so the operators that
+        models derive from a graph (memoized on the instance) are built in
+        the first epoch only, and a captured epoch finds them built."""
+        key = None if not self.graph_dynamic else int(t)
+        cache = self.__dict__.setdefault("_graphs", {})
+        g = cache.get(key)
+        if g is None:
+            if key is None:
+                g = Graph(self.senders, self.receivers, self.weights,
+                          self.num_nodes, self.num_edges)
+            else:
+                g = Graph(self.senders[t], self.receivers[t],
+                          self.weights[t], self.num_nodes, self.num_edges)
+            cache[key] = g
+        return g
 
     @staticmethod
     def from_signal(signal, device=None) -> "StackedSignal":

@@ -19,6 +19,12 @@ from pytorch_geometric_temporal_tpu.ops import spmm_segment as j_segment
 from pytorch_geometric_temporal_tpu.ops import bcsr as jb
 from pytorch_geometric_temporal_tpu_torch.ops import Graph as TGraph
 from pytorch_geometric_temporal_tpu_torch.ops import bcsr as tb
+from _torch_jax_native import jax_native  # noqa: F401
+
+# the JAX package's native library, loaded race-free: its RCM order is
+# what the port's native layer is compared with (see the module)
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 
 HOST_KEYS = ("block_rows", "block_cols", "step_rows", "step_cols",
              "step_bidx", "rem_cols", "rem_vals", "rem_lrows",

@@ -38,6 +38,12 @@ from pytorch_geometric_temporal_tpu_torch.ops import operators as tops
 from pytorch_geometric_temporal_tpu_torch.ops.operators import (
     host_diffusion_norms)
 from pytorch_geometric_temporal_tpu_torch.ops.spmm import spmm, spmm_segment
+from _torch_jax_native import jax_native  # noqa: F401
+
+# the JAX package's native library, loaded race-free: its RCM order is
+# what the port's native layer is compared with (see the module)
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 
 # test_torch_bcsr.py's banded draws: (seed, n, e, band, frac_local,
 # scramble)

@@ -8,6 +8,8 @@ cuBLAS).  Run on the card with ``python -m pytest tests/test_torch_cuda.py
 order, 1e-4 of the output's scale.
 """
 
+import traceback
+
 import numpy as np
 import pytest
 import torch
@@ -886,3 +888,284 @@ def test_avwgcn_topk_on_the_card_matches_the_cpu(cuda):
         want = twin(torch.from_numpy(x_np), torch.from_numpy(e_np))
     torch.testing.assert_close(out.detach().cpu(), want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+# --- the trainers' steps captured as CUDA graphs and replayed -------------
+# Captured against eager (capture=False) from the same parameters on the
+# same batches.  Both build Adam with capturable=True and launch the same
+# kernels on the same inputs; a difference can come only from a library
+# picking another algorithm under capture.  Limits: 1e-5 relative on
+# losses, 1e-5 absolute on parameters (an Adam step at lr=1e-2 moves each
+# by up to 1e-2).
+
+CAPTURE_LOSS_RTOL, CAPTURE_PARAM_ATOL = 1e-5, 1e-5
+
+
+def _dcrnn_case(cuda, b=2, batches=5, n=5000, T=3, K=2, F=4, C=8):
+    """DCRNNSeq over bf16 BCSR diffusion operators at N=5000 (above the
+    dense threshold), seeded batches, and a maker of identical models."""
+    ei, w = banded(n, 60_000, seed=16)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    ops = DiffusionOperators.from_graph(g, bcsr=True, dtype=torch.bfloat16)
+    rng = np.random.default_rng(17)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda)
+
+    data = [(draw(b, T, n, F), draw(b, T, n, C)) for _ in range(batches)]
+
+    def make():
+        return DCRNNSeq(F, C, K, generator=torch.Generator().manual_seed(0))
+
+    return ops, data, make
+
+
+def _assert_same_run(got, want, got_params, want_params):
+    torch.testing.assert_close(got, want, rtol=CAPTURE_LOSS_RTOL, atol=0)
+    for a, b in zip(got_params, want_params):
+        torch.testing.assert_close(a, b, rtol=0, atol=CAPTURE_PARAM_ATOL)
+
+
+def test_captured_dcrnnseq_steps_match_eager(cuda):
+    """Five train steps and three eval steps of DCRNNSeq over bf16 BCSR
+    operators, captured against capture=False: the first step runs eagerly
+    in both (bit-equal loss), the second captures, the rest replay."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    ops, data, make = _dcrnn_case(cuda)
+    runs = {}
+    for capture in (False, True):
+        model = make()
+        tr = BatchTrainer(model, lambda x, m=model: m(x, ops), lr=1e-2,
+                          capture=capture)
+        assert tr.capture is capture
+        assert tr.optimizer.param_groups[0]["capturable"] is True
+        losses = torch.stack([tr.train_step(x, y) for x, y in data])
+        evals = torch.stack([tr.eval_step(x, y) for x, y in data[:3]])
+        runs[capture] = (losses, evals, list(model.parameters()), tr)
+    (le, ee, pe, eager), (lc, ec, pc, captured) = runs[False], runs[True]
+    assert (eager.captures, eager.replays) == (0, 0)
+    assert (captured.captures, captured.replays) == (2, 4 + 2)
+    assert torch.equal(lc[0], le[0]) and torch.equal(ec[0], ee[0])
+    assert torch.isfinite(lc).all() and lc[-1] < lc[0]
+    _assert_same_run(lc, le, pc, pe)
+    _assert_same_run(ec, ee, [], [])
+
+
+def test_a_new_batch_shape_or_layout_captures_anew(cuda):
+    """Batches of 4, then 2 (a last partial batch), then 4 again, then
+    window views (DeviceWindower's layout): one graph a shape and layout,
+    reused when a signature comes back; each call returns a fresh loss;
+    parameters as the eager run's."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    ops, data, make = _dcrnn_case(cuda, b=4, batches=1)
+    x4, y4 = data[0]
+    win = torch.cat([x4, torch.flip(x4, (1,))], 1)     # (4, 2T, n, F)
+    xv = win[:, :x4.shape[1]]
+    assert not xv.is_contiguous()
+    seq = [(x4, y4)] * 3 + [(x4[:2], y4[:2])] * 3 + [(x4, y4)] + [(xv, y4)] * 2
+    runs = {}
+    for capture in (False, True):
+        model = make()
+        tr = BatchTrainer(model, lambda x, m=model: m(x, ops), lr=1e-2,
+                          capture=capture)
+        losses = [tr.train_step(x, y) for x, y in seq]
+        runs[capture] = (torch.stack(losses), list(model.parameters()), tr,
+                         losses)
+    le, pe, _, _ = runs[False]
+    lc, pc, tr, held = runs[True]
+    assert (tr.captures, tr.replays) == (3, 2 + 2 + 1 + 1)
+    assert len({t.data_ptr() for t in held}) == len(held)
+    assert torch.equal(torch.stack(held), lc)
+    _assert_same_run(lc, le, pc, pe)
+
+
+def test_launch_counts_stay_exact_under_replay(cuda):
+    """A capture counts launches that do not run; the trainer takes them
+    back out and adds them at each replay: the counters stay kernels
+    executed, 2·(2T(K−1)·2 − (K−1)) a train step, 2·2T(K−1) an eval step,
+    none of K1/K2."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    T, K = 3, 2
+    ops, data, make = _dcrnn_case(cuda, T=T, K=K)
+    model = make()
+    tr = BatchTrainer(model, lambda x: model(x, ops), lr=1e-2)
+    per_train = 2 * (2 * T * (K - 1) * 2 - (K - 1))
+    per_eval = 2 * 2 * T * (K - 1)
+    bcsr.reset_launch_counts()
+    for i, (x, y) in enumerate(data[:4]):
+        tr.train_step(x, y)
+        assert bcsr.hybrid_spmm.launches == (i + 1) * per_train
+    for i, (x, y) in enumerate(data[:3]):
+        tr.eval_step(x, y)
+        assert bcsr.hybrid_spmm.launches == 4 * per_train + (i + 1) * per_eval
+    assert tr.captures == 2
+    assert (bcsr.tile_spmm.launches, bcsr.rem_scatter_.launches) == (0, 0)
+
+
+def test_captured_snapshot_epoch_of_gconvgru_matches_eager(cuda):
+    """SnapshotTrainer epochs of GConvGRU over a bf16 Chebyshev BCSR
+    operator with the hidden state threaded: captured against eager, 5T−1
+    launches an epoch, a second signal evaluated through its own graph."""
+    n, f, t, epochs = 5000, 6, 3, 4
+    ei, w = banded(n, 60_000, seed=18)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    op = prenormalize_cheb(g, bcsr=True, dtype=torch.bfloat16)
+    rng = np.random.default_rng(19)
+    sig = StackedSignal.from_arrays(rng.normal(size=(t, n, f)),
+                                    rng.normal(size=(t, n)), ei, w)
+    test = StackedSignal.from_arrays(rng.normal(size=(t, n, f)),
+                                     rng.normal(size=(t, n)), ei, w)
+    runs = {}
+    for capture in (False, True):
+        cell = GConvGRU(f, 8, 2, generator=torch.Generator().manual_seed(0))
+
+        def loss_and_state(carry, x, y, graph, cell=cell):
+            h = cell(x, op, carry)
+            return mse(h.sum(-1), y), h
+
+        tr = SnapshotTrainer(cell, loss_and_state, capture=capture)
+        bcsr.reset_launch_counts()
+        losses = torch.stack([tr.train_epoch(sig, None)
+                              for _ in range(epochs)])
+        assert bcsr.hybrid_spmm.launches == epochs * (5 * t - 1)
+        evals = torch.stack([tr.evaluate(test, None) for _ in range(3)])
+        runs[capture] = (losses, evals, list(cell.parameters()), tr)
+    (le, ee, pe, _), (lc, ec, pc, tr) = runs[False], runs[True]
+    assert (tr.captures, tr.replays) == (2, (epochs - 1) + 2)
+    assert torch.equal(lc[0], le[0])
+    _assert_same_run(lc, le, pc, pe)
+    _assert_same_run(ec, ee, [], [])
+
+
+def test_captured_epochs_over_the_signals_own_graph_match_eager(cuda):
+    """GConvGRU aggregating over the graph the signal hands its step
+    (``cell(x, graph, h)``) at N=5000: the Chebyshev operator is derived
+    and tiled in the first (eager) epoch and kept with the signal's graph,
+    so the capture finds it built; captured against eager, 5T−1 launches
+    an epoch."""
+    n, f, t, epochs = 5000, 6, 3, 4
+    ei, w = banded(n, 60_000, seed=23)
+    rng = np.random.default_rng(24)
+    sig = StackedSignal.from_arrays(rng.normal(size=(t, n, f)),
+                                    rng.normal(size=(t, n)), ei, w,
+                                    device=cuda)
+    runs = {}
+    for capture in (False, True):
+        cell = GConvGRU(f, 8, 2, generator=torch.Generator().manual_seed(0))
+
+        def loss_and_state(carry, x, y, graph, cell=cell):
+            h = cell(x, graph, carry)
+            return mse(h.sum(-1), y), h
+
+        tr = SnapshotTrainer(cell, loss_and_state, capture=capture)
+        bcsr.reset_launch_counts()
+        losses = torch.stack([tr.train_epoch(sig, None)
+                              for _ in range(epochs)])
+        assert bcsr.hybrid_spmm.launches == epochs * (5 * t - 1)
+        runs[capture] = (losses, list(cell.parameters()), tr)
+    (le, pe, _), (lc, pc, tr) = runs[False], runs[True]
+    assert tr.captures == 1 and tr.replays == epochs - 1
+    assert torch.equal(lc[0], le[0])
+    _assert_same_run(lc, le, pc, pe)
+
+
+def test_a_step_that_cannot_be_captured_raises(cuda):
+    """A host read inside the step blocks the capture: the second call
+    raises naming the line and capture=False, the launches the failed
+    capture counted are taken back out, and the card stays usable: the same
+    model then trains eagerly."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    ops, data, make = _dcrnn_case(cuda)
+    model = make()
+
+    def forward(x):
+        out = model(x, ops)
+        if float(out.abs().max()) > 1e30:     # a host read: blocks capture
+            raise AssertionError("diverged")
+        return out
+
+    tr = BatchTrainer(model, forward, lr=1e-2)
+    tr.train_step(*data[0])
+    before = bcsr.launch_counts()
+    with pytest.raises(RuntimeError, match="cannot be captured") as err:
+        tr.train_step(*data[1])
+    assert "capture=False" in str(err.value)
+    assert "forward" in _chained_frames(err.value)
+    assert bcsr.launch_counts() == before and tr.captures == 0
+    eager = BatchTrainer(model, forward, lr=1e-2, capture=False)
+    losses = [float(eager.train_step(x, y)) for x, y in data]
+    assert np.isfinite(losses).all()
+
+
+def _chained_frames(exc):
+    """The names of the functions in this file on the tracebacks of the
+    errors ``exc`` was raised from."""
+    names, e = set(), exc.__cause__
+    while e is not None:
+        names |= {f.name for f in traceback.extract_tb(e.__traceback__)
+                  if f.filename == __file__}
+        e = e.__cause__ or e.__context__
+    return names
+
+
+def test_a_draw_from_a_steps_own_generator_cannot_be_captured(cuda):
+    """A step that draws dropout masks from its own CUDA generator trains
+    eagerly; captured, the second call raises from the draw."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.normal(size=(64, 8)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=(64, 8)).astype(np.float32)).to(cuda)
+
+    def run(capture, steps):
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        model = torch.nn.Linear(8, 8).to(cuda)
+
+        def forward(xb):
+            keep = torch.rand(xb.shape, device=cuda, generator=gen) < 0.5
+            return model(xb) * keep / 0.5
+
+        tr = BatchTrainer(model, forward, lr=1e-2, capture=capture)
+        return torch.stack([tr.train_step(x, y) for _ in range(steps)])
+
+    assert torch.isfinite(run(False, 3)).all()
+    with pytest.raises(RuntimeError, match="cannot be captured") as err:
+        run(True, 2)
+    assert "forward" in _chained_frames(err.value)
+
+
+def test_remat_epochs_capture_and_match_eager(cuda):
+    """``remat=True`` (``torch.utils.checkpoint`` a snapshot) captures: the
+    recomputation's RNG bookkeeping stays on the device, and the captured
+    epochs give the eager epochs' losses and parameters, with 8T−1
+    launches an epoch (the forward hops run again in the backward)."""
+    n, f, t, epochs = 5000, 6, 3, 4
+    ei, w = banded(n, 60_000, seed=21)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    op = prenormalize_cheb(g, bcsr=True, dtype=torch.bfloat16)
+    rng = np.random.default_rng(22)
+    sig = StackedSignal.from_arrays(rng.normal(size=(t, n, f)),
+                                    rng.normal(size=(t, n)), ei, w)
+    runs = {}
+    for capture in (False, True):
+        cell = GConvGRU(f, 8, 2, generator=torch.Generator().manual_seed(0))
+
+        def loss_and_state(carry, x, y, graph, cell=cell):
+            h = cell(x, op, carry)
+            return mse(h.sum(-1), y), h
+
+        tr = SnapshotTrainer(cell, loss_and_state, remat=True,
+                             capture=capture)
+        bcsr.reset_launch_counts()
+        losses = torch.stack([tr.train_epoch(sig, None)
+                              for _ in range(epochs)])
+        assert bcsr.hybrid_spmm.launches == epochs * (8 * t - 1)
+        runs[capture] = (losses, list(cell.parameters()), tr)
+    (le, pe, _), (lc, pc, tr) = runs[False], runs[True]
+    assert tr.captures == 1 and tr.replays == epochs - 1
+    _assert_same_run(lc, le, pc, pe)

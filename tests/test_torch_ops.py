@@ -23,6 +23,12 @@ from pytorch_geometric_temporal_tpu_torch.ops import Graph as TGraph
 from pytorch_geometric_temporal_tpu_torch.ops import graph as tgraph
 from pytorch_geometric_temporal_tpu_torch.ops import operators as tops
 from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
+from _torch_jax_native import jax_native  # noqa: F401
+
+# the JAX package's native library, loaded race-free: its RCM order is
+# what the port's native layer is compared with (see the module)
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 
 # the ops packages re-export the spmm function under the module's name
 jspmm = importlib.import_module("pytorch_geometric_temporal_tpu.ops.spmm")

@@ -43,6 +43,12 @@ from pytorch_geometric_temporal_tpu_torch import native as tnative
 from pytorch_geometric_temporal_tpu_torch import parallel as tpar
 from pytorch_geometric_temporal_tpu_torch.models import DCRNN
 from pytorch_geometric_temporal_tpu_torch.ops import Graph as TGraph
+from _torch_jax_native import jax_native  # noqa: F401
+
+# the JAX package's native library, loaded race-free: its RCM order is
+# what the port's native layer is compared with (see the module)
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 
 REPO = Path(__file__).parent.parent
 RANKS = Path(__file__).parent / "_torch_parallel_ranks.py"

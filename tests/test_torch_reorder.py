@@ -35,6 +35,12 @@ from pytorch_geometric_temporal_tpu_torch.ops import Graph as TGraph
 from pytorch_geometric_temporal_tpu_torch.ops import bcsr as tb
 from pytorch_geometric_temporal_tpu_torch.ops import reorder_graph
 from pytorch_geometric_temporal_tpu_torch.ops.graph import diffusion_norms
+from _torch_jax_native import jax_native  # noqa: F401
+
+# the JAX package's native library, loaded race-free: its RCM order is
+# what the port's native layer is compared with (see the module)
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 
 N, DEG, OFFSET = 2048, 2, 8
 F, C, K, B, T = 2, 4, 2, 2, 3

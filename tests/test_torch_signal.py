@@ -162,6 +162,33 @@ def test_from_arrays_matches_jax(dynamic):
                                            device="cpu")
 
 
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_stacked_signal_keeps_its_graphs(dynamic):
+    """``graph`` builds each graph once and keeps it on the signal: the
+    static graph for any t, one graph a step when dynamic, each equal to
+    the JAX package's; every scan hands its step those same instances."""
+    rng = np.random.default_rng(4)
+    feats, targs = rng.normal(size=(T, N, F)), rng.normal(size=(T, N))
+    if dynamic:
+        ei = [rng.integers(0, N, size=(2, 6 + 3 * t)) for t in range(T)]
+        ew = [rng.uniform(0.1, 1.0, 6 + 3 * t) for t in range(T)]
+    else:
+        ei, ew = rng.integers(0, N, size=(2, 20)), None
+    tst = tsig.StackedSignal.from_arrays(feats, targs, ei, ew, device="cpu")
+    jst = jsig.StackedSignal.from_arrays(feats, targs, ei, ew)
+    first = [tst.graph(t) for t in range(T)]
+    assert all(tst.graph(t) is g for t, g in enumerate(first))
+    assert len({id(g) for g in first}) == (T if dynamic else 1)
+    for t, g in enumerate(first):
+        jg = jst.graph(t)
+        same(g.senders, jg.senders)
+        same(g.masked_weights(), jg.masked_weights())
+    for _ in range(2):
+        seen = []
+        tst.scan(lambda c, x, y, g: (seen.append(g) or c, ()), 0)
+        assert all(a is b for a, b in zip(seen, first))
+
+
 @pytest.mark.parametrize("kind", ["StaticGraphTemporalSignal",
                                   "DynamicGraphTemporalSignal",
                                   "DynamicGraphStaticSignalBatch"])

@@ -34,6 +34,12 @@ from pytorch_geometric_temporal_tpu_torch.data import ChickenpoxDatasetLoader
 from pytorch_geometric_temporal_tpu_torch.models.conv import load_linear
 from pytorch_geometric_temporal_tpu_torch.ops import bcsr as tb
 from pytorch_geometric_temporal_tpu_torch.train import SnapshotTrainer, mse
+from _torch_jax_native import jax_native  # noqa: F401
+
+# the JAX package's native library, loaded race-free: its RCM order is
+# what the port's native layer is compared with (see the module)
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 
 N = 30
 

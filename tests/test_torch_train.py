@@ -8,6 +8,10 @@ parameters agree to 2e-6 per parameter: each update moves a parameter by
 ~1e-3 and the gradients agree to f32 summation order.
 """
 
+import collections
+import copy
+import traceback
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +28,12 @@ from pytorch_geometric_temporal_tpu.train.precision import (
     bf16_policy as j_bf16)
 from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
 from pytorch_geometric_temporal_tpu_torch.ops import Graph as TGraph
+from pytorch_geometric_temporal_tpu_torch.ops import bcsr as tb
+from pytorch_geometric_temporal_tpu_torch.signal import StackedSignal
 from pytorch_geometric_temporal_tpu_torch.train import (
-    BatchTrainer, ZScoreScaler, bf16_policy, f32_policy)
+    BatchTrainer, SnapshotTrainer, ZScoreScaler, bf16_policy, f32_policy)
 from pytorch_geometric_temporal_tpu_torch.train import losses as tl
+from pytorch_geometric_temporal_tpu_torch.train import trainer as ttrainer
 
 
 def test_losses_match_jax():
@@ -146,3 +153,243 @@ def test_fit_runs_epochs_and_reports():
            callback=lambda e, loss, val: seen.append((e, loss, val)))
     assert [s[0] for s in seen] == [0, 1]
     assert all(np.isfinite(s[1]) and np.isfinite(s[2]) for s in seen)
+
+
+# --- the trainers' capture switch (CUDA graphs run on the card only:
+# tests/test_torch_cuda.py; here, what the CPU trainers do and the pieces
+# of the signature and the error that need no card) ----------------------
+
+
+def _snapshot_setup():
+    """A StackedSignal of 4 snapshots on the CPU and a linear model over
+    the threaded state."""
+    rng = np.random.default_rng(5)
+    signal = StackedSignal.from_arrays(
+        rng.normal(size=(4, 6, 3)).astype(np.float32),
+        rng.normal(size=(4, 6)).astype(np.float32),
+        np.array([[0, 1, 2], [1, 2, 0]]), device="cpu")
+    model = torch.nn.Linear(3, 1)
+    with torch.no_grad():
+        model.weight.copy_(torch.from_numpy(
+            rng.normal(size=(1, 3)).astype(np.float32)))
+        model.bias.zero_()
+
+    def loss_and_state(carry, x, y, graph):
+        out = model(x)[:, 0] + (0.0 if carry is None else 0.5 * carry)
+        return tl.mse(out, y), out
+
+    return model, loss_and_state, signal
+
+
+def _batch_setup():
+    rng = np.random.default_rng(6)
+    model = torch.nn.Linear(4, 2)
+    with torch.no_grad():
+        model.weight.copy_(torch.from_numpy(
+            rng.normal(size=(2, 4)).astype(np.float32)))
+        model.bias.zero_()
+    batches = [(torch.from_numpy(rng.normal(size=(5, 4)).astype(np.float32)),
+                torch.from_numpy(rng.normal(size=(5, 2)).astype(np.float32)))
+               for _ in range(3)]
+    return model, batches
+
+
+@pytest.mark.parametrize("kind", ["batch", "snapshot"])
+def test_cpu_trainer_defaults_to_eager_with_the_same_numbers(kind):
+    """A CPU trainer does not capture, builds the optimizer it always built
+    (Adam, not capturable) and gives, bit for bit, the losses and
+    parameters of the plain eager loop it runs."""
+    if kind == "batch":
+        model, batches = _batch_setup()
+        ref = copy.deepcopy(model)
+        tr = BatchTrainer(model, lr=1e-2, device="cpu")
+        got = [tr.train_step(x, y) for x, y in batches]
+        opt = torch.optim.Adam(ref.parameters(), lr=1e-2,
+                               betas=(0.9, 0.999), eps=1e-8)
+        want = []
+        for x, y in batches:
+            opt.zero_grad(set_to_none=True)
+            loss = tl.mse(ref(x), y)
+            loss.backward()
+            opt.step()
+            want.append(loss.detach())
+        evals = (tr.eval_step(*batches[0]), tl.mse(ref(batches[0][0]),
+                                                   batches[0][1]))
+    else:
+        model, loss_and_state, signal = _snapshot_setup()
+        ref = copy.deepcopy(model)
+        tr = SnapshotTrainer(model, loss_and_state, lr=1e-2, device="cpu")
+        got = [tr.train_epoch(signal, None) for _ in range(3)]
+        opt = torch.optim.Adam(ref.parameters(), lr=1e-2,
+                               betas=(0.9, 0.999), eps=1e-8)
+
+        def epoch_loss():
+            total, carry = torch.zeros(()), None
+            for t in range(signal.snapshot_count):
+                out = ref(signal.features[t])[:, 0] + (
+                    0.0 if carry is None else 0.5 * carry)
+                total, carry = total + tl.mse(out, signal.targets[t]), out
+            return total / signal.snapshot_count
+
+        want = []
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            loss = epoch_loss()
+            loss.backward()
+            opt.step()
+            want.append(loss.detach())
+        with torch.no_grad():
+            evals = (tr.evaluate(signal, None), epoch_loss())
+    assert tr.capture is False and tr.captures == 0 and tr.replays == 0
+    assert tr.optimizer.param_groups[0]["capturable"] is False
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(*evals)
+    for p, q in zip(model.parameters(), ref.parameters()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("kind", ["batch", "snapshot"])
+def test_capture_true_on_cpu_raises(kind):
+    model, *rest = _batch_setup() if kind == "batch" else _snapshot_setup()
+    with pytest.raises(ValueError, match="capture=True needs a CUDA"):
+        if kind == "batch":
+            BatchTrainer(model, device="cpu", capture=True)
+        else:
+            SnapshotTrainer(model, rest[0], device="cpu", capture=True)
+    tr = (BatchTrainer(model, device="cpu", capture=False) if kind == "batch"
+          else SnapshotTrainer(model, rest[0], device="cpu", capture=False))
+    assert tr.capture is False and tr.captures == 0
+
+
+Point = collections.namedtuple("Point", "a b")
+
+
+@pytest.mark.parametrize("tree", [
+    (torch.ones(2), torch.zeros(3, 1)),
+    (None,),
+    ((),),
+    ({"h": torch.ones(2), "c": [torch.zeros(1), 3]}, 2.5),
+    (Point(torch.ones(1), "x"),),
+])
+def test_step_signature_flattens_and_rebuilds(tree):
+    """The capture's signature: tensors become static-input slots keyed by
+    shape, strides and dtype, the rest is keyed by value (by identity when
+    unhashable) and held objects by identity; rebuilding from the slots
+    gives the same structure."""
+    key, leaves, spec = ttrainer._signature(tree, ())
+    hash(key)
+    again, same_leaves, _ = ttrainer._signature(tree, ())
+    assert again == key
+    assert all(a is b for a, b in zip(leaves, same_leaves))
+    rebuilt = torch.utils._pytree.tree_unflatten(leaves, spec)
+    assert ttrainer._signature(rebuilt, ())[0] == key
+    wider = torch.utils._pytree.tree_map(
+        lambda v: torch.cat([v, v]) if isinstance(v, torch.Tensor) else v,
+        tree)
+    halved = torch.utils._pytree.tree_map(
+        lambda v: v.half() if isinstance(v, torch.Tensor) else v, tree)
+    tensors = any(isinstance(v, torch.Tensor) for v in leaves)
+    assert (ttrainer._signature(wider, ())[0] != key) is tensors
+    assert (ttrainer._signature(halved, ())[0] != key) is tensors
+    o1, o2 = object(), object()
+    assert ttrainer._signature(tree, (o1,))[0] == ttrainer._signature(
+        tree, (o1,))[0]
+    assert ttrainer._signature(tree, (o1,))[0] != ttrainer._signature(
+        tree, (o2,))[0]
+
+
+def test_static_inputs_keep_a_views_layout():
+    """A window view keeps its strides in its static buffer (the step sees
+    the layout it sees eagerly); a broadcast view, which cannot be written,
+    gets a dense buffer; a tensor from another device takes ``.to``'s
+    layout."""
+    win = torch.arange(2 * 5 * 3, dtype=torch.float32).reshape(2, 5, 3)
+    view = win[:, :3]
+    static = ttrainer._static_like(view, torch.device("cpu"))
+    assert static.stride() == view.stride() and static.shape == view.shape
+    static.copy_(view)
+    assert torch.equal(static, view)
+    wide = torch.ones(3, 1).expand(3, 4)
+    dense = ttrainer._static_like(wide, torch.device("cpu"))
+    assert dense.is_contiguous()
+    dense.copy_(wide)
+    meta = ttrainer._static_like(win.transpose(0, 1), torch.device("meta"))
+    assert meta.stride() == win.transpose(0, 1).stride()
+
+
+def _blocked_op():
+    raise RuntimeError("CUDA error: operation not permitted when stream is "
+                       "capturing\nmore detail")
+
+
+def test_uncapturable_step_error_names_the_step_and_the_opt_out():
+    """The error names the step, the first line of what blocked it and
+    ``capture=False``; raised from the original, its chained traceback
+    reaches the blocking frame."""
+    with pytest.raises(RuntimeError) as info:
+        try:
+            _blocked_op()
+        except RuntimeError as exc:
+            raise ttrainer._not_capturable("BatchTrainer.train_step",
+                                           exc) from exc
+    text = str(info.value)
+    assert text.startswith("BatchTrainer.train_step: the step cannot be "
+                           "captured")
+    assert "operation not permitted when stream is capturing" in text
+    assert "more detail" not in text and "capture=False" in text
+    frames = traceback.extract_tb(info.value.__cause__.__traceback__)
+    assert frames[-1].name == "_blocked_op"
+
+
+def test_launch_counts_are_taken_back_and_added():
+    """What a capture counted (nothing ran) is taken back out, and a replay
+    adds it again: the counters stay kernels executed."""
+    tb.reset_launch_counts()
+    assert tb.launch_counts() == (0, 0, 0)
+    tb.add_launch_counts((30, 0, 0))
+    assert tb.hybrid_spmm.launches == 30 and tb.launch_counts() == (30, 0, 0)
+    tb.add_launch_counts((-30, 0, 0))
+    assert tb.launch_counts() == (0, 0, 0)
+
+
+def test_signature_keys_hold_their_objects_by_identity():
+    """A held signal (a frozen dataclass: unhashable, equal by its fields)
+    and an unhashable leaf are keyed by identity; the key holds its object,
+    so its id is not taken by another while the key lives."""
+    _, _, signal = _snapshot_setup()
+    twin = copy.copy(signal)
+    key = ttrainer._signature((None,), (signal,))[0]
+    assert key == ttrainer._signature((None,), (signal,))[0]
+    assert key != ttrainer._signature((None,), (twin,))[0]
+    box = {1}
+    assert ttrainer._signature(({"k": box},), ())[0] == ttrainer._signature(
+        ({"k": box},), ())[0]
+    assert ttrainer._signature(({"k": box},), ())[0] != ttrainer._signature(
+        ({"k": {1}},), ())[0]
+    ref = ttrainer._Id(object())
+    assert ref == ttrainer._Id(ref.obj) and hash(ref) == id(ref.obj)
+
+
+def test_snapshot_epochs_reuse_the_operators_of_the_signals_graph():
+    """A SnapshotTrainer epoch aggregates over the graph the signal hands
+    its step: the signal keeps that graph, so an operator derived from it
+    in the first epoch (memoized on the instance) is the one every later
+    epoch and evaluation uses, as a captured epoch needs."""
+    from pytorch_geometric_temporal_tpu_torch.ops.graph import cheb_norm
+
+    model, _, signal = _snapshot_setup()
+    seen = []
+
+    def loss_and_state(carry, x, y, graph):
+        op = cheb_norm(graph)
+        seen.append(op)
+        out = model(x)[:, 0] + op.weights.sum()
+        return tl.mse(out, y), carry
+
+    tr = SnapshotTrainer(model, loss_and_state, lr=1e-2, device="cpu")
+    for _ in range(2):
+        assert torch.isfinite(tr.train_epoch(signal, None))
+    assert torch.isfinite(tr.evaluate(signal, None))
+    assert len(seen) == 3 * signal.snapshot_count
+    assert all(op is seen[0] for op in seen)
