@@ -118,11 +118,14 @@ launch counts stay kernels executed under replay.
    ``make_mixed_precision_step`` with ``bf16_policy`` (f32 master
    parameters in a ``TrainState``, bf16 compute, Adam 1e-3): forward and
    parameter gradients against the f32 segment path, bf16 predictions, 30
-   fused launches a step and none of K1/K2, a falling loss, the step time
-   and the device's busy time beside phase 3's f32-compute step; then
-   ``f16_policy`` with a ``DynamicLossScale``: a planted overflow batch
-   leaves parameters, Adam moments and step counts unchanged bit for bit
-   and halves the scale, two clean steps double it;
+   fused launches a step and none of K1/K2, one CUDA graph (the step is
+   captured), a falling loss, the step time and the device's busy time
+   beside phase 3's f32-compute step; then ``f16_policy`` with a
+   ``DynamicLossScale``, captured: after two clean steps a planted overflow
+   batch and two clean steps run as replays with every host sync an error
+   (``torch.cuda.set_sync_debug_mode``); the overflow leaves parameters,
+   Adam moments and step counts and the state's step unchanged bit for bit
+   and halves the scale, the clean steps double it;
 17. ``HeteroGCLSTM`` (32 channels) + a shared head over a
    ``StaticHeteroGraphTemporalSignal`` with node types of 50,000 (F=8)
    and 20,000 (F=4) nodes and 1,000,000 banded edges each way, T=8,
@@ -147,9 +150,10 @@ launch counts stay kernels executed under replay.
    step's loss, the all-reduced gradient Adam is given and the parameters
    after it against the single-process step on the concatenated batch,
    the ranks' parameters equal after 3 steps
-   (``assert_same_across_hosts``), step time, the share of it that the
-   step's two all-reduces take when timed alone, and the device's busy
-   time a rank (time-sharing one card: no scaling is measured);
+   (``assert_same_across_hosts``), the steps run eagerly (gloo cannot be
+   captured), step time, the share of it that the step's two all-reduces
+   take when timed alone, and the device's busy time a rank (time-sharing
+   one card: no scaling is measured);
 20. the halo-partitioned DCRNN at the same scale: the same two ranks build
    ``PartitionedDiffusionOperators.from_graph(graph, 2)`` and run
    ``DCRNNPartitionedSeq(2, K=2)`` on their node blocks of 64 windows
@@ -203,21 +207,28 @@ launch counts stay kernels executed under replay.
    model's median relative error of the warm prediction must stay within
    ``COST_MEDIAN_TOL`` on the sweep, on the held-out points and on the
    gathers;
-24. (run after phase 16) phases 3, 6 and 15's paths eager (``capture=False``)
-   and captured, from the same parameters on the same batches: host time
+24. (run after phase 16) phases 3, 6, 15 and 16's (bf16 and f16) paths eager
+   (``capture=False``) and captured, from the same parameters on the same
+   batches: host time
    a step or epoch, device busy time and busy share both ways, the
    profiler's top kernels both ways (a replay runs no host op, so only the
    eager run attributes kernels to operations), the captured run's losses
    and parameters against the eager run's within ``CAPTURE_LOSS_RTOL`` /
    ``CAPTURE_PARAM_ATOL`` and whether the first step's loss is bit-equal,
-   one CUDA graph a path, and the launch counts under replay.
+   one CUDA graph a path, and the launch counts under replay;
+25. (run after phase 20) phase 19's data-parallel step at P=1 over NCCL,
+   the group of one ``make_mesh`` makes, at phase 15's width and depth:
+   its first step against ``BatchTrainer``'s on the same batch within
+   ``DDP_TOLS``, then eager against captured as in phase 24, and the
+   all-reduce bytes a replay sends against the formula.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
 without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
 its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16, 19
-(both ranks), 21 and 22 (phase 24's are checked, not summed); the
+(both ranks), 25 (its first step), 21 and 22 (phase 24's are checked, not
+summed); the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -2776,12 +2787,13 @@ def eager_and_captured(torch, label, make, call, per_call, unit, smi):
 
 
 def phase_capture(torch, report, smi):
-    """Phases 3, 6 and 15's paths eager and captured, from the same
+    """Phases 3, 6, 15 and 16's paths eager and captured, from the same
     parameters on the same batches."""
     from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
     from pytorch_geometric_temporal_tpu_torch.signal import IndexLoader
     from pytorch_geometric_temporal_tpu_torch.train import (
-        BatchTrainer, SnapshotTrainer, mse)
+        BatchTrainer, SnapshotTrainer, TrainState, bf16_policy, f16_policy,
+        make_mixed_precision_step, mse)
 
     sl, ch, pm = report["slice"], report["cheb"], report["pems"]
     c = SLICE
@@ -2833,6 +2845,81 @@ def phase_capture(torch, report, smi):
                        lambda tr, i: tr.train_step(*batches[i % len(batches)]),
                        expected_launches(p["lags"], p["K"], 1), "step", smi)
 
+    def make_mixed(policy, dynamic_scale):
+        def make(capture):
+            model = DCRNNSeq(c["f"], c["hidden"], K=2,
+                             generator=torch.Generator().manual_seed(0))
+
+            def loss_fn(params, xb, yb):
+                pred = torch.func.functional_call(model, params,
+                                                  (xb, sl["ops"]))
+                return (pred.float() - yb.float()).square().mean()
+
+            state = TrainState.create(
+                model, lambda ps: torch.optim.Adam(ps, lr=1e-3, eps=1e-8))
+            step = make_mixed_precision_step(
+                loss_fn, policy=policy, dynamic_scale=dynamic_scale,
+                capture=capture)
+            scale = f16_scale(torch, sl["x"].device) if dynamic_scale else None
+            return StepRunner(step, state, scale), model
+        return make
+
+    eager_and_captured(
+        torch, "phase 16's bf16 path (make_mixed_precision_step, DCRNNSeq "
+        "N=50k, bf16 BCSR, bf16 compute)", make_mixed(bf16_policy, False),
+        lambda run, i: run(sl["x"], sl["y"]), expected_launches(c["t"], 2, 1),
+        "step", smi)
+    eager_and_captured(
+        torch, "phase 16's f16 path (dynamic loss scale, no overflow)",
+        make_mixed(f16_policy, True), lambda run, i: run(sl["x"], sl["y"]),
+        expected_launches(c["t"], 2, 1), "step", smi)
+
+
+class StepRunner:
+    """A step builder's step bound to its state, read as a trainer is:
+    ``runner(*batch)`` runs one step and returns its loss; ``capture``,
+    ``captures`` and ``replays`` come from the step's graphs.  With a
+    ``scale`` the step is the f16 one, which threads it."""
+
+    def __init__(self, step, state, scale=None):
+        self.step, self.state, self.scale = step, state, scale
+        self.capture = step.graphs.capture is not False
+
+    def __call__(self, *batch):
+        if self.scale is None:
+            self.state, loss = self.step(self.state, *batch)
+        else:
+            self.state, self.scale, loss = self.step(self.state, self.scale,
+                                                     *batch)
+        return loss
+
+    @property
+    def captures(self):
+        return self.step.graphs.captures
+
+    @property
+    def replays(self):
+        return self.step.graphs.replays
+
+
+@contextlib.contextmanager
+def no_syncs(torch):
+    """Every host sync on the card raises inside."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def f16_scale(torch, device):
+    from pytorch_geometric_temporal_tpu_torch.train import DynamicLossScale
+
+    return DynamicLossScale(
+        scale=torch.tensor(MIXED["f16_scale"], device=device),
+        steps_since_growth=torch.tensor(0, dtype=torch.int32, device=device),
+        growth_interval=MIXED["growth_interval"])
+
 
 def rel_err(got, want):
     """max |got − want| over max |want|."""
@@ -2847,8 +2934,7 @@ def phase_mixed(torch, kernel_report, smi):
     from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
     from pytorch_geometric_temporal_tpu_torch.ops import bcsr
     from pytorch_geometric_temporal_tpu_torch.train import (
-        DynamicLossScale, TrainState, bf16_policy, f16_policy,
-        make_mixed_precision_step)
+        TrainState, bf16_policy, f16_policy, make_mixed_precision_step)
 
     c, m = SLICE, MIXED
     sl = kernel_report["slice"]
@@ -2896,10 +2982,11 @@ def phase_mixed(torch, kernel_report, smi):
     state = TrainState.create(
         model, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
     step = make_mixed_precision_step(loss_fn, policy=bf16_policy)
-    step(state, x, y)  # warm-up step
+    step(state, x, y)  # warm-up step: the signature's first, eager
     torch.cuda.synchronize()
     dtypes.clear()
     bcsr.reset_launch_counts()
+    # the first counted step captures the graph, the others replay it
     losses = [float(step(state, x, y)[1]) for _ in range(m["steps"])]
     launches = launch_counts(bcsr)
     want = expected_launches(c["t"], 2, m["steps"])
@@ -2910,6 +2997,7 @@ def phase_mixed(torch, kernel_report, smi):
     if launches != {"H": want, "K1": 0, "K2": 0}:
         raise SystemExit("launch counts differ from the model's count")
     kernel_report["H"]["launches"] += launches["H"]
+    check_captures(StepRunner(step, state), 1, "bf16-compute step")
     if set(dtypes) != {torch.bfloat16}:
         raise SystemExit(f"predictions in {dtypes}, not bf16")
     if any(p.dtype != torch.float32 for p in model.parameters()):
@@ -2923,52 +3011,68 @@ def phase_mixed(torch, kernel_report, smi):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     med = statistics.median(step_s)
-    log(f"  bf16-compute step (host clock, synchronized, {m['timed_steps']} "
-        f"steps): median {med * 1e3:.3f} ms, min {min(step_s) * 1e3:.3f}, "
-        f"max {max(step_s) * 1e3:.3f}; phase 3's f32-compute step median "
-        f"{sl['step_ms']:.3f} ms; on {smi}")
+    log(f"  bf16-compute step, captured (host clock, synchronized, "
+        f"{m['timed_steps']} steps): median {med * 1e3:.3f} ms, min "
+        f"{min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}; phase 3's "
+        f"f32-compute step median {sl['step_ms']:.3f} ms; on {smi}")
     busy = profile_steps(torch, lambda: step(state, x, y), med * 1e3)
     if busy is not None and sl["busy_ms"] is not None:
         log(f"  device busy per step: bf16 compute {busy:.3f} ms, f32 "
             f"compute (phase 3) {sl['busy_ms']:.3f} ms, ratio "
             f"{busy / sl['busy_ms']:.3f}, on {smi}")
 
-    # f16 with a dynamic loss scale: a planted overflow is skipped
-    dev = x.device
-    scale = DynamicLossScale(
-        scale=torch.tensor(m["f16_scale"], device=dev),
-        steps_since_growth=torch.tensor(0, dtype=torch.int32, device=dev),
-        growth_interval=m["growth_interval"])
+    # f16 with a dynamic loss scale, captured: two clean steps (the first
+    # eager, the second captures), then a planted overflow and two clean
+    # steps as replays with every host sync an error
+    s0 = m["f16_scale"]
+    scale = f16_scale(torch, x.device)
     state16 = TrainState.create(
         model, lambda p: torch.optim.Adam(p, lr=1e-3, eps=1e-8))
     step16 = make_mixed_precision_step(loss_fn, policy=f16_policy,
                                        dynamic_scale=True)
     dtypes.clear()
-    state16, scale, l0 = step16(state16, scale, x, y)
+    first = []
+    for _ in range(2):
+        state16, scale, l0 = step16(state16, scale, x, y)
+        first.append((float(l0), float(scale.scale)))
+    x_bad = x * 1e9
+    torch.cuda.synchronize()
     before = state16.snapshot()
-    state16, scale, l_bad = step16(state16, scale, x * 1e9, y)
-    after = state16.snapshot()
-    same = (after["step"] == before["step"] and all(
+    with no_syncs(torch):
+        state16, scale, l_bad = step16(state16, scale, x_bad, y)
+        halved = scale.scale.clone()
+        after = state16.snapshot()
+        clean = []
+        for _ in range(2):
+            state16, scale, loss = step16(state16, scale, x, y)
+            clean.append(loss)
+    torch.cuda.synchronize()
+    same = (int(after["step"]) == int(before["step"]) and all(
         torch.equal(after["params"][k], v)
         for k, v in before["params"].items()) and all(
         torch.equal(after["opt_state"]["state"][i][key], v)
         for i, mom in before["opt_state"]["state"].items()
         for key, v in mom.items()))
-    halved = float(scale.scale)
-    clean = []
-    for _ in range(2):
-        state16, scale, loss = step16(state16, scale, x, y)
-        clean.append(float(loss))
-    log(f"  f16 compute, loss scale {m['f16_scale']}: first step loss "
-        f"{float(l0):.6f}; planted overflow (x·1e9) loss {float(l_bad)}, "
-        f"parameters, Adam moments and steps unchanged bit for bit: {same}, "
-        f"scale {halved}; two clean steps {['%.6f' % v for v in clean]}, "
-        f"scale {float(scale.scale)}, state step {state16.step}; "
-        f"predictions {sorted({str(d) for d in dtypes})}")
-    if not (same and halved == m["f16_scale"] / 2
-            and float(scale.scale) == m["f16_scale"]
-            and state16.step == 3 and np.isfinite(clean).all()
-            and torch.isfinite(l0)):
+    clean = [float(v) for v in clean]
+    runner = StepRunner(step16, state16)
+    log(f"  f16 compute, loss scale {s0}, growth interval "
+        f"{m['growth_interval']}: two clean steps (eager, then captured) "
+        f"losses {['%.6f' % v for v, _ in first]}, scale "
+        f"{[v for _, v in first]}; then as replays under "
+        f"torch.cuda.set_sync_debug_mode('error') (no host sync raised): "
+        f"planted overflow (x·1e9) loss {float(l_bad)}, parameters, Adam "
+        f"moments and steps and the state's step unchanged bit for bit: "
+        f"{same}, scale {float(halved)}; two clean steps "
+        f"{['%.6f' % v for v in clean]}, scale {float(scale.scale)}, state "
+        f"step {int(state16.step)}; CUDA graphs {runner.captures} "
+        f"(predicted 1), {runner.replays} replays; predictions "
+        f"{sorted({str(d) for d in dtypes})}")
+    if not (same and [v for _, v in first] == [s0, 2 * s0]
+            and float(halved) == s0 and float(scale.scale) == 2 * s0
+            and int(state16.step) == 4 and np.isfinite(clean).all()
+            and not torch.isfinite(l_bad)
+            and np.isfinite([v for v, _ in first]).all()
+            and (runner.captures, runner.replays) == (1, 4)):
         raise SystemExit("the f16 loss-scale schedule misbehaved")
 
 
@@ -3295,6 +3399,7 @@ def ddp_rank(torch, par, rank, world, data, means, stds):
     torch.cuda.synchronize()
     out["launches"] = launch_counts(bcsr)
     out["losses"] = losses
+    out["graphs"] = [step.graphs.captures, step.graphs.replays]
     par.assert_same_across_hosts(model)     # raises if the ranks differ
 
     # timing (host clock, synchronized): the steps as they run, then the
@@ -3504,6 +3609,12 @@ def phase_ddp(torch, kernel_report, smi, deadline):
         kernel_report["H"]["launches"] += k["launches"]["H"]
     if any(rk["ddp"]["losses"] != r0["losses"] for rk in ranks):
         raise SystemExit("phase 19: the ranks' global losses differ")
+    graphs = [rk["ddp"]["graphs"] for rk in ranks]
+    log(f"  the ranks' steps ran eagerly (gloo goes through the host, which "
+        f"a CUDA graph cannot capture): CUDA graphs and replays a rank "
+        f"{graphs}")
+    if any(g != [0, 0] for g in graphs):
+        raise SystemExit("phase 19: a gloo step was captured")
     log(f"  against the single-process step on the concatenated batch of "
         f"{c['batch_size']}: loss {r0['losses'][0]:.7f} vs "
         f"{r0['loss_ref']:.7f}, relative {r0['loss_err']:.3e} (tol "
@@ -3584,6 +3695,124 @@ def phase_halo(torch, ranks, smi):
     if backend != "nccl" or out["all_bytes"] != 0 or out["all_formula"]:
         raise SystemExit("phase 20: P=1 did not run over NCCL")
     check_halo("P=1 (NCCL)", out)
+
+
+def phase_dp_nccl(torch, report, smi):
+    """Phase 19's data-parallel step at P=1 over NCCL (the group of one
+    ``make_mesh`` makes) at phase 15's width and depth: its first step
+    against ``BatchTrainer``'s on the same batch, then eager against
+    captured from the same parameters, and the bytes a replay sends."""
+    import torch.distributed as dist
+
+    from pytorch_geometric_temporal_tpu_torch import parallel as par
+    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+    from pytorch_geometric_temporal_tpu_torch.signal import IndexLoader
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        BatchTrainer, TrainState, masked_mae_loss)
+
+    p, pm = PEMS, report["pems"]
+    graph, scaler, loader = pm["graph"], pm["scaler"], pm["loader"]
+    batches = []
+    for xb, yb in IndexLoader(loader.indices, loader.windower,
+                              p["batch_size"], shuffle=True, seed=1):
+        if len(batches) == CAPTURE["steps"]:
+            break
+        batches.append((xb, yb))
+    per_step = expected_launches(p["lags"], p["K"], 1)
+
+    def loss_of(m, xb, yb):
+        return masked_mae_loss(scaler.inverse(m(xb, graph)),
+                               scaler.inverse(yb))
+
+    def count_of(xb, yb):
+        return (scaler.inverse(yb) != 0).sum()
+
+    def new_model():
+        return DCRNNSeq(p["f"], p["f"], p["K"],
+                        generator=torch.Generator().manual_seed(0))
+
+    def new_state(model):
+        return TrainState.create(model, lambda ps: torch.optim.Adam(ps, 1e-3))
+
+    mesh = par.make_mesh({"dp": 1})
+    try:
+        backend = str(dist.get_backend(mesh.get_group("dp")))
+        model, ref = new_model(), new_model()
+        state = new_state(model)
+        trainer = BatchTrainer(ref, lambda xb: ref(xb, graph), lr=1e-3,
+                               scaler=scaler, capture=False)
+        seen = {"dp": [], "ref": []}
+        hooks = [opt.register_step_pre_hook(
+            lambda o, a, k, m=m, key=key: seen[key].extend(
+                q.grad.clone() for q in m.parameters()))
+            for opt, m, key in ((state.opt_state, model, "dp"),
+                                (trainer.optimizer, ref, "ref"))]
+        step = par.make_dp_train_step(loss_of, mesh, weight_fn=count_of)
+        torch.cuda.synchronize()
+        bcsr.reset_launch_counts()
+        state, loss = step(state, *batches[0])
+        torch.cuda.synchronize()
+        launches = launch_counts(bcsr)
+        loss_ref = trainer.train_step(*batches[0])
+        for h in hooks:
+            h.remove()
+        loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+        grad_err = max(rel_err(a, b) for a, b in zip(seen["dp"],
+                                                     seen["ref"]))
+        param_err = max(rel_err(a.detach(), b.detach()) for a, b in zip(
+            model.parameters(), ref.parameters()))
+        log(f"  P=1 over {backend}, the first step (eager) against "
+            f"BatchTrainer's on the same batch of {p['batch_size']}: loss "
+            f"{float(loss):.7f} vs {float(loss_ref):.7f}, relative "
+            f"{loss_err:.3e} (tol {DDP_TOLS[0]}); the gradient Adam is given "
+            f"up to {grad_err:.3e} (tol {DDP_TOLS[1]}); parameters after it "
+            f"up to {param_err:.3e} (tol {DDP_TOLS[2]}); fused launches "
+            f"{launches['H']} (expected {per_step})")
+        if backend != "nccl":
+            raise SystemExit(f"phase 25: P=1 ran over {backend}, not NCCL")
+        if not (loss_err <= DDP_TOLS[0] and grad_err <= DDP_TOLS[1]
+                and param_err <= DDP_TOLS[2]):
+            raise SystemExit("phase 25: the data-parallel step differs from "
+                             "BatchTrainer's")
+        if launches != {"H": per_step, "K1": 0, "K2": 0}:
+            raise SystemExit("phase 25: launch counts differ")
+        report["H"]["launches"] += launches["H"]
+        del model, ref, state, trainer, seen
+
+        def make(capture):
+            m = new_model()
+            return StepRunner(par.make_dp_train_step(
+                loss_of, mesh, weight_fn=count_of, capture=capture),
+                new_state(m)), m
+
+        eager_and_captured(
+            torch, "phase 19's data-parallel step at P=1 over NCCL (PeMS "
+            "N=11,160, batches of 64)", make,
+            lambda run, i: run(*batches[i % len(batches)]), per_step,
+            "step", smi)
+
+        # the bytes a replay sends: the all-reduce formula, 2·(P−1)·B/P
+        # for each of the step's two buffers
+        run, m = make(None)
+        for i in range(2):              # eager, then the capture
+            run(*batches[i])
+        par.reset_collective_bytes()
+        replays = 3
+        for i in range(replays):
+            run(*batches[i])
+        torch.cuda.synchronize()
+        size = mesh["dp"].size()
+        buffers = (8, 4 * (sum(q.numel() for q in m.parameters()) + 1))
+        formula = sum(2 * (size - 1) * b // size for b in buffers)
+        sent = par.collective_bytes["all_reduce"] / replays
+        log(f"  all-reduce bytes a replay {sent} (formula {formula} at "
+            f"P={size}); CUDA graphs {run.captures}, replays {run.replays}")
+        if sent != formula or (run.captures, run.replays) != (1, 1 + replays):
+            raise SystemExit("phase 25: a replay's bytes differ from the "
+                             "formula")
+    finally:
+        dist.destroy_process_group()
 
 
 def check_halo(label, h):
@@ -4348,8 +4577,8 @@ def main() -> int:
     log("== phase 16: DCRNNSeq at N=50k in bf16 compute "
         "(make_mixed_precision_step), then f16 with a loss scale")
     phase_mixed(torch, report, smi)
-    log("== phase 24: phases 3, 6 and 15's paths eager and captured (CUDA "
-        "graphs) from the same parameters on the same batches")
+    log("== phase 24: phases 3, 6, 15 and 16's paths eager and captured "
+        "(CUDA graphs) from the same parameters on the same batches")
     phase_capture(torch, report, smi)
     del report["slice"], report["cheb"]
     log("== phase 17: HeteroGCLSTM at N=50k + 20k through SnapshotTrainer")
@@ -4362,6 +4591,9 @@ def main() -> int:
     log("== phase 20: halo-partitioned DCRNN at PeMS scale, P=2 over gloo "
         "and P=1 over NCCL")
     phase_halo(torch, ranks, smi)
+    log("== phase 25: phase 19's data-parallel step at P=1 over NCCL, "
+        "eager and captured (CUDA graphs)")
+    phase_dp_nccl(torch, report, smi)
     log("== phase 21: index-batched DCRNN on the PeMS stand-in with "
         "scrambled sensor ids (spmm_reorder='auto')")
     phase_pems_scrambled(torch, report, smi)

@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _counters
 from .graph import Graph
 
 BLOCK = 128
@@ -221,6 +222,16 @@ class BCSRMatrix:
             perm=index(perm),
             iperm=index(iperm),
         )
+
+    @property
+    def density(self) -> float:
+        """Kept tiles over the forward half's grid of 128×128 blocks."""
+        nb = self.fwd.num_rows // BLOCK
+        return self.fwd.nnzb / max(nb * (self.fwd.num_cols // BLOCK), 1)
+
+
+# the JAX package's earlier public name of the operator
+BCSRGraph = BCSRMatrix
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +572,14 @@ def _reorder_pays_off(r0, s0, r1, s1, n, block, dtype, expected_f,
                                              expected_f, min_block_edges,
                                              costs)
     return cost1 + gather_ns < cost0
+
+
+def bcsr_structure_counts(cols, rows, block, grid_cols):
+    """The structure pass alone, no tile filled: ``(nnzb, block_of_edge,
+    tile_rows, tile_cols)`` from the native helper."""
+    from ..native import bcsr_structure
+
+    return bcsr_structure(cols, rows, block, grid_cols)
 
 
 def _build_remainder(rows, cols, vals, block, rem_k=REM_K):
@@ -980,10 +999,13 @@ def launch_counts() -> tuple:
 def add_launch_counts(delta) -> None:
     """Add ``delta`` (a :func:`launch_counts` tuple) to the counts.  A
     CUDA graph's capture calls the wrappers, which count launches that do
-    not run; the trainers take those back out and add them again at every
-    replay, where the captured kernels do run."""
+    not run; the captured steps take those back out and add them again at
+    every replay, where the captured kernels do run (``_counters``)."""
     for wrapper, d in zip((hybrid_spmm, tile_spmm, rem_scatter_), delta):
         wrapper.launches += d
+
+
+_counters.register("bcsr_launches", launch_counts, add_launch_counts)
 
 
 def bcsr_matmul(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ all-reduce of B bytes 2·(P-1)·B/P.  Each call adds to the count where it
 issues its collective, backward passes included; a group of one sends
 nothing.  The count is process-wide, like the kernels' launch counters:
 read it after the work and reset it with :func:`reset_collective_bytes`.
+A captured step's collectives are counted at each replay (``_counters``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from .. import _counters
 
 collective_bytes = {"all_gather": 0, "reduce_scatter": 0, "all_to_all": 0,
                     "all_reduce": 0}
@@ -42,6 +45,16 @@ _reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
 def reset_collective_bytes() -> None:
     for key in collective_bytes:
         collective_bytes[key] = 0
+
+
+def _add_collective_bytes(delta) -> None:
+    for key, d in zip(collective_bytes, delta):
+        collective_bytes[key] += d
+
+
+_counters.register("collective_bytes",
+                   lambda: tuple(collective_bytes.values()),
+                   _add_collective_bytes)
 
 
 def _gather(x: torch.Tensor, group) -> torch.Tensor:

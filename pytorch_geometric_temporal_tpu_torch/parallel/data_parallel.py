@@ -16,6 +16,11 @@ rank's loss is therefore weighted by its share of the global count
 (``weight_fn``, summed over the ranks before the backward pass and
 detached), and the weighted losses and their gradients are summed: the
 global loss and its gradient.
+
+On CUDA over NCCL the step runs as replays of CUDA graphs, one a signature
+of its batch (the JAX step is ``jax.jit``-compiled), NCCL's all-reduces
+inside them.  gloo's collectives go through the host and cannot be
+captured: over gloo the step runs eagerly.
 """
 
 from __future__ import annotations
@@ -23,11 +28,26 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .._device import resolve_device
-from ..train.state import TrainState, apply_gradients
+from ..train.state import TrainState, apply_gradients, check_capturable
+from ..train.trainer import _DeviceGraphs
 from .collectives import all_reduce_
+
+
+def _resolve_dp_capture(capture, device, names, groups) -> bool:
+    backends = [str(dist.get_backend(g)) for g in groups]
+    over = [f"{n!r} over {b}" for n, b in zip(names, backends) if b != "nccl"]
+    if capture is None:
+        return device.type == "cuda" and not over
+    if capture and over:
+        raise ValueError(
+            f"capture=True needs NCCL process groups: CUDA graphs capture "
+            f"NCCL's collectives, not gloo's, which go through the host "
+            f"({', '.join(over)}); pass capture=False")
+    return capture
 
 
 def make_dp_train_step(
@@ -35,6 +55,7 @@ def make_dp_train_step(
     mesh: DeviceMesh,
     axis_name="dp",
     weight_fn: Optional[Callable] = None,
+    capture: Optional[bool] = None,
 ):
     """Build a data-parallel train step.
 
@@ -45,9 +66,17 @@ def make_dp_train_step(
         mesh: a mesh with the ``axis_name`` axis (a name or a tuple of
             names: gradients are summed over each).
         weight_fn: ``(x, y) -> count`` of the entries ``loss_fn`` averages
-            over on this rank; default ``y.numel()``.  For a masked loss
-            pass the mask's count, e.g. ``lambda x, y: (y != 0).sum()``
-            for ``masked_mae_loss``.
+            over on this rank, a tensor or a number; default
+            ``y.numel()``.  For a masked loss pass the mask's count, e.g.
+            ``lambda x, y: (y != 0).sum()`` for ``masked_mae_loss``.  A
+            captured step takes a number as fixed for the batch's shape.
+        capture: run the step as replays of CUDA graphs, one a signature
+            of (x, y) and the state (default: when the mesh is CUDA and
+            every group it reduces over is NCCL; True over gloo or on the
+            CPU raises).  The state's optimizer must be capturable
+            (``TrainState.create`` turns Adam's ``capturable`` on for CUDA
+            parameters); a graph reads and writes the state's tensors in
+            place.
 
     Returns:
         ``step(state, x, y) -> (state, loss)``: one update of the
@@ -55,18 +84,27 @@ def make_dp_train_step(
         optimizer (JAX's ``optimizer`` argument lives in the state), and the
         loss of the global batch (the same on every rank).  Two
         all-reduces a step: the entry count, then the gradients and the
-        loss in one flat buffer.
+        loss in one flat buffer.  ``step.graphs.captures`` and
+        ``.replays`` count the graphs and replays.
     """
-    resolve_device(mesh.device_type)
+    device = resolve_device(mesh.device_type)
     names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
     groups = [mesh.get_group(n) for n in names]
     if weight_fn is None:
         weight_fn = lambda x, y: y.numel()  # noqa: E731
+    graphs = _DeviceGraphs("make_dp_train_step",
+                           _resolve_dp_capture(capture, device, names,
+                                               groups))
 
-    def step(state: TrainState, x, y):
+    def update(state, x, y):
         params = list(state.params.parameters())
-        count = torch.as_tensor(weight_fn(x, y), dtype=torch.float64,
-                                device=params[0].device).reshape(1).clone()
+        w = weight_fn(x, y)
+        dev = params[0].device
+        # built on the device: a capture cannot copy a host number over
+        count = (torch.as_tensor(w, dtype=torch.float64, device=dev)
+                 .reshape(1).clone() if isinstance(w, torch.Tensor)
+                 else torch.full((1,), float(w), dtype=torch.float64,
+                                 device=dev))
         total = all_reduce_(count.clone(), groups)
         share = (count / total.clamp(min=1.0)).float()
         loss = loss_fn(state.params, x, y) * share.to(params[0].dtype)[0]
@@ -80,6 +118,15 @@ def make_dp_train_step(
             named[name] = flat[offset:offset + p.numel()].view_as(p)
             offset += p.numel()
         apply_gradients(state, named)
-        return state, flat[-1]
+        return flat[-1]
 
+    def step(state: TrainState, x, y):
+        dev = next(state.params.parameters()).device
+        if graphs.captures_on(dev):
+            check_capturable(state, "make_dp_train_step")
+        return state, graphs(dev, lambda xb, yb: update(state, xb, yb),
+                             (x, y), held=(state, state.params,
+                                           state.opt_state, state.step))
+
+    step.graphs = graphs
     return step

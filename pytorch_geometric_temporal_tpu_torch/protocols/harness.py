@@ -100,14 +100,14 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
         prefix="harness_")
     mgr = CheckpointManager(ckpt_dir, max_to_keep=2)
     if mgr.restore(template=state) is not None:
-        log(f"resumed from step {state.step} in {ckpt_dir}")
+        log(f"resumed from step {int(state.step)} in {ckpt_dir}")
 
     guard = DivergenceGuard(explode_factor=10.0)
     timer = StepTimer(items_per_step=n_train)
     history = []
     best_val, bad_epochs = float("inf"), 0
     nan_epochs = set(nan_epochs)
-    for epoch in range(state.step // n_train, epochs):
+    for epoch in range(int(state.step) // n_train, epochs):
         prev_state = state.snapshot()  # rollback target: the whole state
         features = (train.features * float("nan") if epoch in nan_epochs
                     else train.features)
@@ -123,7 +123,7 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
         v = float(val_loss())
         history.append({"epoch": epoch, "train_mse": train_mse,
                         "val_mse": v})
-        mgr.save(state.step, state)
+        mgr.save(int(state.step), state)
         log(f"epoch {epoch}: train {train_mse:.4f} val {v:.4f}")
         # EarlyStopping(monitor='val_loss', patience, min_delta)
         if v < best_val - min_delta:

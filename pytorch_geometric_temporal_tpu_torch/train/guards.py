@@ -8,7 +8,7 @@ from typing import Any, Optional
 
 import torch
 
-from .state import clone_tree
+from .state import clone_tree, load_optimizer_state
 
 
 def loss_is_finite(loss) -> torch.Tensor:
@@ -72,5 +72,5 @@ class DivergenceGuard:
                 for key, t in _tensors(params).items():
                     t.copy_(good_params[key])
             if opt_state is not None:
-                opt_state.load_state_dict(clone_tree(good_opt))
+                load_optimizer_state(opt_state, good_opt)
         return params, opt_state, False

@@ -16,7 +16,10 @@ through.  They walk tensors, dicts, lists, tuples and dataclass instances
 (a :class:`~..ops.graph.Graph` gets its weights cast; an operator's tiles,
 held one level down, keep their dtype).  :class:`DynamicLossScale` is the
 JAX class's grow/shrink schedule (not ``torch.amp.GradScaler``'s), needed
-for f16 only.
+for f16 only; it is a pytree node, as the JAX class is, so its two tensors
+are a step's inputs and outputs.  On a CUDA state the step runs as replays
+of CUDA graphs, one a signature of its inputs, as the JAX step compiles
+under ``jax.jit`` once a signature.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
-from .state import TrainState, apply_gradients
+from .state import TrainState, apply_gradients, check_capturable
+from .trainer import _DeviceGraphs, _Id
 
 
 def _cast_floats(tree: Any, dtype) -> Any:
@@ -129,12 +134,57 @@ class DynamicLossScale:
                                    steps_since_growth=new_counter)
 
 
+pytree.register_pytree_node(
+    DynamicLossScale,
+    lambda s: ([s.scale, s.steps_since_growth],
+               (s.growth_factor, s.shrink_factor, s.growth_interval)),
+    lambda leaves, ctx: DynamicLossScale(*leaves, *ctx),
+    serialized_type_name=f"{__name__}.DynamicLossScale")
+
+
 def all_finite(tree) -> torch.Tensor:
-    """0-d bool tensor: every float tensor of ``tree`` is finite."""
+    """0-d bool tensor: every float tensor of ``tree`` is finite.  It lies
+    on the device of the tree's tensors (the CPU for a tree of none)."""
     leaves = [torch.isfinite(x).all() for x in _float_leaves(tree)]
     if not leaves:
-        return torch.tensor(True)
+        found = [t for t in pytree.tree_leaves(tree)
+                 if isinstance(t, torch.Tensor)]
+        return torch.ones((), dtype=torch.bool,
+                          device=found[0].device if found else None)
     return torch.stack(leaves).all()
+
+
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor an update writes: the step, the parameters and the
+    optimizer's state."""
+    return ([state.step] + list(state.params.parameters())
+            + [t for s in state.opt_state.state.values()
+               for t in s.values() if isinstance(t, torch.Tensor)])
+
+
+class _Kept:
+    """The values a state had before a scaled step's update, in buffers
+    that every step on that state reuses (a captured step writes them in
+    place): a skipped update puts them back, with ``torch.where`` on the
+    device's flag, as optax's ``apply_if_finite`` keeps the old state."""
+
+    def __init__(self):
+        self.tensors, self.buffers = [], []
+
+    def save(self, state: TrainState) -> None:
+        tensors = _state_tensors(state)
+        if (len(tensors) != len(self.tensors)
+                or any(a is not b for a, b in zip(tensors, self.tensors))):
+            self.tensors = tensors
+            self.buffers = [torch.empty_like(t) for t in tensors]
+        with torch.no_grad():
+            for b, t in zip(self.buffers, self.tensors):
+                b.copy_(t)
+
+    def restore_unless(self, finite: torch.Tensor) -> None:
+        with torch.no_grad():
+            for b, t in zip(self.buffers, self.tensors):
+                torch.where(finite.to(t.device), t, b, out=t)
 
 
 def make_mixed_precision_step(
@@ -142,6 +192,7 @@ def make_mixed_precision_step(
     optimizer: Optional[torch.optim.Optimizer] = None,
     policy: Policy = bf16_policy,
     dynamic_scale: bool = False,
+    capture: Optional[bool] = None,
 ):
     """Build a mixed-precision training step.
 
@@ -156,12 +207,30 @@ def make_mixed_precision_step(
     Returns ``step(state, *batch) -> (state, loss)`` or, with
     ``dynamic_scale=True``, ``step(state, loss_scale, *batch) -> (state,
     loss_scale, loss)``: a step whose gradients are not all finite leaves
-    the parameters, the optimizer's moments and step counts and
-    ``state.step`` unchanged, and the scale adapts.  That decision reads
-    one flag from the device: the scaled step syncs with the host once a
-    step.  A parameter the loss does not reach gets a zero gradient, as
+    the parameters, the optimizer's state and ``state.step`` unchanged, and
+    the scale adapts.  The update runs and ``torch.where`` on the device's
+    finite flag keeps the new or the old value of each of those tensors,
+    as the JAX step's ``jnp.where`` does: no step reads anything on the
+    host.  A parameter the loss does not reach gets a zero gradient, as
     under ``jax.grad``.
+
+    ``capture``: on a CUDA state the step runs as replays of CUDA graphs
+    (``capture=None``, the default there; ``capture=False`` runs every
+    operation from Python, as on the CPU; True on the CPU raises), as the
+    trainers' steps do: a signature's first call runs eagerly, the second
+    captures, later ones replay.  A signature is the batch's and the
+    scale's shapes, strides and dtypes and the identity of the state, its
+    module, optimizer and step: a graph reads and writes their tensors in
+    place (load into them with ``TrainState.load_state_dict``, which
+    copies).  The optimizer must be capturable (``TrainState.create``
+    turns Adam's ``capturable`` on for CUDA parameters); keep the scale on
+    the state's device.  ``step.graphs.captures`` and ``.replays`` count
+    the graphs and replays.
     """
+    name = ("make_mixed_precision_step" if not dynamic_scale
+            else "make_mixed_precision_step(dynamic_scale=True)")
+    graphs = _DeviceGraphs(name, capture)
+    kept = {}       # a state's _Kept, by the state's identity
 
     def grads_of(state, scale, batch):
         master = dict(state.params.named_parameters())
@@ -174,20 +243,38 @@ def make_mixed_precision_step(
                  for (k, p), g in zip(master.items(), grads)}
         return policy.cast_to_param(grads), loss.detach()
 
+    def update(state, scale, batch):
+        grads, loss = grads_of(state, scale, batch)
+        if scale is None:
+            apply_gradients(state, grads, optimizer)
+            return loss
+        grads = scale.unscale(grads)
+        finite = all_finite(grads)
+        keep = kept.setdefault(_Id(state), _Kept())
+        keep.save(state)
+        apply_gradients(state, grads, optimizer)
+        keep.restore_unless(finite)
+        return scale.adjust(finite), loss
+
+    def run(state, args, fn):
+        device = next(state.params.parameters()).device
+        if graphs.captures_on(device):
+            check_capturable(state, name)
+        return graphs(device, fn, args, held=(
+            state, state.params, state.opt_state, state.step))
+
     if not dynamic_scale:
 
         def step(state: TrainState, *batch):
-            grads, loss = grads_of(state, None, batch)
-            return apply_gradients(state, grads, optimizer), loss
+            return state, run(state, batch,
+                              lambda *b: update(state, None, b))
 
-        return step
+    else:
 
-    def step_scaled(state: TrainState, scale: DynamicLossScale, *batch):
-        grads, loss = grads_of(state, scale, batch)
-        grads = scale.unscale(grads)
-        finite = all_finite(grads)
-        if bool(finite):  # the one host sync of the step
-            apply_gradients(state, grads, optimizer)
-        return state, scale.adjust(finite), loss
+        def step(state: TrainState, scale: DynamicLossScale, *batch):
+            new_scale, loss = run(state, (scale,) + batch,
+                                  lambda s, *b: update(state, s, b))
+            return state, new_scale, loss
 
-    return step_scaled
+    step.graphs = graphs
+    return step

@@ -2,11 +2,13 @@
 
 Port of the JAX package's ``train/state.py`` in PyTorch's idiom:
 
-- :class:`TrainState` holds the step count, the module whose parameters
-  are trained (``params``) and the ``torch.optim`` optimizer, which holds
-  the optimizer's state (``opt_state``: Adam's moments and step counts).
-  Unlike the JAX pytree it is updated in place; :meth:`TrainState.snapshot`
-  is the copy to take where the JAX code keeps a reference.
+- :class:`TrainState` holds the step count (a device scalar, as in the JAX
+  package), the module whose parameters are trained (``params``) and the
+  ``torch.optim`` optimizer, which holds the optimizer's state
+  (``opt_state``: Adam's moments and step counts, made at ``create`` as
+  optax's ``init`` makes them).  Unlike the JAX pytree it is updated in
+  place; :meth:`TrainState.snapshot` is the copy to take where the JAX code
+  keeps a reference.
 - :class:`CheckpointManager` keeps the contract of the orbax manager the
   JAX package wraps: ``save`` under ``save_interval_steps``, retention of
   the newest ``max_to_keep`` steps, restore of the latest step by default
@@ -81,18 +83,94 @@ def restore_into(template: Any, loaded: Any) -> Any:
     return loaded
 
 
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Turn ``capturable`` on in each param group that has the option and
+    holds CUDA parameters, as the trainers build their Adam on the card:
+    its step counts then stay on the device and its ``step()`` can be
+    captured in a CUDA graph.  Only before the optimizer has state; a
+    group that already has state keeps its setting."""
+    for group in optimizer.param_groups:
+        if (group.get("capturable") is False
+                and any(p.is_cuda for p in group["params"])
+                and not any(optimizer.state.get(p) for p in group["params"])):
+            group["capturable"] = True
+
+
+def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
+    """Give every parameter without optimizer state its initial state now,
+    as optax's ``init`` does, rather than at the first update: one
+    ``step()`` on zero gradients, after which the parameters are put back
+    and every state tensor is zeroed (Adam's moments and step count, SGD's
+    momentum all start at zero).  A step that keeps or rolls back the state
+    on the device then finds every tensor it needs before the first
+    update."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    new = [p for p in params if not optimizer.state.get(p)]
+    if not new:
+        return
+    saved = [(p, p.grad) for p in params]
+    with torch.no_grad():
+        values = [p.detach().clone() for p in new]
+        for p in params:
+            p.grad = None
+        for p in new:
+            p.grad = torch.zeros_like(p)
+        optimizer.step()
+        for p, v in zip(new, values):
+            p.copy_(v)
+            for t in optimizer.state[p].values():
+                if isinstance(t, torch.Tensor):
+                    t.zero_()
+    for p, g in saved:
+        p.grad = g
+
+
+def check_capturable(state: "TrainState", name: str) -> None:
+    """Raise unless every param group of the state's optimizer that has the
+    option is ``capturable`` (a captured step needs it)."""
+    off = [i for i, g in enumerate(state.opt_state.param_groups)
+           if g.get("capturable") is False]
+    if off:
+        raise ValueError(
+            f"{name}: the state's optimizer cannot be captured in a CUDA "
+            f"graph: param groups {off} have capturable=False.  Build it "
+            f"with capturable=True, or let TrainState.create turn it on "
+            f"before the optimizer has state, or pass capture=False.")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state: dict) -> None:
+    """``optimizer.load_state_dict(state)`` that keeps the tensors the
+    optimizer already holds: the loaded values are copied into them, so a
+    captured step, which reads and writes them in place, stays valid.  The
+    optimizer never shares a tensor with ``state``."""
+    held = {p: dict(s) for p, s in optimizer.state.items()}
+    optimizer.load_state_dict(clone_tree(state))
+    with torch.no_grad():
+        for p, old in held.items():
+            now = optimizer.state[p]
+            for key, t in old.items():
+                v = now.get(key)
+                if (isinstance(t, torch.Tensor) and isinstance(v, torch.Tensor)
+                        and v.shape == t.shape and v.dtype == t.dtype):
+                    t.copy_(v)
+                    now[key] = t
+
+
 @dataclasses.dataclass
 class TrainState:
     """(step, params, optimizer) of one training run.
 
-    ``params`` is the ``nn.Module`` whose parameters are trained (an
-    ``nn.ParameterDict`` for a bare dict of tensors); ``opt_state`` is the
-    ``torch.optim`` optimizer over its parameters, which holds the
-    optimizer's state.  Both are updated in place by
-    :func:`apply_gradients`.
+    ``step`` is a 0-d int32 tensor on the parameters' device, as the JAX
+    state's is: an update increments it there, so a step need not sync
+    with the host (read it with ``int(state.step)``).  ``params`` is the
+    ``nn.Module`` whose parameters are trained (an ``nn.ParameterDict`` for
+    a bare dict of tensors); ``opt_state`` is the ``torch.optim`` optimizer
+    over its parameters, which holds the optimizer's state.  All three are
+    updated in place by :func:`apply_gradients`.
     """
 
-    step: int
+    step: torch.Tensor
     params: torch.nn.Module
     opt_state: torch.optim.Optimizer
 
@@ -103,24 +181,33 @@ class TrainState:
         """Step 0.  ``optimizer`` is an optimizer over ``params``'
         parameters, or a factory called with them (``lambda p:
         torch.optim.Adam(p, 1e-2)``) — the counterpart of optax's
-        ``optimizer.init(params)``."""
+        ``optimizer.init(params)``, which this is: the optimizer's state is
+        made now (:func:`init_optimizer_state`), after ``capturable`` is
+        turned on for CUDA parameters (:func:`make_capturable`)."""
         if not isinstance(optimizer, torch.optim.Optimizer):
             optimizer = optimizer(params.parameters())
-        return TrainState(step=0, params=params, opt_state=optimizer)
+        first = next(params.parameters(), None)
+        device = first.device if first is not None else torch.device("cpu")
+        make_capturable(optimizer)
+        init_optimizer_state(optimizer)
+        return TrainState(step=torch.zeros((), dtype=torch.int32,
+                                           device=device),
+                          params=params, opt_state=optimizer)
 
     def state_dict(self) -> dict:
         """References to the live tensors: ``{"step", "params" (the module's
         state dict), "opt_state" (the optimizer's)}``."""
-        return {"step": int(self.step), "params": self.params.state_dict(),
+        return {"step": self.step, "params": self.params.state_dict(),
                 "opt_state": self.opt_state.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
-        """Copy a state dict into the module and the optimizer.  The
-        optimizer is given clones, so it never shares a tensor with
-        ``state``."""
-        self.step = int(state["step"])
+        """Copy a state dict into the step, the module and the optimizer,
+        in place (a captured step reads their tensors in place).  A step
+        saved as an int, as before the step became a tensor, loads too.
+        The optimizer never shares a tensor with ``state``."""
+        self.step.copy_(torch.as_tensor(state["step"]))
         self.params.load_state_dict(state["params"])
-        self.opt_state.load_state_dict(clone_tree(state["opt_state"]))
+        load_optimizer_state(self.opt_state, state["opt_state"])
 
     def snapshot(self) -> dict:
         """A copy of the whole state, tensors cloned where they lie; hand it
@@ -132,9 +219,9 @@ def apply_gradients(state: TrainState, grads,
                     optimizer: Optional[torch.optim.Optimizer] = None
                     ) -> TrainState:
     """One optimizer update from ``grads`` (a dict by parameter name, or a
-    sequence in ``named_parameters()`` order); increments the step and
-    returns ``state``, updated in place.  ``optimizer`` defaults to the
-    state's and must be it when given."""
+    sequence in ``named_parameters()`` order); increments the step on its
+    device and returns ``state``, updated in place.  ``optimizer``
+    defaults to the state's and must be it when given."""
     if optimizer is not None and optimizer is not state.opt_state:
         raise ValueError("apply_gradients: the optimizer is not the state's")
     named = dict(state.params.named_parameters())
@@ -144,7 +231,7 @@ def apply_gradients(state: TrainState, grads,
         p.grad = None if g is None else g.to(p.dtype)
     state.opt_state.step()
     state.opt_state.zero_grad(set_to_none=True)
-    state.step += 1
+    state.step += 1     # in place for the tensor step
     return state
 
 
@@ -174,7 +261,7 @@ class CheckpointManager:
             state = mgr.restore(template=state) or state
             for ...:
                 state = train_step(state, ...)
-                mgr.save(state.step, state)
+                mgr.save(int(state.step), state)
     """
 
     def __init__(self, directory: str, max_to_keep: Optional[int] = 3,

@@ -27,12 +27,14 @@ shapes, strides and dtypes, and the identity of the signal an epoch reads:
 - every later call copies its tensors into the graph's static inputs and
   replays; a signal is read in place, and the trainer holds it.
 
-A step returns a fresh loss tensor, not the graph's output.  Random draws
+A step returns fresh tensors, not the graph's outputs.  Random draws
 from PyTorch's default CUDA generator differ from replay to replay as from
 step to step; a draw from a step's own CUDA ``torch.Generator`` cannot be
 captured.  A step that cannot be captured raises with the operation that
 blocked it; nothing falls back to eager execution.  ``captures`` and
-``replays`` count the graphs captured and the replays run.
+``replays`` count the graphs captured and the replays run.  The step
+builders of ``train/precision.py`` and ``parallel/data_parallel.py`` capture
+their steps the same way (:class:`_DeviceGraphs`).
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from .. import _counters
 from .._device import resolve_device
-from ..ops import bcsr
 from . import losses as losses_lib
 
 
@@ -126,11 +128,15 @@ def _not_capturable(name: str, exc: BaseException) -> RuntimeError:
 
 
 class _Graph:
-    __slots__ = ("graph", "statics", "out", "launches")
+    __slots__ = ("graph", "statics", "out", "counted")
 
-    def __init__(self, graph, statics, out, launches):
+    def __init__(self, graph, statics, out, counted):
         self.graph, self.statics = graph, statics
-        self.out, self.launches = out, launches
+        self.out, self.counted = out, counted
+
+
+def _clone(tree):
+    return pytree.tree_map_only(torch.Tensor, torch.Tensor.clone, tree)
 
 
 class _StepGraphs:
@@ -145,9 +151,10 @@ class _StepGraphs:
         self.replays = 0
 
     def __call__(self, fn: Callable, args: tuple, held: tuple = ()):
-        """``fn(*args)`` → a tensor.  ``args``' tensors are copied into the
-        graph's static inputs; ``held`` objects are read in place, so their
-        identity is part of the signature."""
+        """``fn(*args)`` → a tree of tensors, returned as fresh tensors.
+        ``args``' tensors are copied into the graph's static inputs;
+        ``held`` objects are read and written in place, so their identity
+        is part of the signature."""
         key, leaves, spec = _signature(args, held)
         entry = self.graphs.get(key)
         if entry is None:
@@ -159,9 +166,9 @@ class _StepGraphs:
             if static is not None:
                 static.copy_(t)
         entry.graph.replay()
-        bcsr.add_launch_counts(entry.launches)
+        _counters.add(entry.counted)
         self.replays += 1
-        return entry.out.clone()
+        return _clone(entry.out)
 
     def _eager(self, fn, args):
         current = torch.cuda.current_stream(self.device)
@@ -179,7 +186,7 @@ class _StepGraphs:
                 static.copy_(t)
         args = pytree.tree_unflatten(
             [t if s is None else s for s, t in zip(statics, leaves)], spec)
-        before = bcsr.launch_counts()
+        before = _counters.read()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=self.stream):
@@ -187,11 +194,48 @@ class _StepGraphs:
         except Exception as exc:
             raise _not_capturable(self.name, exc) from exc
         finally:
-            # the capture called the kernels' wrappers, which ran nothing
-            launches = tuple(a - b for a, b in zip(bcsr.launch_counts(),
-                                                   before))
-            bcsr.add_launch_counts(tuple(-d for d in launches))
-        return _Graph(graph, statics, out.detach(), launches)
+            # the capture called the kernels' wrappers and the collectives,
+            # which counted work that did not run
+            counted = _counters.counted_since(before)
+            _counters.add(counted, -1)
+        out = pytree.tree_map_only(torch.Tensor, torch.Tensor.detach, out)
+        return _Graph(graph, statics, out, counted)
+
+
+class _DeviceGraphs:
+    """The graphs of a step function that a builder returns before it
+    knows its device: at each call the state's device decides, as a
+    trainer's device does, whether the call captures (``capture=None``:
+    on CUDA; True on the CPU raises), and each CUDA device gets its own
+    :class:`_StepGraphs` at its first call."""
+
+    def __init__(self, name: str, capture: Optional[bool]):
+        self.name, self.capture = name, capture
+        self._graphs = {}
+
+    def captures_on(self, device: torch.device) -> bool:
+        return _resolve_capture(self.capture, device)
+
+    def __call__(self, device: torch.device, fn: Callable, args: tuple,
+                 held: tuple = ()):
+        """``fn(*args)``, eagerly or through the device's graphs."""
+        if not self.captures_on(device):
+            return fn(*args)
+        graphs = self._graphs.get(device)
+        if graphs is None:
+            graphs = self._graphs[device] = _StepGraphs(
+                self.name, device, torch.cuda.Stream(device))
+        return graphs(fn, args, held)
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured so far."""
+        return sum(len(g.graphs) for g in self._graphs.values())
+
+    @property
+    def replays(self) -> int:
+        """Graph replays run so far."""
+        return sum(g.replays for g in self._graphs.values())
 
 
 class _Captures:

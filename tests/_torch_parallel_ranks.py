@@ -288,6 +288,7 @@ def cuda_twin_cases(inp, res, rank, device):
     bcsr.reset_launch_counts()
     state, loss = step(state, xb, yb)
     res["dp/launches"] = np.int64(bcsr.hybrid_spmm.launches)
+    res["dp/captures"] = np.int64(step.graphs.captures)    # gloo: eager
     res["dp/loss"] = loss.cpu().numpy()
     res["dp/loss_ref"] = loss_ref.detach().cpu().numpy()
     for (name, p), q, gr, gq in zip(model.named_parameters(),

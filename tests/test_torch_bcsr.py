@@ -409,3 +409,42 @@ def test_bf16_gradient_matches_pallas_vjp():
                                              interpret=True))[:n]
     np.testing.assert_allclose(gx.numpy(), want,
                                atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", ["hybrid", "all-remainder", "reordered",
+                                  "one-block"])
+def test_density_and_the_earlier_name_match_jax(case):
+    """``BCSRMatrix.density`` (kept tiles over the forward grid) equals the
+    JAX package's on the same build, and ``BCSRGraph`` names the class in
+    both packages."""
+    n = {"one-block": 100}.get(case, 1300)
+    ei, w = banded(31, n, 16000, scramble=case == "reordered")
+    jg, tg = both_graphs(ei, w, n)
+    kw = {"hybrid": dict(min_block_edges=32),
+          "all-remainder": dict(min_block_edges=10**6),
+          "reordered": dict(min_block_edges=32, reorder="rcm"),
+          "one-block": dict(min_block_edges=8)}[case]
+    jm = jb.BCSRMatrix.from_graph(jg, **kw)
+    tm = tb.BCSRGraph.from_graph(tg, **kw)
+    assert isinstance(tm, tb.BCSRMatrix) and tb.BCSRGraph is tb.BCSRMatrix
+    assert jb.BCSRGraph is jb.BCSRMatrix
+    assert tm.density == jm.density
+    assert (tm.density == 0.0) == (case == "all-remainder")
+
+
+@pytest.mark.parametrize("seed,n,e,scramble", [(1, 700, 9000, False),
+                                               (2, 1500, 30000, True),
+                                               (3, 128, 500, False),
+                                               (4, 900, 0, False)])
+def test_bcsr_structure_counts_match_jax(seed, n, e, scramble):
+    """The structure pass alone: tile count, each edge's tile and the
+    tiles' (row block, col block) in sorted order, the port's native layer
+    against the JAX package's."""
+    ei, _ = banded(seed, n, e, scramble=scramble)
+    s, r = ei[0].astype(np.int32), ei[1].astype(np.int32)
+    grid = -(-n // 128)
+    want = jb.bcsr_structure_counts(s, r, 128, grid)
+    got = tb.bcsr_structure_counts(s, r, 128, grid)
+    assert got[0] == want[0] and (got[0] > 0) == (e > 0)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -165,20 +165,49 @@ def test_one_fused_launch_per_bcsr_matmul(cuda):
             bcsr.rem_scatter_.launches) == (2, 0, 0)
 
 
-def test_model_on_card_matches_cpu(cuda):
+def _dcrnn_forward(inputs, dev):
+    """DCRNNSeq(4, 8, K=2) over f32 BCSR diffusion operators on ``dev``."""
+    g = Graph.from_edge_index(inputs["ei"], inputs["w"],
+                              num_nodes=int(inputs["n"]), device=dev)
+    ops = DiffusionOperators.from_graph(g, bcsr=True, device=dev)
+    model = DCRNNSeq(4, 8, 2, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        return model(torch.from_numpy(inputs["x"]).to(dev), ops).cpu()
+
+
+def _cpu_reference(inputs, tmp_path):
+    """:func:`_dcrnn_forward` on the CPU in a process of its own: one
+    thread, MKL's conditional numerical reproducibility at COMPATIBLE.  In
+    the test's own process the CPU result was seen to move with what the
+    session ran before it, past the 1e-5 limit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    code = ("import sys, numpy as np, torch; torch.set_num_threads(1); "
+            "from test_torch_cuda import _dcrnn_forward; np.save(sys.argv[2],"
+            " _dcrnn_forward(np.load(sys.argv[1]), 'cpu').numpy())")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent), str(here)]), OMP_NUM_THREADS="1",
+        MKL_NUM_THREADS="1", MKL_CBWR="COMPATIBLE")
+    subprocess.run([sys.executable, "-c", code, str(tmp_path / "inputs.npz"),
+                    str(tmp_path / "out.npy")], env=env, check=True,
+                   timeout=300)
+    return torch.from_numpy(np.load(tmp_path / "out.npy"))
+
+
+def test_model_on_card_matches_cpu(cuda, tmp_path):
     n = 900
     ei, w = banded(n, 12000, seed=2)
-    outs = []
-    for dev in ("cpu", cuda):
-        g = Graph.from_edge_index(ei, w, num_nodes=n, device=dev)
-        ops = DiffusionOperators.from_graph(g, bcsr=True, device=dev)
-        model = DCRNNSeq(4, 8, 2, device=dev,
-                         generator=torch.Generator().manual_seed(0))
-        x = torch.from_numpy(np.random.default_rng(3).normal(
-            size=(2, 3, n, 4)).astype(np.float32)).to(dev)
-        with torch.no_grad():
-            outs.append(model(x, ops).cpu())
-    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-5)
+    inputs = dict(ei=ei, w=w, n=np.int64(n), x=np.random.default_rng(3)
+                  .normal(size=(2, 3, n, 4)).astype(np.float32))
+    want = _cpu_reference(inputs, tmp_path)
+    got = _dcrnn_forward(inputs, cuda)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -598,7 +627,7 @@ def test_bf16_mixed_precision_dcrnnseq_launches(cuda):
     assert set(dtypes) == {torch.bfloat16}
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    assert state.step == 4
+    assert int(state.step) == 4
 
 
 def test_f16_overflow_step_is_skipped_on_the_card(cuda):
@@ -629,7 +658,8 @@ def test_f16_overflow_step_is_skipped_on_the_card(cuda):
     state, scale, loss = step(state, scale, x * 1e9, y)
     after = state.snapshot()
     assert not torch.isfinite(loss)
-    assert float(scale.scale) == 128.0 and after["step"] == before["step"]
+    assert float(scale.scale) == 128.0
+    assert int(after["step"]) == int(before["step"])
     for name, p in before["params"].items():
         assert torch.equal(after["params"][name], p), name
     for i, moments in before["opt_state"]["state"].items():
@@ -638,7 +668,7 @@ def test_f16_overflow_step_is_skipped_on_the_card(cuda):
     for _ in range(2):
         state, scale, loss = step(state, scale, x, y)
         assert torch.isfinite(loss)
-    assert float(scale.scale) == 256.0 and state.step == 3
+    assert float(scale.scale) == 256.0 and int(state.step) == 3
     assert set(dtypes) == {torch.float16}
 
 
@@ -787,10 +817,11 @@ def test_dp_step_of_two_ranks_on_the_card(cuda, card_ranks):
     given (within 1e-4 of each leaf's largest entry: Adam's first update
     sees only the gradient's signs) and the Adam update equal the
     single-process step on the whole batch; 2·(2·2T(K−1) − (K−1)) fused
-    launches a rank (T=3, K=2)."""
+    launches a rank (T=3, K=2); over gloo the step runs eagerly."""
     for res in card_ranks:
         assert list(res["modules"]) == [""]
         assert int(res["dp/launches"]) == 22
+        assert int(res["dp/captures"]) == 0     # gloo goes through the host
         np.testing.assert_allclose(float(res["dp/loss"]),
                                    float(res["dp/loss_ref"]), rtol=1e-5)
         names = [k.split("/", 2)[2] for k in res if k.startswith("dp/ref/")]
@@ -1169,3 +1200,183 @@ def test_remat_epochs_capture_and_match_eager(cuda):
     (le, pe, _), (lc, pc, tr) = runs[False], runs[True]
     assert tr.captures == 1 and tr.replays == epochs - 1
     _assert_same_run(lc, le, pc, pe)
+
+
+# ---------------------------------------------------------------------------
+# The step builders captured: make_mixed_precision_step, make_dp_train_step
+# ---------------------------------------------------------------------------
+
+
+def _mixed_runs(cuda, policy, dynamic_scale, steps=6):
+    """``steps`` steps of DCRNNSeq over bf16 operators through
+    ``make_mixed_precision_step``, eager (capture=False) and captured,
+    from the same parameters: (losses, parameters, step) each way."""
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        DynamicLossScale, TrainState, make_mixed_precision_step)
+
+    ops, data, make = _dcrnn_case(cuda)
+    runs = {}
+    for capture in (False, None):
+        model = make()
+        loss_fn, _ = _dcrnn_loss(model, ops)
+        state = TrainState.create(model,
+                                  lambda p: torch.optim.Adam(p, lr=1e-2))
+        step = make_mixed_precision_step(loss_fn, policy=policy,
+                                         dynamic_scale=dynamic_scale,
+                                         capture=capture)
+        scale = DynamicLossScale(
+            scale=torch.tensor(256.0, device=cuda),
+            steps_since_growth=torch.tensor(0, dtype=torch.int32,
+                                            device=cuda))
+        losses = []
+        for i in range(steps):
+            x, y = data[i % len(data)]
+            if dynamic_scale:
+                state, scale, loss = step(state, scale, x, y)
+            else:
+                state, loss = step(state, x, y)
+            losses.append(loss)
+        runs[capture] = (torch.stack(losses), list(model.parameters()),
+                         step, state)
+    return runs[False], runs[None]
+
+
+@pytest.mark.parametrize("policy", ["bf16", "f16"])
+def test_captured_mixed_precision_steps_match_eager(cuda, policy):
+    """On a CUDA state ``make_mixed_precision_step`` captures by default:
+    six steps (the first eager, the second captures, the rest replay)
+    against ``capture=False`` from the same parameters, within the
+    trainers' capture limits; the first loss bit-equal; Adam made
+    capturable by ``TrainState.create``; one fused launch an aggregation
+    under replay."""
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        bf16_policy, f16_policy)
+
+    bcsr.reset_launch_counts()
+    (le, pe, se, ste), (lc, pc, sc, stc) = _mixed_runs(
+        cuda, bf16_policy if policy == "bf16" else f16_policy,
+        policy == "f16")
+    per_step = 2 * (2 * 3 * (2 - 1) * 2 - (2 - 1))      # T=3, K=2
+    assert bcsr.hybrid_spmm.launches == 2 * 6 * per_step
+    assert (se.graphs.captures, se.graphs.replays) == (0, 0)
+    assert (sc.graphs.captures, sc.graphs.replays) == (1, 5)
+    assert stc.opt_state.param_groups[0]["capturable"] is True
+    assert int(ste.step) == int(stc.step) == 6
+    assert torch.equal(lc[0], le[0]) and torch.isfinite(lc).all()
+    _assert_same_run(lc, le, pc, pe)
+
+
+def test_captured_f16_step_skips_a_planted_overflow_without_a_sync(cuda):
+    """The f16 step's skip is decided on the device: a planted overflow
+    and two clean steps run as replays with every host sync an error
+    (``torch.cuda.set_sync_debug_mode``); the overflow leaves parameters,
+    Adam's moments and step counts and the state's step bit for bit as
+    they were and halves the scale, the clean steps grow it back."""
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        DynamicLossScale, TrainState, f16_policy, make_mixed_precision_step)
+
+    ops, data, make = _dcrnn_case(cuda, b=1)
+    x, y = data[0]
+    model = make()
+    loss_fn, _ = _dcrnn_loss(model, ops)
+    state = TrainState.create(model, lambda p: torch.optim.Adam(p, lr=1e-2))
+    scale = DynamicLossScale(scale=torch.tensor(256.0, device=cuda),
+                             steps_since_growth=torch.tensor(
+                                 0, dtype=torch.int32, device=cuda),
+                             growth_interval=2)
+    step = make_mixed_precision_step(loss_fn, policy=f16_policy,
+                                     dynamic_scale=True)
+    for _ in range(2):                      # eager, then the capture
+        state, scale, _ = step(state, scale, x, y)
+    assert float(scale.scale) == 512.0
+    x_bad = x * 1e9
+    torch.cuda.synchronize()
+    before = state.snapshot()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, scale, bad = step(state, scale, x_bad, y)
+        halved = scale.scale.clone()
+        after = state.snapshot()
+        for _ in range(2):
+            state, scale, loss = step(state, scale, x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (step.graphs.captures, step.graphs.replays) == (1, 4)
+    assert not torch.isfinite(bad) and torch.isfinite(loss)
+    assert float(halved) == 256.0 and float(scale.scale) == 512.0
+    assert int(after["step"]) == int(before["step"]) == 2
+    assert int(state.step) == 4
+    for name, p in before["params"].items():
+        assert torch.equal(after["params"][name], p), name
+    for i, moments in before["opt_state"]["state"].items():
+        for key, v in moments.items():
+            assert torch.equal(after["opt_state"]["state"][i][key], v), key
+
+
+def test_a_non_capturable_optimizer_is_refused_by_a_captured_step(cuda):
+    """``TrainState.create`` turns Adam's ``capturable`` on for CUDA
+    parameters; an optimizer that already had state without it cannot be
+    captured, and the step raises naming the option (``capture=False``
+    runs it)."""
+    from pytorch_geometric_temporal_tpu_torch.train import (
+        TrainState, bf16_policy, make_mixed_precision_step)
+
+    ops, data, make = _dcrnn_case(cuda, b=1, batches=1)
+    model = make().to(cuda)
+    assert TrainState.create(model, lambda p: torch.optim.Adam(p)) \
+        .opt_state.param_groups[0]["capturable"] is True
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    opt.step()                       # state made while not capturable
+    state = TrainState.create(model, opt)
+    assert opt.param_groups[0]["capturable"] is False
+    loss_fn, _ = _dcrnn_loss(model, ops)
+    step = make_mixed_precision_step(loss_fn, policy=bf16_policy)
+    with pytest.raises(ValueError, match="capturable=False"):
+        step(state, *data[0])
+    eager = make_mixed_precision_step(loss_fn, policy=bf16_policy,
+                                      capture=False)
+    _, loss = eager(state, *data[0])
+    assert torch.isfinite(loss) and int(state.step) == 1
+
+
+def test_captured_nccl_dp_step_matches_eager(cuda):
+    """``make_dp_train_step`` over the NCCL group of one ``make_mesh``
+    makes captures by default, NCCL's all-reduces inside the graph: six
+    steps against ``capture=False`` from the same parameters within the
+    trainers' capture limits, one graph, the launch counts and the bytes
+    a replay sends (none at P=1) as executed."""
+    import torch.distributed as dist
+
+    from pytorch_geometric_temporal_tpu_torch import parallel as par
+    from pytorch_geometric_temporal_tpu_torch.train import TrainState, mse
+
+    ops, data, make = _dcrnn_case(cuda)
+    mesh = par.make_mesh({"dp": 1})
+    try:
+        assert str(dist.get_backend(mesh.get_group("dp"))) == "nccl"
+        runs = {}
+        for capture in (False, None):
+            model = make()
+            state = TrainState.create(
+                model, lambda p: torch.optim.Adam(p, lr=1e-2))
+            step = par.make_dp_train_step(
+                lambda m, x, y: mse(m(x, ops), y), mesh, capture=capture)
+            bcsr.reset_launch_counts()
+            par.reset_collective_bytes()
+            losses = torch.stack([step(state, x, y)[1]
+                                  for x, y in data + data[:1]])
+            torch.cuda.synchronize()
+            runs[capture] = (losses, list(model.parameters()), step,
+                             bcsr.hybrid_spmm.launches,
+                             par.collective_bytes["all_reduce"])
+        (le, pe, se, ne, be), (lc, pc, sc, nc, bc) = runs[False], runs[None]
+        assert (se.graphs.captures, sc.graphs.captures) == (0, 1)
+        assert sc.graphs.replays == 5
+        assert ne == nc == 6 * 2 * (2 * 3 * (2 - 1) * 2 - (2 - 1))
+        assert be == bc == 0
+        assert torch.equal(lc[0], le[0]) and torch.isfinite(lc).all()
+        _assert_same_run(lc, le, pc, pe)
+    finally:
+        par.mesh.release_group_of_one()

@@ -8,7 +8,9 @@ Inputs are made with numpy from a seed.  Tolerances: Adam (``torch.optim``
 against optax, same formula, f32 rounding in another order) losses and
 moments 1e-6 relative, parameters 2e-6 absolute (as ``test_torch_train.py``
 holds ``BatchTrainer``); checkpoint round trips and resumes bit for bit;
-the loss-scale schedule exactly; the bf16 mixed-precision step (DCRNNSeq
+the loss-scale schedule, the step counts and a skipped f16 update exactly
+(the f16 step's parameters and moments 5e-3 of their largest value: f16
+gradients); the bf16 mixed-precision step (DCRNNSeq
 over bf16 BCSR tiles, both sides through their BCSR kernels' CPU forms:
 Pallas in interpret mode, the fused kernel's plain version) 4e-3 relative
 on each loss, one bf16 rounding (they agree to the bit on this input); the
@@ -16,6 +18,7 @@ harness protocol's losses
 1e-5 relative after 3 epochs of one Adam step per snapshot.
 """
 
+import contextlib
 import functools
 import importlib.util
 import os
@@ -102,7 +105,7 @@ def test_train_state_adam_matches_optax(as_dict):
     state = torch_state(params)
     got = [torch_step(state, x, as_dict) for _ in range(4)]
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    assert state.step == int(jstate.step) == 4
+    assert int(state.step) == int(jstate.step) == 4
     adam = jstate.opt_state[0]
     for name, p in state.params.named_parameters():
         moments = state.opt_state.state[p]
@@ -158,10 +161,10 @@ def test_checkpoint_manager_resume_equals_uninterrupted(tmp_path):
     with ttrain.CheckpointManager(str(tmp_path), max_to_keep=2) as mgr:
         assert mgr.all_steps() == [3, 4]
         raw = mgr.restore(step=3)
-        assert raw["step"] == 3 and set(raw) == {"step", "params",
+        assert int(raw["step"]) == 3 and set(raw) == {"step", "params",
                                                  "opt_state"}
         fresh = torch_state(params)
-        assert mgr.restore(template=fresh) is fresh and fresh.step == 4
+        assert mgr.restore(template=fresh) is fresh and int(fresh.step) == 4
     got = [torch_step(fresh, x) for _ in range(2)]
     assert got == want[4:]
     for a, b in zip(fresh.params.parameters(), whole.params.parameters()):
@@ -281,7 +284,7 @@ def test_f16_dynamic_scale_skips_overflow_like_jax():
         state, scale, loss = step(state, scale, torch.tensor(k))
         assert float(scale.scale) == float(jscale.scale)
         assert int(scale.steps_since_growth) == int(jscale.steps_since_growth)
-        assert state.step == int(jstate.step)
+        assert int(state.step) == int(jstate.step)
         # the overflow steps leave parameters, moments and steps as they were
         assert same_tree(state.snapshot(), before) == (k > 1.0)
     assert float(scale.scale) == 2.0 ** 14  # halved, doubled, halved
@@ -486,3 +489,282 @@ def test_harness_protocol_matches_jax_example(tmp_path, monkeypatch):
                                nan_epochs={1}, **quiet)
     assert [h["epoch"] for h in guarded] == [0, 2]
     assert guarded[1]["train_mse"] == hist[1]["train_mse"]
+
+
+# ---------------------------------------------------------------------------
+# The step counter on the device and the f16 step without host reads
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """``Tensor.__bool__``, ``.item`` and ``.tolist`` raise: a step that
+    decides anything on the host from a tensor's value fails here, as it
+    would sync with a card."""
+    def refuse(name):
+        def read(self, *args, **kwargs):
+            raise AssertionError(f"Tensor.{name} read a value on the host")
+        return read
+
+    saved = {n: getattr(torch.Tensor, n) for n in ("__bool__", "item",
+                                                     "tolist")}
+    try:
+        for name in saved:
+            setattr(torch.Tensor, name, refuse(name))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def test_host_reads_are_refused_inside_the_guard():
+    t = torch.tensor(1.0)
+    with no_host_reads():
+        for read in (lambda: bool(t), t.item, t.tolist,
+                     lambda: float(t > 0) if t > 0 else 0.0):
+            with pytest.raises(AssertionError, match="read a value"):
+                read()
+    assert bool(t) and t.item() == 1.0
+
+
+@pytest.mark.parametrize("updates", [0, 1, 3])
+def test_train_state_step_is_a_device_scalar_like_jax(updates):
+    """``create`` gives a 0-d int32 step on the parameters' device, as the
+    JAX state's ``jnp.zeros((), jnp.int32)``; each update increments that
+    same tensor in place, and it counts as the JAX step does."""
+    x, params = linear_problem(3)
+    jstate, _ = jax_run(params, x, updates)
+    state = torch_state(params)
+    step = state.step
+    assert step.dtype == torch.int32 and step.dim() == 0
+    assert step.device == state.params["w"].device
+    for _ in range(updates):
+        torch_step(state, x)
+    assert state.step is step
+    assert int(state.step) == int(jstate.step) == updates
+    assert state.snapshot()["step"] is not step
+
+
+def test_checkpoint_with_an_int_step_still_loads(tmp_path):
+    """A checkpoint written while the step was a Python int restores: the
+    state's step tensor takes its value in place."""
+    x, params = linear_problem(4)
+    old = torch_state(params)
+    for _ in range(2):
+        torch_step(old, x)
+    saved = ttrain.state.to_host(old)
+    saved["step"] = 7
+    os.makedirs(tmp_path / "7")
+    torch.save(saved, tmp_path / "7" / ttrain.state.STATE_FILE)
+    fresh = torch_state(params)
+    step = fresh.step
+    with ttrain.CheckpointManager(str(tmp_path)) as mgr:
+        assert mgr.latest_step() == 7
+        assert mgr.restore(template=fresh) is fresh
+    assert fresh.step is step and int(fresh.step) == 7
+    assert step.dtype == torch.int32
+    for a, b in zip(fresh.params.parameters(), old.params.parameters()):
+        assert torch.equal(a, b)
+    assert torch_step(fresh, x) == torch_step(old, x)
+
+
+def test_loading_and_rolling_back_keep_every_tensor_in_place():
+    """``load_state_dict`` and ``DivergenceGuard``'s rollback copy into the
+    tensors the state already holds (a captured step reads them in place):
+    the step, the parameters and every tensor of Adam's state keep their
+    identity and take the loaded values."""
+    x, params = linear_problem(5)
+    state = torch_state(params)
+    torch_step(state, x)
+    snap = state.snapshot()
+    held = state_tensors(state)
+    for _ in range(2):
+        torch_step(state, x)
+    state.load_state_dict(snap)
+    assert all(a is b for a, b in zip(state_tensors(state), held))
+    assert same_tree(state.snapshot(), snap)
+    guard = ttrain.DivergenceGuard()
+    guard.check(state.params, state.opt_state, 1.0)
+    torch_step(state, x)
+    guard.check(state.params, state.opt_state, float("nan"))
+    assert all(a is b for a, b in zip(state_tensors(state), held))
+    assert same_tree({k: v for k, v in state.snapshot().items()
+                      if k != "step"},
+                     {k: v for k, v in snap.items() if k != "step"})
+
+
+def state_tensors(state):
+    return ([state.step] + list(state.params.parameters())
+            + [t for s in state.opt_state.state.values()
+               for t in s.values()])
+
+
+def test_create_makes_the_optimizer_state_as_optax_init_does():
+    """``TrainState.create`` gives Adam its state at once, as optax's
+    ``init`` does: zero moments and step count, the parameters untouched;
+    the first update then equals that of an Adam whose state is made
+    lazily, bit for bit."""
+    x, params = linear_problem(6)
+    state = torch_state(params)
+    jinit = optax.adam(1e-2).init({k: jnp.asarray(v)
+                                   for k, v in params.items()})[0]
+    for name, p in state.params.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), params[name])
+        moments = state.opt_state.state[p]
+        assert p.grad is None
+        assert float(moments["step"]) == int(jinit.count) == 0
+        np.testing.assert_array_equal(moments["exp_avg"].numpy(),
+                                      np.asarray(jinit.mu[name]))
+        np.testing.assert_array_equal(moments["exp_avg_sq"].numpy(),
+                                      np.asarray(jinit.nu[name]))
+    module = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for k, v in params.items()})
+    lazy = ttrain.TrainState(step=torch.zeros((), dtype=torch.int32),
+                             params=module,
+                             opt_state=torch.optim.Adam(
+                                 module.parameters(), lr=1e-2, eps=1e-8))
+    assert not lazy.opt_state.state
+    for _ in range(2):
+        assert torch_step(state, x) == torch_step(lazy, x)
+    assert same_tree(state.snapshot(), lazy.snapshot())
+
+
+def test_dynamic_loss_scale_is_a_pytree_node():
+    """Its two tensors are leaves and its three numbers the node's context,
+    so a captured step takes the scale as inputs and returns it as
+    outputs, and a new scale of the same shapes keeps the signature."""
+    pytree = torch.utils._pytree
+    scale = ttrain.DynamicLossScale(scale=torch.tensor(8.0),
+                                    growth_interval=3, shrink_factor=0.25)
+    leaves, spec = pytree.tree_flatten(scale)
+    assert len(leaves) == 2 and leaves[0] is scale.scale
+    assert leaves[1] is scale.steps_since_growth
+    back = pytree.tree_unflatten([torch.tensor(4.0), torch.tensor(
+        2, dtype=torch.int32)], spec)
+    assert isinstance(back, ttrain.DynamicLossScale)
+    assert (back.growth_factor, back.shrink_factor, back.growth_interval) == (
+        2.0, 0.25, 3)
+    assert float(back.scale) == 4.0 and int(back.steps_since_growth) == 2
+    doubled = pytree.tree_map(lambda t: t * 2, scale)
+    assert float(doubled.scale) == 16.0 and doubled.growth_interval == 3
+    assert pytree.tree_flatten(scale.adjust(torch.tensor(False)))[1] == spec
+
+
+@pytest.mark.parametrize("dynamic_scale", [False, True])
+def test_mixed_precision_step_capture_switch_on_the_cpu(dynamic_scale):
+    """On a CPU state ``capture=None`` runs eagerly (no graph) and
+    ``capture=True`` raises."""
+    x, params = linear_problem(7)
+    xt = torch.from_numpy(x)
+
+    def loss_fn(p, xb):
+        return ((xb @ p["w"] + p["b"]) ** 2).mean()
+
+    args = ((ttrain.DynamicLossScale(),) if dynamic_scale else ()) + (xt,)
+    for capture in (None, False):
+        state = torch_state(params)
+        step = ttrain.make_mixed_precision_step(
+            loss_fn, policy=ttrain.f32_policy, dynamic_scale=dynamic_scale,
+            capture=capture)
+        for _ in range(2):
+            out = step(state, *args)
+        assert out[0] is state and torch.isfinite(out[-1])
+        assert int(state.step) == 2
+        assert (step.graphs.captures, step.graphs.replays) == (0, 0)
+    step = ttrain.make_mixed_precision_step(
+        loss_fn, dynamic_scale=dynamic_scale, capture=True)
+    with pytest.raises(ValueError, match="capture=True needs a CUDA"):
+        step(torch_state(params), *args)
+
+
+def test_a_non_capturable_optimizer_is_refused_by_a_capture():
+    """A captured step needs a capturable optimizer: the check names the
+    groups and the option; ``make_capturable`` leaves CPU parameters and
+    an optimizer that already has state as they are."""
+    check = ttrain.state.check_capturable
+    x, params = linear_problem(8)
+    state = torch_state(params)
+    with pytest.raises(ValueError, match=r"groups \[0\] have capturable="
+                                         r"False.*capture=False"):
+        check(state, "step")
+    ttrain.state.make_capturable(state.opt_state)
+    assert state.opt_state.param_groups[0]["capturable"] is False
+    capturable = torch.optim.Adam(state.params.parameters(),
+                                  capturable=True)
+    check(ttrain.TrainState(
+        step=state.step, params=state.params, opt_state=capturable), "step")
+    check(ttrain.TrainState(
+        step=state.step, params=state.params,
+        opt_state=torch.optim.SGD(state.params.parameters(), lr=0.1)),
+        "step")
+
+
+def test_all_finite_lies_on_the_trees_device():
+    """The flag is a 0-d bool on the device of the tree's tensors, also
+    when no tensor is a float one (then True), as on the card it must not
+    come from the host."""
+    meta = {"i": torch.arange(3, device="meta")}
+    flag = ttrain.all_finite(meta)
+    assert flag.device.type == "meta" and flag.dtype == torch.bool
+    assert flag.dim() == 0
+    assert bool(ttrain.all_finite({"i": torch.arange(3)}))
+    assert bool(ttrain.all_finite({}))
+    assert ttrain.all_finite({"f": torch.ones(2, device="meta")}).is_meta
+
+
+def test_f16_scaled_step_reads_nothing_on_the_host_and_matches_jax():
+    """The f16 step with a dynamic scale decides its skip on the device:
+    it runs with host reads refused.  Against the JAX package's jitted
+    ``step_scaled`` (optax.adam(1e-2); the port's Adam fused, whose CPU
+    form keeps its step count in a tensor), planted overflows leave the
+    parameters, Adam's moments and step count and ``state.step`` unchanged
+    bit for bit; the scale, its counter and every step count equal the
+    JAX ones exactly; the parameters and moments agree within 5e-3 of
+    each one's largest value (gradients in f16, 2^-11 a rounding, from
+    parameters that differ in f32's last bits: 2.3e-3 read)."""
+    rng = np.random.default_rng(9)
+    w = rng.normal(size=(3, 2)).astype(np.float32)
+    b = np.zeros(2, np.float32)
+    x = rng.normal(size=(5, 3)).astype(np.float32)
+    opt = optax.adam(1e-2)
+    jstate = jtrain.TrainState.create({"w": jnp.asarray(w),
+                                       "b": jnp.asarray(b)}, opt)
+    jscale = jtrain.DynamicLossScale(scale=jnp.float32(2.0 ** 10),
+                                     growth_interval=2)
+    jstep = jax.jit(jtrain.make_mixed_precision_step(
+        lambda p, xb: jnp.mean((xb @ p["w"] + p["b"]) ** 2), opt,
+        jtrain.f16_policy, dynamic_scale=True))
+    module = torch.nn.ParameterDict(
+        {"w": torch.nn.Parameter(torch.from_numpy(w.copy())),
+         "b": torch.nn.Parameter(torch.from_numpy(b.copy()))})
+    state = ttrain.TrainState.create(
+        module, lambda p: torch.optim.Adam(p, lr=1e-2, eps=1e-8, fused=True))
+    scale = ttrain.DynamicLossScale(scale=torch.tensor(2.0 ** 10),
+                                    growth_interval=2)
+    step = ttrain.make_mixed_precision_step(
+        lambda p, xb: ((xb @ p["w"] + p["b"]) ** 2).mean(), None,
+        ttrain.f16_policy, dynamic_scale=True)
+    for k in (1e9, 1.0, 1.0, 1e9, 1.0):
+        jstate, jscale, jloss = jstep(jstate, jscale, jnp.asarray(x * k))
+        before = state.snapshot()
+        with no_host_reads():
+            state, scale, loss = step(state, scale,
+                                      torch.from_numpy(x * np.float32(k)))
+        assert same_tree(state.snapshot(), before) == (k > 1.0)
+        assert np.isfinite(float(loss)) == (k == 1.0)
+        assert float(scale.scale) == float(jscale.scale)
+        assert int(scale.steps_since_growth) == int(jscale.steps_since_growth)
+        assert int(state.step) == int(jstate.step)
+        adam = jstate.opt_state[0]
+        for name, p in module.items():
+            moments = state.opt_state.state[p]
+            assert int(moments["step"]) == int(adam.count)
+            for ours, theirs in ((p.detach(), jstate.params[name]),
+                                 (moments["exp_avg"], adam.mu[name]),
+                                 (moments["exp_avg_sq"], adam.nu[name])):
+                want = np.asarray(theirs)
+                np.testing.assert_allclose(
+                    ours.numpy(), want, rtol=0,
+                    atol=5e-3 * float(np.abs(want).max()), err_msg=name)
+    assert int(state.step) == 3 and float(scale.scale) == 2.0 ** 9

@@ -566,3 +566,38 @@ def test_native_matches_numpy_and_jax(monkeypatch, name):
     key = r // 16 if name == "partition_edges" else r
     assert np.all(np.diff(key[order]) >= 0)     # grouped, stable below
     assert sorted(order) == list(range(1000))
+
+
+def test_dp_step_over_gloo_runs_eagerly_and_refuses_capture_true():
+    """gloo's collectives go through the host, which a CUDA graph cannot
+    capture: over a gloo group (here the group of one ``make_mesh`` makes
+    on the CPU) ``capture=None`` runs the step eagerly, as False does, and
+    ``capture=True`` raises naming the backend.  A group of one sends no
+    byte."""
+    from pytorch_geometric_temporal_tpu_torch.parallel import mesh as tmesh
+    from pytorch_geometric_temporal_tpu_torch.train import TrainState, mse
+
+    assert not torch.distributed.is_initialized()
+    mesh = tpar.make_mesh({"dp": 1}, device="cpu")
+    try:
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32))
+        y = torch.from_numpy(rng.normal(size=(4, 1)).astype(np.float32))
+        for capture in (None, False):
+            model = torch.nn.Linear(3, 1)
+            state = TrainState.create(
+                model, lambda ps: torch.optim.Adam(ps, 1e-2))
+            step = tpar.make_dp_train_step(
+                lambda m, xb, yb: mse(m(xb), yb), mesh, capture=capture)
+            tpar.reset_collective_bytes()
+            for _ in range(2):
+                state, loss = step(state, x, y)
+            assert torch.isfinite(loss) and int(state.step) == 2
+            assert (step.graphs.captures, step.graphs.replays) == (0, 0)
+            assert tpar.collective_bytes["all_reduce"] == 0
+        with pytest.raises(ValueError, match=r"NCCL.*'dp' over gloo"):
+            tpar.make_dp_train_step(lambda m, xb, yb: mse(m(xb), yb), mesh,
+                                    capture=True)
+    finally:
+        tmesh.release_group_of_one()
+    assert not torch.distributed.is_initialized()

@@ -393,3 +393,69 @@ def test_snapshot_epochs_reuse_the_operators_of_the_signals_graph():
     assert torch.isfinite(tr.evaluate(signal, None))
     assert len(seen) == 3 * signal.snapshot_count
     assert all(op is seen[0] for op in seen)
+
+
+def test_counters_are_taken_back_at_capture_and_added_at_replay():
+    """One mechanism for every counter a capture bumps without running
+    anything: what the launches and the collectives' bytes gained over a
+    capture is read as one delta, taken back out, and added at each
+    replay."""
+    from pytorch_geometric_temporal_tpu_torch import _counters
+    from pytorch_geometric_temporal_tpu_torch.parallel import collectives
+
+    tb.reset_launch_counts()
+    collectives.reset_collective_bytes()
+    before = _counters.read()
+    assert {"bcsr_launches", "collective_bytes"} <= set(before)
+    tb.add_launch_counts((94, 0, 0))                   # as a capture would
+    collectives.collective_bytes["all_reduce"] += 512
+    counted = _counters.counted_since(before)
+    assert counted["bcsr_launches"] == (94, 0, 0)
+    assert counted["collective_bytes"] == (0, 0, 0, 512)
+    _counters.add(counted, -1)
+    assert _counters.read() == before
+    for replay in range(1, 3):
+        _counters.add(counted)
+        assert tb.launch_counts() == (94 * replay, 0, 0)
+        assert collectives.collective_bytes["all_reduce"] == 512 * replay
+    tb.reset_launch_counts()
+    collectives.reset_collective_bytes()
+
+
+def test_step_outputs_come_back_as_fresh_tensors_of_the_same_tree():
+    """A replay returns clones of the graph's outputs in their tree: the
+    loss, or the loss scale (a pytree node) and the loss."""
+    from pytorch_geometric_temporal_tpu_torch.train import DynamicLossScale
+
+    out = (DynamicLossScale(scale=torch.tensor(4.0), growth_interval=5),
+           torch.tensor(0.5), None)
+    got = ttrainer._clone(out)
+    assert isinstance(got[0], DynamicLossScale) and got[2] is None
+    assert got[0].growth_interval == 5
+    for a, b in ((got[0].scale, out[0].scale), (got[1], out[1]),
+                 (got[0].steps_since_growth, out[0].steps_since_growth)):
+        assert torch.equal(a, b) and a is not b
+        assert a.data_ptr() != b.data_ptr()
+    assert ttrainer._clone(out[1]) is not out[1]
+
+
+def test_builder_graphs_run_eagerly_on_the_cpu_and_refuse_capture_true():
+    """A builder's graphs learn the device at each call: on the CPU
+    ``capture=None`` and False call the step as it is, True raises."""
+    calls = []
+
+    def fn(a, b):
+        calls.append((a, b))
+        return a + b
+
+    cpu = torch.device("cpu")
+    for capture in (None, False):
+        graphs = ttrainer._DeviceGraphs("step", capture)
+        assert not graphs.captures_on(cpu)
+        assert graphs(cpu, fn, (torch.ones(1), torch.ones(1)), held=(fn,)) \
+            == 2
+        assert (graphs.captures, graphs.replays) == (0, 0)
+    assert len(calls) == 2
+    with pytest.raises(ValueError, match="capture=True needs a CUDA"):
+        ttrainer._DeviceGraphs("step", True)(cpu, fn, (1, 2))
+    assert len(calls) == 2
