@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives ``pytorch_geometric_temporal_tpu_torch`` only (no JAX).  Every
-phase that trains through ``BatchTrainer`` or ``SnapshotTrainer`` runs its
-steps as replays of CUDA graphs, the trainers' default on the card (one
-graph a step signature; phases 3, 6, 9, 15 and 21 assert how many), but
-MTGNN's in phase 12, whose step makes a CUDA generator (``capture=False``);
-launch counts stay kernels executed under replay.
+phase that trains through ``BatchTrainer`` or ``SnapshotTrainer``, the
+METR-LA and bundled protocols and the harness included, runs its steps as
+replays of CUDA graphs, the default on the card (one graph a step
+signature; phases 3, 6, 8, 9, 11, 12, 15, 18 and 21 assert how many);
+MTGNN's dropout generator is registered with its graph.  Launch counts
+stay kernels executed under replay.
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions, and the
    nvcc build of the kernels (``csrc/*.cu``, one nvcc per source, in
@@ -55,7 +56,12 @@ launch counts stay kernels executed under replay.
    (PedalMe: DCRNN, TGCN, A3TGCN; TwitterTennis rg17: EvolveGCN-O,
    EvolveGCN-H, DyGrEncoder; EnglandCovid: DCRNN; MontevideoBus:
    GConvGRU): test MSE beside the JAX package's TPU v5e record, seconds
-   per epoch; small graphs on the dense branch, no BCSR kernel launched;
+   per epoch, one CUDA graph each (the first epoch eager, the rest
+   replays); small graphs on the dense branch, no BCSR kernel launched;
+   then the two full-sequence runs (EvolveGCN-O / -H) eager and captured
+   from the same parameters (``loop_eager_and_captured``: a steady epoch's
+   host and device busy time both ways, memory, losses, test MSE and
+   parameters equal to the bit);
 9. TGCN(32->32) + relu + Linear(32->1) with the hidden state threaded
    through ``SnapshotTrainer`` over the 50,000-node graph prepared once as
    a bf16-tile GCN BCSR operator (``prepare_graph(kinds=("gcn",))``, which
@@ -74,15 +80,19 @@ launch counts stay kernels executed under replay.
    207 sensors, 2880 steps of the seeded synthetic stand-in, 12 epochs of
    batches of 64, Adam 1e-3): falling training curve, the de-normalized
    masked test MAE, seconds per epoch; then at the size of the JAX
-   package's records (3 epochs over 720 steps), its MAE beside them; dense
-   branch, no BCSR kernel launched;
+   package's records (3 epochs over 720 steps), its MAE beside them; one
+   train graph and one test graph each; dense branch, no BCSR kernel
+   launched; then the full-size run eager and captured, as phase 8's;
 12. the attention family on the dense branch: ASTGCN and MSTGCN at the
    reference configuration (B=16, N=207, F_in=2, T=12, K=3, 2 blocks,
    64/64 filters, predict 12), five Adam steps each with the device's
    busy time per step and their difference (the attention's share), then
    three Adam steps each of STConv, GMAN, MTGNN, AAGCN and DNNTSP at the
    papers' widths in ``train=True`` (finite, falling loss, moving batch
-   statistics); no BCSR kernel launched;
+   statistics, one CUDA graph and two replays; MTGNN's dropout masks from
+   a CUDA generator handed to the trainer and reseeded before each step);
+   no BCSR kernel launched; then MTGNN's step eager and captured as phase
+   24 runs its paths, equal to the bit (cuDNN's deterministic algorithms);
 13. two stacked STConv blocks (STGCN's widths: 16 spatial channels, 64
    out, temporal kernel 3, K=3, 12 steps in) and a linear head over the
    50,000-node graph prepared once as a bf16-tile Chebyshev BCSR operator:
@@ -136,10 +146,11 @@ launch counts stay kernels executed under replay.
    times, peak memory (``device_memory_stats``), the device's busy time;
 18. the training harness (``protocols/harness.py``: ``TrainState``,
    ``CheckpointManager``, ``DivergenceGuard``, ``StepTimer``, early
-   stopping) on Chickenpox for 10 epochs; a second run stopped at epoch 5
-   and resumed from its checkpoints must equal it within 1e-6 relative
-   (and says whether to the bit); two checkpoints kept; a planted NaN
-   epoch rolled back;
+   stopping) on Chickenpox for 10 epochs, its epoch and its validation
+   pass captured (two graphs a run); a second run stopped at epoch 5 and
+   resumed from its checkpoints captures its own and must equal it to the
+   bit; two checkpoints kept; a planted NaN epoch rolled back; then the
+   run eager and captured, as phase 8's;
 19. PGT-I's DDP recipe on phase 15's PeMS stand-in: two spawned ranks
    time-share the card over gloo with CUDA tensors (NCCL refuses two ranks
    on one device), each fed by ``IndexLoader(world_size=2, rank=r)`` with
@@ -297,6 +308,16 @@ WATCHDOG_S = 1150
 # (an Adam step moves a parameter by up to its learning rate, 1e-3-1e-2)
 CAPTURE = dict(steps=6, timed=20)
 CAPTURE_LOSS_RTOL, CAPTURE_PARAM_ATOL = 1e-5, 1e-5
+# phases 8, 11 and 18: a whole training loop eager and captured from the
+# same parameters on the same schedule, equal to the bit; a steady epoch's
+# host time is the difference of the whole run's training seconds and
+# those of a run of SHORT epochs (the eager one and the capturing one), its
+# device busy time the profiled difference of runs of PROFILED epochs
+# (those first epochs and the test pass cancel)
+LOOP = dict(short=2, profiled=(2, 6))
+# phase 12: MTGNN's dropout masks come from a CUDA generator reseeded to
+# this before each step, as the JAX step is handed one key
+MTGNN_MASK_SEED = 7
 # phase 2's widths: each f32 and bf16 instantiation of the fused kernel
 # (n-tile counts 1, 2, 4, 5, 6, 8, 12, 16; 1 and 14 ragged), two feature
 # tiles at F=200; the f32 digests of phases 2 and 15 draw x from DIGEST_SEED
@@ -1702,9 +1723,9 @@ def phase_dynamic(torch, kernel_report):
             f"{rates[-1]:.4e}")
 
 
-def phase_protocols(torch):
+def phase_protocols(torch, smi):
     """The eight bundled-data accuracy protocols at their full epoch
-    counts."""
+    counts, captured; then the two full-sequence runs eager and captured."""
     from pytorch_geometric_temporal_tpu_torch.ops import bcsr
     from pytorch_geometric_temporal_tpu_torch.ops.spmm import _resolve_backend
     from pytorch_geometric_temporal_tpu_torch.protocols import (
@@ -1727,15 +1748,35 @@ def phase_protocols(torch):
             f"({run.seconds / epochs:.4f} s per epoch, host clock); training "
             f"MSE {run.losses[0]:.4f} -> {run.losses[-1]:.4f}; test MSE "
             f"{run.test_mse:.4f} (JAX package, TPU v5e record {record:.4f}: "
-            f"{100 * (run.test_mse - record) / record:+.1f}%)")
+            f"{100 * (run.test_mse - record) / record:+.1f}%); "
+            f"{run.captures} CUDA graph, {run.replays} replays")
         if not (len(run.losses) == epochs and all(np.isfinite(run.losses))
                 and np.isfinite(run.test_mse)):
             raise SystemExit(f"{name}: non-finite loss")
         if not run.losses[-1] < run.losses[0]:
             raise SystemExit(f"{name}: the training loss did not fall")
+        # the first epoch eager, the second captured, the rest replayed;
+        # the test pass is one call, a signature's first: eager
+        if (run.captures, run.replays) != (1, epochs - 1):
+            raise SystemExit(f"{name}: {run.captures} CUDA graphs, "
+                             f"{run.replays} replays (predicted 1, "
+                             f"{epochs - 1})")
     if any(launch_counts(bcsr).values()):
         raise SystemExit("a bundled protocol launched a BCSR kernel")
     log("  no BCSR kernel launched (expected: small graphs, dense branch)")
+
+    for name in ("twittertennis_evolvegcno", "twittertennis_evolvegcnh"):
+        def run(capture, epochs, name=name):
+            r = RUNS[name](epochs, capture=capture)
+            return dict(values=r.losses + [r.test_mse],
+                        tensors=[p.detach().clone()
+                                 for p in r.model.parameters()],
+                        captures=r.captures, replays=r.replays,
+                        train_s=r.seconds)
+
+        loop_eager_and_captured(torch, f"{name} (the full-sequence update, "
+                                f"BatchTrainer)", run, PROTOCOLS[name][0],
+                                smi)
 
 
 def tgcn_launches(T, epochs):
@@ -1963,10 +2004,17 @@ def phase_metrla(torch, smi):
                      ("the records' configuration", METRLA_RECORD_CONFIG)):
         rec = metrla_protocol.run(**c)
         curve, mae = rec["train_curve"], rec["test_masked_mae_denorm"]
+        _, schedule, test_idx = metrla_protocol._split(
+            c["epochs"], 0, c["t_len"], c["n"])
+        # one train graph and one test graph: drop-last batches of one shape
+        calls = (c["epochs"] * (len(schedule[0]) // c["batch_size"]),
+                 len(test_idx) // c["batch_size"])
         log(f"  {label} ({rec['source']}): N={c['n']}, {c['t_len']} steps, "
             f"{c['epochs']} epochs of batches of {c['batch_size']} in "
             f"{rec['seconds']:.2f} s ({rec['seconds'] / c['epochs']:.4f} s "
-            f"per epoch, host clock, test pass included) on {smi}")
+            f"per epoch, host clock, test pass included) on {smi}; "
+            f"{rec['cuda_graphs']} CUDA graphs, {rec['replays']} replays of "
+            f"{calls[0]} train and {calls[1]} test steps")
         log(f"    training curve (last batch of each epoch, masked MAE, mph) "
             f"{curve}; de-normalized masked test MAE {mae:.4f}")
         if not (len(curve) == c["epochs"] and all(np.isfinite(curve))
@@ -1974,6 +2022,10 @@ def phase_metrla(torch, smi):
             raise SystemExit(f"METR-LA: non-finite loss {curve}, {mae}")
         if c is METRLA and not curve[-1] < curve[0]:
             raise SystemExit("METR-LA: the training curve did not fall")
+        if (rec["cuda_graphs"], rec["replays"]) != (2, sum(calls) - 2):
+            raise SystemExit(f"METR-LA: {rec['cuda_graphs']} CUDA graphs, "
+                             f"{rec['replays']} replays (predicted 2, "
+                             f"{sum(calls) - 2})")
     log(f"    beside the JAX package's records at that configuration: "
         f"{METRLA_RECORD_TPU} on a TPU v5e, {METRLA_RECORD_TORCH_CPU} for "
         f"its torch-CPU twin, both from another initial draw "
@@ -1981,15 +2033,36 @@ def phase_metrla(torch, smi):
     if any(launch_counts(bcsr).values()):
         raise SystemExit("the METR-LA protocol launched a BCSR kernel")
 
+    c = METRLA
+    series, schedule, test_idx = metrla_protocol._split(
+        c["epochs"], 0, c["t_len"], c["n"])
 
-def adam_steps(torch, model, forward, x, y, steps, capture=None):
+    def run(capture, epochs):
+        mae, curve, tr = metrla_protocol._train(
+            *series[:5], schedule[:epochs], test_idx, c["batch_size"],
+            c["K"], "cuda", None, 0, capture)
+        return dict(values=curve + [mae],
+                    tensors=[p.detach().clone() for p in tr.model.parameters()],
+                    captures=tr.captures, replays=tr.replays, keep=tr)
+
+    loop_eager_and_captured(torch, "METR-LA at full size (BatchTrainer)", run,
+                            c["epochs"], smi, profiled=(1, 2))
+
+
+def adam_steps(torch, model, forward, x, y, steps, capture=None,
+               generators=(), before_step=lambda: None):
     """``steps`` updates of ``model`` through ``BatchTrainer`` (MSE, Adam
-    1e-3; captured unless ``capture=False``); returns (losses, trainer)."""
+    1e-3; captured unless ``capture=False``; ``generators`` go to the
+    trainer, ``before_step`` runs before each); returns (losses,
+    trainer)."""
     from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
 
     trainer = BatchTrainer(model, forward, lr=1e-3, loss_fn=mse,
-                           capture=capture)
-    losses = [float(trainer.train_step(x, y)) for _ in range(steps)]
+                           capture=capture, generators=generators)
+    losses = []
+    for _ in range(steps):
+        before_step()
+        losses.append(float(trainer.train_step(x, y)))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"{type(model).__name__}: losses not finite or not "
                          f"falling: {losses}")
@@ -2050,12 +2123,10 @@ def phase_attention(torch, smi):
         return any(not torch.equal(v, before[k])
                    for k, v in model.named_buffers())
 
-    def three_steps(name, model, forward, xs, ys, has_stats=True,
-                    capture=None):
+    def three_steps(name, model, forward, xs, ys, has_stats=True, **kw):
         before = {k: v.clone() for k, v in model.named_buffers()}
         t0 = time.perf_counter()
-        losses, trainer = adam_steps(torch, model, forward, xs, ys, 3,
-                                     capture)
+        losses, trainer = adam_steps(torch, model, forward, xs, ys, 3, **kw)
         torch.cuda.synchronize()
         log(f"  {name}: MSE {['%.5f' % v for v in losses]} in train mode, "
             f"{sum(p.numel() for p in model.parameters())} parameters, "
@@ -2064,6 +2135,9 @@ def phase_attention(torch, smi):
             f"{trainer.replays} replays")
         if has_stats and not moved(model, before):
             raise SystemExit(f"{name}: the batch statistics did not move")
+        if (trainer.captures, trainer.replays) != (1, 2):
+            raise SystemExit(f"{name}: {trainer.captures} CUDA graphs, "
+                             f"{trainer.replays} replays (predicted 1, 2)")
 
     # STConv, STGCN's widths
     m = STConv(n, 1, 16, 64, 3, 3, generator=gen)
@@ -2078,20 +2152,21 @@ def phase_attention(torch, smi):
         -1)).cuda()
     three_steps("GMAN(L=1, K=8, d=8)", m, lambda xb: m(xb, se, te, True),
                 cuda(8, t, n), cuda(8, t, n))
-    # MTGNN: 3 layers, conv/residual 32, skip 64, end 128, subgraph 20
-    m = MTGNN(True, True, 2, n, [2, 3, 6, 7], 7, 0.3, 20, 40, 1, 32, 32, 64,
-              128, t, 2, 12, 3, 0.05, 3.0, True, generator=gen)
+    # MTGNN: 3 layers, conv/residual 32, skip 64, end 128, subgraph 20.
+    # The same dropout mask every step, drawn on the card from a generator
+    # made once, handed to the trainer (each graph registers it) and
+    # reseeded before each step
+    def mtgnn(seed):
+        return MTGNN(True, True, 2, n, [2, 3, 6, 7], 7, 0.3, 20, 40, 1, 32,
+                     32, 64, 128, t, 2, 12, 3, 0.05, 3.0, True,
+                     generator=torch.Generator().manual_seed(seed))
 
-    def mtgnn_forward(xb):
-        # the same dropout mask every step, drawn on the card from a
-        # generator made in the step, which a CUDA graph cannot capture:
-        # this path runs eagerly
-        mask_gen = torch.Generator(device="cuda").manual_seed(7)
-        return m(xb, train=True, generator=mask_gen)
-
-    three_steps("MTGNN(3 layers, 32/32/64/128)", m, mtgnn_forward,
-                cuda(b, 2, n, t), cuda(b, 12, n, 1), has_stats=False,
-                capture=False)
+    m, mask_gen = mtgnn(12), torch.Generator(device="cuda")
+    xm, ym = cuda(b, 2, n, t), cuda(b, 12, n, 1)
+    three_steps("MTGNN(3 layers, 32/32/64/128)", m,
+                lambda xb: m(xb, train=True, generator=mask_gen), xm, ym,
+                has_stats=False, generators=(mask_gen,),
+                before_step=lambda: mask_gen.manual_seed(MTGNN_MASK_SEED))
     # AAGCN: 3 -> 64 channels, 25 joints, 64 frames
     joints = np.unique(rng.integers(0, 25, size=(2, 48)), axis=1)
     m = AAGCN(3, 64, joints, 25, generator=gen)
@@ -2110,6 +2185,44 @@ def phase_attention(torch, smi):
     if any(launch_counts(bcsr).values()):
         raise SystemExit("a dense-branch model launched a BCSR kernel")
     log("  no BCSR kernel launched (expected: dense branch)")
+    mtgnn_eager_and_captured(torch, mtgnn, xm, ym, smi)
+
+
+def mtgnn_eager_and_captured(torch, mtgnn, x, y, smi):
+    """Phase 12's MTGNN step eager and captured as phase 24 runs its
+    paths, then equal to the bit.  cuDNN's default convolution backward is
+    not deterministic (two eager runs differ in the last bits), so both
+    runs take its deterministic algorithms."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
+
+    def make(capture):
+        model, gen = mtgnn(12), torch.Generator(device="cuda")
+        trainer = BatchTrainer(
+            model, lambda xb: model(xb, train=True, generator=gen), lr=1e-3,
+            loss_fn=mse, capture=capture, generators=(gen,))
+        trainer.mask_gen = gen
+        return trainer, model
+
+    def call(trainer, i):
+        trainer.mask_gen.manual_seed(MTGNN_MASK_SEED)
+        return trainer.train_step(x, y)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = eager_and_captured(torch, "phase 12's MTGNN step (dropout from "
+                                 "a registered generator)", make, call, 0,
+                                 "step", smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    e, c = res["eager"], res["captured"]
+    bits = bool(torch.equal(e["losses"], c["losses"])) and all(
+        torch.equal(a, b) for a, b in zip(e["params"], c["params"]))
+    log(f"  MTGNN: captured against eager, losses and parameters equal to "
+        f"the bit {bits}")
+    if not bits:
+        raise SystemExit("MTGNN: the captured steps differ from the eager "
+                         "ones")
 
 
 def outputs_and_param_grads(torch, model, forward, y):
@@ -2786,6 +2899,120 @@ def eager_and_captured(torch, label, make, call, per_call, unit, smi):
                 first_bits=first_bits)
 
 
+def busy_ms(torch, fn):
+    """(device busy ms, device records) of one call of ``fn``: the
+    device-side kernels, copies and memsets one by one, as
+    :func:`device_time_by_kernel` counts them, with the CUDA activity
+    alone traced (an eager epoch runs tens of thousands of operations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.events():
+        if (ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.name.startswith("Optimizer.")):
+            us += ev.time_range.elapsed_us()
+            n += 1
+    return us / 1e3, n
+
+
+def timed_s(torch, fn):
+    """(host seconds of one call of ``fn``, the device synchronized before
+    and after, and its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def loop_eager_and_captured(torch, label, run, epochs, smi,
+                            profiled=LOOP["profiled"]):
+    """A training loop run eagerly (``capture=False``) and captured (the
+    default), from the same parameters on the same schedule.
+    ``run(capture, epochs)`` trains from scratch and returns a dict:
+    ``values`` (floats: the curve, the test metric), ``tensors`` (the
+    trained parameters or state), ``captures``, ``replays``, and
+    optionally ``train_s`` (the loop's own host seconds of its epochs, the
+    device synchronized, without the loading whose time varies by more
+    than a few epochs; else the whole call's) and ``keep`` (an object that
+    holds the loop's graphs) or ``held`` (bytes reserved with the free
+    cache released, read while they lived); without either, what stays
+    reserved after the run is read.  A steady epoch's host time is the
+    difference of ``train_s`` between the whole run and a run of
+    ``LOOP["short"]`` epochs (the eager one and the capturing one); its
+    device busy time the profiled difference of two runs of ``profiled``
+    epochs; memory above the run's start as phase 24 reads it.
+    Fails unless every value and tensor is equal to the bit.  Returns both
+    runs' numbers."""
+    import gc
+
+    short, (p0, p1) = LOOP["short"], profiled
+    runs = {}
+    for capture in (False, None):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_alloc = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        secs, r = timed_s(torch, lambda: run(capture, epochs))
+        r["peak_gib"] = (torch.cuda.max_memory_allocated() - base_alloc) / 2**30
+        r["peak_reserved_gib"] = (torch.cuda.max_memory_reserved()
+                                  - base_reserved) / 2**30
+        if "held" not in r:
+            torch.cuda.empty_cache()
+            r["held"] = torch.cuda.memory_reserved()
+        r["held_gib"] = (r.pop("held") - base_reserved) / 2**30
+        r.pop("keep", None)
+        secs_short, r_short = timed_s(torch, lambda: run(capture, short))
+        t_long, t_short = (x.pop("train_s", t) for x, t in (
+            (r, secs), (r_short, secs_short)))
+        r["secs"] = secs
+        r["host_ms"] = (t_long - t_short) / (epochs - short) * 1e3
+        how = (f"({t_long:.3f} s training {epochs} epochs - {t_short:.3f} s "
+               f"training {short}) / {epochs - short}, synchronized")
+        (b0, n0), (b1, n1) = (busy_ms(torch, lambda e=e: run(capture, e))
+                              for e in (p0, p1))
+        r["busy_ms"], r["records"] = (b1 - b0) / (p1 - p0), (n1 - n0) // (p1 - p0)
+        mode = "eager" if capture is False else "captured"
+        log(f"  {label}, {mode}: {epochs} epochs in {secs:.3f} s; a steady "
+            f"epoch {r['host_ms']:.3f} ms host ({how}), {r['busy_ms']:.3f} "
+            f"ms device busy ({r['records']} device records; profiled "
+            f"{p1} - {p0} epochs), busy share "
+            f"{r['busy_ms'] / r['host_ms']:.3f}; CUDA graphs "
+            f"{r['captures']}, {r['replays']} replays; on {smi}")
+        runs[mode] = r
+    e, c = runs["eager"], runs["captured"]
+    values = e["values"] == c["values"]
+    tensors = len(e["tensors"]) == len(c["tensors"]) and all(
+        torch.equal(a, b) for a, b in zip(e["tensors"], c["tensors"]))
+    log(f"  {label}: captured against eager after {epochs} epochs: "
+        f"{len(c['values'])} losses and test metric equal to the bit "
+        f"{values}, {len(c['tensors'])} trained tensors equal to the bit "
+        f"{tensors}; busy captured / eager "
+        f"{c['busy_ms'] / e['busy_ms']:.3f}, host eager / captured "
+        f"{e['host_ms'] / c['host_ms']:.2f}x")
+    log(f"  {label}: memory above the run's start, eager → captured: peak "
+        f"allocated {e['peak_gib']:.3f} → {c['peak_gib']:.3f} GiB, peak "
+        f"reserved {e['peak_reserved_gib']:.3f} → "
+        f"{c['peak_reserved_gib']:.3f} GiB, held at the loop's end with the "
+        f"free cache released {e['held_gib']:.3f} → {c['held_gib']:.3f} GiB; "
+        f"on {smi}")
+    if e["captures"] != 0 or not c["captures"]:
+        raise SystemExit(f"{label}: CUDA graphs {e['captures']} eager, "
+                         f"{c['captures']} captured")
+    if not (values and tensors):
+        raise SystemExit(f"{label}: the captured run differs from the eager "
+                         f"one")
+    return runs
+
+
 def phase_capture(torch, report, smi):
     """Phases 3, 6, 15 and 16's paths eager and captured, from the same
     parameters on the same batches."""
@@ -3188,11 +3415,22 @@ def phase_hetero(torch, kernel_report, smi):
                   statistics.median(epoch_s) * 1e3, n=1, unit="epoch")
 
 
+def graphs_line(lines):
+    """(captures, replays) from the harness's last log line."""
+    m = re.fullmatch(r"(\d+) CUDA graphs captured, (\d+) replays", lines[-1])
+    if m is None:
+        raise SystemExit(f"the harness's last line reads {lines[-1]!r}")
+    return int(m.group(1)), int(m.group(2))
+
+
 def phase_harness(torch, smi):
-    """The harness protocol on Chickenpox: an uninterrupted run, a run
-    resumed from its own checkpoint, and a planted NaN epoch."""
+    """The harness protocol on Chickenpox, captured: an uninterrupted run,
+    a run resumed from its own checkpoints, a planted NaN epoch; then the
+    run eager and captured."""
     import shutil
     import tempfile
+
+    from torch.utils._pytree import tree_leaves
 
     from pytorch_geometric_temporal_tpu_torch.protocols import harness
 
@@ -3201,14 +3439,19 @@ def phase_harness(torch, smi):
     try:
         lines = []
 
-        def run(epochs, name, **kw):
+        def run(epochs, name, graphs, **kw):
             t0 = time.perf_counter()
             best, hist = harness.main(epochs, ckpt_dir=os.path.join(
                 tmp, name), log=lines.append, **kw)
             torch.cuda.synchronize()
+            # an epoch graph and a validation graph, each replayed from its
+            # signature's second call on
+            if graphs_line(lines) != (2, graphs):
+                raise SystemExit(f"{name}: {lines[-1]} (predicted 2 CUDA "
+                                 f"graphs, {graphs} replays)")
             return hist, time.perf_counter() - t0
 
-        whole, secs = run(c["epochs"], "whole")
+        whole, secs = run(c["epochs"], "whole", 2 * (c["epochs"] - 1))
         n_train = harness.chickenpox(device="cuda")[0].snapshot_count
         kept = sorted(int(d) for d in os.listdir(os.path.join(tmp, "whole")))
         summary = [ln for ln in lines if re.fullmatch(
@@ -3217,7 +3460,7 @@ def phase_harness(torch, smi):
             f" s an epoch of {n_train} updates, host clock, on {smi}); "
             f"train MSE {['%.6f' % h['train_mse'] for h in whole]}; val MSE "
             f"{['%.6f' % h['val_mse'] for h in whole]}; StepTimer: "
-            f"{summary}; checkpoints kept {kept}")
+            f"{summary}; checkpoints kept {kept}; {lines[-1]}")
         if kept != [(c["epochs"] - 1) * n_train, c["epochs"] * n_train]:
             raise SystemExit(f"retention kept {kept}")
         if len(summary) != 1 or not summary[0].startswith(
@@ -3227,37 +3470,74 @@ def phase_harness(torch, smi):
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise SystemExit(f"harness loss does not fall: {losses}")
 
-        run(c["resume_at"], "resumed")
+        run(c["resume_at"], "resumed", 2 * (c["resume_at"] - 1))
         lines.clear()
-        rest, _ = run(c["epochs"], "resumed")
+        rest, _ = run(c["epochs"], "resumed",
+                      2 * (c["epochs"] - c["resume_at"] - 1))
         resumed = [ln for ln in lines if ln.startswith("resumed from step")]
         pairs = [(a, b) for a, b in zip(rest, whole[c["resume_at"]:])]
         worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in pairs
                     for k in ("train_mse", "val_mse"))
         bitwise = all(a == b for a, b in pairs)
-        log(f"  resumed at epoch {c['resume_at']} ({resumed}): epochs "
+        log(f"  resumed at epoch {c['resume_at']} ({resumed}), its own graphs "
+            f"captured after the restore ({lines[-1]}): epochs "
             f"{[h['epoch'] for h in rest]}, largest relative difference "
             f"from the uninterrupted run {worst:.3e} (tol "
             f"{HARNESS_RESUME_TOL}); bitwise equal: {bitwise}")
         if (len(resumed) != 1 or [h["epoch"] for h in rest] != list(
                 range(c["resume_at"], c["epochs"]))
-                or not worst <= HARNESS_RESUME_TOL):
+                or not worst <= HARNESS_RESUME_TOL or not bitwise):
             raise SystemExit("the resumed run differs from the whole run")
 
         lines.clear()
-        guarded, _ = run(c["nan_epoch"] + 2, "guarded",
+        # epochs 0..3: four train calls, three validation calls
+        guarded, _ = run(c["nan_epoch"] + 2, "guarded", 3 + 2,
                          nan_epochs={c["nan_epoch"]})
         rolled = [ln for ln in lines if "rolled back" in ln]
         after = guarded[-1]["train_mse"]
         want = whole[c["nan_epoch"]]["train_mse"]
-        log(f"  NaN planted in epoch {c['nan_epoch']}: {rolled}; epochs "
-            f"{[h['epoch'] for h in guarded]}; the next epoch's loss "
-            f"{after:.6f} against the uninterrupted run's epoch "
+        log(f"  NaN planted in epoch {c['nan_epoch']} (a replay's input): "
+            f"{rolled}; epochs {[h['epoch'] for h in guarded]}; the next "
+            f"epoch's loss {after:.6f} against the uninterrupted run's epoch "
             f"{c['nan_epoch']} {want:.6f}")
         if (len(rolled) != 1 or [h["epoch"] for h in guarded] != [
                 e for e in range(c["nan_epoch"] + 2) if e != c["nan_epoch"]]
                 or abs(after - want) > HARNESS_RESUME_TOL * abs(want)):
             raise SystemExit("DivergenceGuard did not roll the epoch back")
+
+        def loop(capture, epochs):
+            ckpt = tempfile.mkdtemp(dir=tmp)
+            out, held, marks = [], [], []
+
+            def take(line):
+                out.append(line)
+                if line.startswith("epoch "):
+                    # an epoch's line comes after its loss and validation
+                    # were read (synchronized) and its checkpoint copied
+                    marks.append(time.perf_counter())
+                if line.startswith(f"epoch {epochs - 1}:"):
+                    # the last epoch's graphs still live
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    held.append(torch.cuda.memory_reserved())
+
+            _, hist = harness.main(epochs, ckpt_dir=ckpt, log=take,
+                                   capture=capture)
+            steps = max(int(d) for d in os.listdir(ckpt) if d.isdigit())
+            state = torch.load(os.path.join(ckpt, str(steps), "state.pt"),
+                               weights_only=True)
+            captures, replays = graphs_line(out)
+            return dict(values=[h[k] for h in hist
+                                for k in ("train_mse", "val_mse")],
+                        tensors=[t for t in tree_leaves(state)
+                                 if isinstance(t, torch.Tensor)],
+                        captures=captures, replays=replays, held=held[-1],
+                        train_s=marks[-1] - marks[0])
+
+        loop_eager_and_captured(torch, "the harness on Chickenpox (an epoch: "
+                                f"{n_train} updates, validation, guard copy, "
+                                "checkpoint)", loop, c["epochs"], smi,
+                                profiled=(2, 4))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4559,7 +4839,7 @@ def main() -> int:
     log("== phase 7: dynamic-edge sequence over stack_bcsr")
     phase_dynamic(torch, report)
     log("== phase 8: the bundled-data accuracy protocols")
-    phase_protocols(torch)
+    phase_protocols(torch, smi)
     log("== phase 9: TGCN training at N=50k over a GCN BCSR operator")
     phase_tgcn(torch, report)
     log("== phase 10: EvolveGCN-O/H over stack_bcsr_gcn")

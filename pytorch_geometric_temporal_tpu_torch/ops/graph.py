@@ -197,14 +197,28 @@ class Graph:
     # -- degrees -----------------------------------------------------------
 
     def out_degree(self, weighted: bool = True) -> torch.Tensor:
-        w = self.masked_weights() if weighted else self.edge_mask()
-        return torch.zeros(self.src_count, dtype=w.dtype,
-                           device=self.device).index_add_(0, self.senders, w)
+        return self._degree(self.senders, self.src_count, weighted)
 
     def in_degree(self, weighted: bool = True) -> torch.Tensor:
-        w = self.masked_weights() if weighted else self.edge_mask()
-        return torch.zeros(self.num_nodes, dtype=w.dtype,
-                           device=self.device).index_add_(0, self.receivers, w)
+        return self._degree(self.receivers, self.num_nodes, weighted)
+
+    def _degree(self, index: torch.Tensor, n: int,
+                weighted: bool) -> torch.Tensor:
+        """out[i] = Σ w[index == i], the same bits on every run."""
+        if not weighted:
+            # 0/1 counts are exact in any order (integers below 2**24), so
+            # CUDA's atomics give the same bits every run
+            return torch.zeros(n, device=self.device).index_add_(
+                0, index, self.edge_mask())
+        # Weights are summed in edge order: ``index_put_`` with
+        # ``accumulate`` sorts the indices on CUDA and sums each run of
+        # them in order (on the CPU one serial pass, ``index_add_``'s
+        # bits), where CUDA's ``index_add_`` adds in an order that changes
+        # from run to run, and a captured step would not reproduce an
+        # eager one to the bit.
+        w = self.masked_weights()
+        return torch.zeros(n, dtype=w.dtype, device=self.device).index_put_(
+            (index,), w, accumulate=True)
 
     # -- dense view --------------------------------------------------------
 

@@ -17,8 +17,15 @@ MSE reported; every net is cell + ReLU + ``Dense(hidden -> 1)``:
   **MontevideoBus**: GConvGRU(4->32, K=1).
 
 :data:`RUNS` names the eight runs; each takes ``(epochs, device=None,
-params=None, seed=0)`` — ``params`` is a flax parameter tree to start from
-instead of the seeded initial draw — and returns a :class:`ProtocolRun`.
+params=None, seed=0, capture=None)`` — ``params`` is a flax parameter tree
+to start from instead of the seeded initial draw — and returns a
+:class:`ProtocolRun`.  On the card the updates run as replays of CUDA graphs
+(``capture``, the trainers' switch: None captures on CUDA, False runs
+eagerly, True on the CPU raises): an epoch of the snapshot loop through
+:class:`~..train.SnapshotTrainer`, and the full-sequence update through
+:class:`~..train.BatchTrainer`, the whole stacked sequence its batch — the
+JAX package runs all its epochs in one jitted ``fori_loop``, the port one
+replay an epoch with no host sync until the last.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -49,8 +56,7 @@ from ..models import (
 from ..models._cells import Dense, FlaxModule
 from ..ops.graph import Graph
 from ..signal import StackedSignal, temporal_signal_split
-from ..train import SnapshotTrainer, mse
-from ..train.trainer import _adam
+from ..train import BatchTrainer, SnapshotTrainer, mse
 
 LR = 1e-2
 TRAIN_RATIO = 0.2
@@ -59,12 +65,18 @@ TRAIN_RATIO = 0.2
 @dataclasses.dataclass
 class ProtocolRun:
     """One protocol run: the test MSE, the training loss of every epoch
-    (each taken before that epoch's update) and the training seconds
-    (host clock, the device synchronized)."""
+    (each taken before that epoch's update), the training seconds (host
+    clock, the device synchronized), the trained model, and the CUDA graphs
+    its trainer captured and the replays it ran (the graphs are freed with
+    the trainer, before the run returns)."""
 
     test_mse: float
     losses: List[float]
     seconds: float
+    model: Optional[torch.nn.Module] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    captures: int = 0
+    replays: int = 0
 
 
 class _Net(FlaxModule):
@@ -110,16 +122,22 @@ def _timed(device: torch.device, train: Callable) -> float:
     return time.perf_counter() - t0
 
 
-def _fit_snapshots(net, step, train, test, epochs, device,
+def _fit_snapshots(net, step, train, test, epochs, device, capture,
                    init_carry=()) -> ProtocolRun:
     """The snapshot-loop protocol through :class:`SnapshotTrainer`."""
-    trainer = SnapshotTrainer(net, step, lr=LR, device=device)
+    trainer = SnapshotTrainer(net, step, lr=LR, device=device,
+                              capture=capture)
     losses = []
     seconds = _timed(device, lambda: trainer.fit(
         train, epochs, init_carry,
         callback=lambda epoch, loss: losses.append(loss)))
-    return ProtocolRun(float(trainer.evaluate(test, init_carry)),
-                       [float(v) for v in losses], seconds)
+    return _result(trainer, float(trainer.evaluate(test, init_carry)),
+                   losses, seconds)
+
+
+def _result(trainer, test_mse, losses, seconds) -> ProtocolRun:
+    return ProtocolRun(test_mse, [float(v) for v in losses], seconds,
+                       trainer.model, trainer.captures, trainer.replays)
 
 
 def _stacked_graph(sig: StackedSignal) -> Graph:
@@ -127,25 +145,27 @@ def _stacked_graph(sig: StackedSignal) -> Graph:
                  sig.num_edges)
 
 
-def _fit_sequence(net, train, test, epochs, device) -> ProtocolRun:
+def _fit_sequence(net, train, test, epochs, device,
+                  capture: Optional[bool] = None) -> ProtocolRun:
     """The full-sequence protocol: ``pred = net(xs, graph)`` over all
-    snapshots at once, their MSE, one update per epoch."""
-    optimizer = _adam(net.to(device), LR)
-    graph, losses = _stacked_graph(train), []
+    snapshots at once, their MSE, one update per epoch through
+    :class:`BatchTrainer` (the stacked sequence is its batch; on the card
+    the first epoch runs eagerly, the second captures, the rest replay).
+    The test pass is one call, eager as any signature's first."""
+    graph = _stacked_graph(train)
+    trainer = BatchTrainer(net, lambda xs: net(xs, graph), lr=LR,
+                           loss_fn=mse, device=device, capture=capture)
+    losses = []
 
     def fit():
         for _ in range(epochs):
-            optimizer.zero_grad(set_to_none=True)
-            loss = mse(net(train.features, graph), train.targets)
-            loss.backward()
-            optimizer.step()
-            losses.append(loss.detach())
+            losses.append(trainer.train_step(train.features, train.targets))
 
     seconds = _timed(device, fit)
     with torch.no_grad():
         test_mse = mse(net(test.features, _stacked_graph(test)),
                        test.targets)
-    return ProtocolRun(float(test_mse), [float(v) for v in losses], seconds)
+    return _result(trainer, float(test_mse), losses, seconds)
 
 
 def _start(dataset, device, seed):
@@ -157,7 +177,8 @@ def _start(dataset, device, seed):
 def _stateless(dataset, make_cell, hidden, view=lambda x: x):
     """A run whose cell starts from a zero state at every snapshot."""
 
-    def run(epochs, device=None, params=None, seed=0) -> ProtocolRun:
+    def run(epochs, device=None, params=None, seed=0,
+            capture=None) -> ProtocolRun:
         device, train, test, gen = _start(dataset, device, seed)
         net = _Net(make_cell(train, device, gen), hidden, device, gen)
         if params is not None:
@@ -166,12 +187,14 @@ def _stateless(dataset, make_cell, hidden, view=lambda x: x):
         def step(carry, x, y, g):
             return mse(net.head(net.recurrent(view(x), g)), y), carry
 
-        return _fit_snapshots(net, step, train, test, epochs, device)
+        return _fit_snapshots(net, step, train, test, epochs, device,
+                              capture)
 
     return run
 
 
-def _pedalme_tgcn(epochs, device=None, params=None, seed=0) -> ProtocolRun:
+def _pedalme_tgcn(epochs, device=None, params=None, seed=0,
+                  capture=None) -> ProtocolRun:
     device, train, test, gen = _start("pedalme", device, seed)
     net = _Net(TGCN(4, 32, device=device, generator=gen), 32, device, gen)
     if params is not None:
@@ -182,11 +205,13 @@ def _pedalme_tgcn(epochs, device=None, params=None, seed=0) -> ProtocolRun:
         return mse(net.head(h), y), h
 
     h0 = torch.zeros((train.num_nodes, 32), device=device)
-    return _fit_snapshots(net, step, train, test, epochs, device, h0)
+    return _fit_snapshots(net, step, train, test, epochs, device, capture,
+                          h0)
 
 
 def _twitter_seq(make_cell):
-    def run(epochs, device=None, params=None, seed=0) -> ProtocolRun:
+    def run(epochs, device=None, params=None, seed=0,
+            capture=None) -> ProtocolRun:
         device, train, test, gen = _start("twittertennis", device, seed)
         f = train.features.shape[2]
 
@@ -198,12 +223,13 @@ def _twitter_seq(make_cell):
                      gen)
         if params is not None:
             net.params_from_flax(params)
-        return _fit_sequence(net, train, test, epochs, device)
+        return _fit_sequence(net, train, test, epochs, device, capture)
 
     return run
 
 
-def _twitter_dygrae(epochs, device=None, params=None, seed=0) -> ProtocolRun:
+def _twitter_dygrae(epochs, device=None, params=None, seed=0,
+                    capture=None) -> ProtocolRun:
     device, train, test, gen = _start("twittertennis", device, seed)
     # conv_out_channels follows the feature width (GatedGraphConv needs
     # in <= out; the encoded TwitterTennis features are 16 wide)
@@ -220,7 +246,7 @@ def _twitter_dygrae(epochs, device=None, params=None, seed=0) -> ProtocolRun:
         return mse(net.head(h_tilde), y), (h, c)
 
     zero = torch.zeros((train.num_nodes, 32), device=device)
-    return _fit_snapshots(net, step, train, test, epochs, device,
+    return _fit_snapshots(net, step, train, test, epochs, device, capture,
                           (zero, zero))
 
 

@@ -17,6 +17,15 @@ The JAX example keeps ``prev_state = state`` as its rollback target, which
 holds because its state is immutable; here the optimizer changes tensors
 in place, so the target is a copy (:meth:`TrainState.snapshot`).
 
+The JAX example jits its epoch (a ``lax.scan`` of one update a snapshot)
+and its validation pass.  On the card (``capture``, the trainers' switch)
+each runs here as replays of a CUDA graph that reads and writes the state's
+tensors in place: the first epoch runs eagerly, the second captures the
+whole epoch, every update of it, and later epochs replay; a poisoned
+epoch's features enter the graph as a copy into its input.  A restore from
+a checkpoint and the guard's rollback copy into the same tensors, so the
+graph stays valid, and a resumed run captures its own after the restore.
+
     python -m pytorch_geometric_temporal_tpu_torch.protocols.harness [epochs]
 """
 
@@ -35,7 +44,8 @@ from ..models import DCRNN
 from ..signal import StackedSignal, temporal_signal_split
 from ..train import (CheckpointManager, DivergenceGuard, TrainState,
                      apply_gradients, mse)
-from ..train.trainer import _adam
+from ..train.state import check_capturable
+from ..train.trainer import _DeviceGraphs, _adam
 from ..utils import StepTimer
 from .bundled_accuracy import _Net
 
@@ -54,7 +64,8 @@ def chickenpox(lags: int = LAGS, device=None):
 
 def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
          ckpt_dir: Optional[str] = None, device=None, params=None,
-         nan_epochs: Iterable[int] = (), log=print):
+         nan_epochs: Iterable[int] = (), log=print,
+         capture: Optional[bool] = None):
     """Train with resume, guard and early stopping; returns ``(best
     validation MSE, history)``, one ``{"epoch", "train_mse", "val_mse"}``
     per healthy epoch (unrounded).
@@ -63,7 +74,10 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
     holds the checkpoints; a run on a directory with checkpoints resumes
     from its latest.  ``params`` is a flax parameter tree to start from in
     place of the seeded draw.  ``nan_epochs`` poisons the inputs of those
-    epochs with NaN, for the guard to roll back.
+    epochs with NaN, for the guard to roll back.  ``capture``: None runs the
+    epoch and the validation pass as replays of CUDA graphs on the card,
+    False eagerly; True on the CPU raises.  The last line logged counts the
+    graphs captured and their replays.
     """
     device = resolve_device(device)
     train, val = chickenpox(device=device)
@@ -96,6 +110,13 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
             total = total + mse(predict(val.features[t]), val.targets[t])
         return total / val.snapshot_count
 
+    # the JAX example's two jitted functions; a graph holds the state
+    train_graphs = _DeviceGraphs("harness.train_epoch", capture)
+    val_graphs = _DeviceGraphs("harness.val_loss", capture)
+    held = (state, state.params, state.opt_state, state.step)
+    if train_graphs.captures_on(device):
+        check_capturable(state, "harness.train_epoch")
+
     ckpt_dir = ckpt_dir or os.environ.get("CKPT_DIR") or tempfile.mkdtemp(
         prefix="harness_")
     mgr = CheckpointManager(ckpt_dir, max_to_keep=2)
@@ -112,7 +133,9 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
         features = (train.features * float("nan") if epoch in nan_epochs
                     else train.features)
         with timer:
-            train_mse = float(train_epoch(features))  # blocks for the timer
+            # blocks for the timer
+            train_mse = float(train_graphs(device, train_epoch, (features,),
+                                           held))
         _, _, ok = guard.check(state.params, state.opt_state, train_mse)
         if not ok:
             # the step goes back too, or step // n_train would skew resume
@@ -120,7 +143,7 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
             log(f"epoch {epoch}: diverged (loss {train_mse:.4f}), "
                 "rolled back")
             continue
-        v = float(val_loss())
+        v = float(val_graphs(device, val_loss, (), held))
         history.append({"epoch": epoch, "train_mse": train_mse,
                         "val_mse": v})
         mgr.save(int(state.step), state)
@@ -137,6 +160,8 @@ def main(epochs: int = 20, patience: int = 10, min_delta: float = 0.0,
     mgr.close()
     log(timer.summary())
     log(f"best val MSE {best_val:.4f}; checkpoints in {ckpt_dir}")
+    log(f"{train_graphs.captures + val_graphs.captures} CUDA graphs "
+        f"captured, {train_graphs.replays + val_graphs.replays} replays")
     return best_val, history
 
 

@@ -12,8 +12,11 @@ profiles, ~2% missing readings (zeros, which the loss masks), plus the
 time-of-day channel — and says so in its ``source``.
 
 :func:`train` is the training loop (``DCRNNSeq(out_channels=F, K)``, Adam
-1e-3, drop-last batches, one test pass); :func:`run` splits the windows
-70/10/20, draws the batch schedule from ``seed + 1`` and returns the report.
+1e-3, drop-last batches, one test pass) through :class:`~..train.BatchTrainer`:
+on the card its update and its test batch run as replays of CUDA graphs, one
+each (the batch shape is fixed), the counterpart of the JAX run's jitted
+``step`` and ``eval_loss``; :func:`run` splits the windows 70/10/20, draws
+the batch schedule from ``seed + 1`` and returns the report.
 Run directly for a JSON report a line: ``python -m
 pytorch_geometric_temporal_tpu_torch.protocols.metrla_protocol [--init-seeds
 1 2 3] [--params init.npz] [--epochs 3 --t-len 720] [--device cpu]`` — ``--init-seeds`` trains the
@@ -24,7 +27,7 @@ parameter tree saved with ``numpy.savez`` under ``a/b/c`` keys.
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +38,7 @@ from ..data.metr_la import METRLADatasetLoader, _dense_to_sparse
 from ..models import DCRNNSeq
 from ..ops.graph import Graph
 from ..signal import DeviceWindower
-from ..train.trainer import _adam
+from ..train import BatchTrainer
 
 IN_T = 12   # input window
 OUT_T = 12  # predict horizon (windows are gathered as 2·IN_T steps)
@@ -118,13 +121,27 @@ def _windows(data: np.ndarray) -> np.ndarray:
 
 
 def train(data, ei, w, means, stds, schedule, test_idx, batch_size: int,
-          K: int, device=None, params=None,
-          seed: int = 0) -> Tuple[float, List[float], DCRNNSeq]:
+          K: int, device=None, params=None, seed: int = 0,
+          capture: Optional[bool] = None
+          ) -> Tuple[float, List[float], DCRNNSeq]:
     """Train ``DCRNNSeq(out_channels=F, K)`` over ``schedule`` (one array of
     window starts per epoch, cut into drop-last batches) and return (test
     masked MAE on de-normalized values, the last batch loss of every epoch,
     the model).  ``params`` is a flax parameter tree to start from instead
-    of the initial draw seeded by ``seed``."""
+    of the initial draw seeded by ``seed``.  ``capture`` is
+    :class:`~..train.BatchTrainer`'s (None: CUDA graphs on the card;
+    False: eager; True on the CPU raises)."""
+    mae, curve, trainer = _train(data, ei, w, means, stds, schedule,
+                                 test_idx, batch_size, K, device, params,
+                                 seed, capture)
+    return mae, curve, trainer.model
+
+
+def _train(data, ei, w, means, stds, schedule, test_idx, batch_size, K,
+           device, params, seed, capture):
+    """:func:`train`, returning the trainer (its ``model``, ``captures``
+    and ``replays``) in place of the model, which :func:`train`'s callers
+    unpack."""
     device = resolve_device(device)
     n, f = data.shape[1], data.shape[2]
     g = Graph.from_edge_index(ei, np.asarray(w, np.float32), num_nodes=n,
@@ -147,56 +164,45 @@ def train(data, ei, w, means, stds, schedule, test_idx, batch_size: int,
     # x = data[i:i+12], y = data[i+12:i+24], gathered on the device
     windows = DeviceWindower(data, IN_T, device=device)
 
-    def loss_fn(x, y):
-        pred = model(x, g)
+    def loss_fn(pred, y):
         mask = (y != norm0).to(torch.float32)
         mask = mask / torch.clamp(mask.mean(), min=1e-16)
         return torch.nan_to_num(torch.abs(pred - y) * std * mask).mean()
 
-    optimizer = _adam(model, 1e-3)
-    curve = []
+    trainer = BatchTrainer(model, lambda x: model(x, g), lr=1e-3,
+                           loss_fn=loss_fn, device=device, capture=capture)
+    curve = []      # on the device until the test pass ends
     for epoch_batches in schedule:
         last = None
         for i in range(0, len(epoch_batches) - batch_size + 1, batch_size):
-            x, y = windows(epoch_batches[i: i + batch_size])
-            optimizer.zero_grad(set_to_none=True)
-            last = loss_fn(x, y)
-            last.backward()
-            optimizer.step()
-        curve.append(last.detach())
+            last = trainer.train_step(
+                *windows(epoch_batches[i: i + batch_size]))
+        curve.append(last)
 
-    maes = []
-    with torch.no_grad():
-        for i in range(0, len(test_idx) - batch_size + 1, batch_size):
-            maes.append(loss_fn(*windows(test_idx[i: i + batch_size])))
+    maes = [trainer.eval_step(*windows(test_idx[i: i + batch_size]))
+            for i in range(0, len(test_idx) - batch_size + 1, batch_size)]
     return (float(torch.stack(maes).mean()), [float(v) for v in curve],
-            model)
+            trainer)
 
 
 def run(epochs: int = 12, batch_size: int = 64, seed: int = 0,
         t_len: int = 2880, K: int = 3, n: int = 207, device=None,
-        params=None, init_seed=None) -> dict:
+        params=None, init_seed=None, capture: Optional[bool] = None) -> dict:
     """Train on the first 70% of the windows, test on the last 20%; the
     report holds the de-normalized masked test MAE (mph on the speed
     channel), the training curve and the training seconds (host clock, the
     device synchronized).  ``seed`` makes the series, the schedule and the
     initial draw; ``init_seed`` another initial draw, ``params`` a flax
-    parameter tree to start from, on the same series and schedule."""
+    parameter tree to start from, on the same series and schedule.
+    ``capture`` goes to :func:`train`; the report counts the CUDA graphs
+    captured and their replays (0 and 0 when eager)."""
     device = resolve_device(device)
-    data, ei, w, means, stds, source = load_series(seed=seed, t=t_len, n=n)
-    idx = _windows(data)
-    n_train = int(0.7 * len(idx))
-    n_val = int(0.1 * len(idx))
-    train_idx = idx[:n_train]
-    test_idx = idx[n_train + n_val:]
-
-    rng = np.random.default_rng(seed + 1)
-    schedule = [rng.permutation(train_idx) for _ in range(epochs)]
-
+    (data, ei, w, means, stds, source), schedule, test_idx = _split(
+        epochs, seed, t_len, n)
     t0 = time.perf_counter()
-    mae, curve, _ = train(data, ei, w, means, stds, schedule, test_idx,
-                          batch_size, K, device=device, params=params,
-                          seed=seed if init_seed is None else init_seed)
+    mae, curve, trainer = _train(
+        data, ei, w, means, stds, schedule, test_idx, batch_size, K, device,
+        params, seed if init_seed is None else init_seed, capture)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return {
@@ -205,7 +211,22 @@ def run(epochs: int = 12, batch_size: int = 64, seed: int = 0,
         "test_masked_mae_denorm": round(mae, 4),
         "train_curve": [round(v, 4) for v in curve],
         "seconds": time.perf_counter() - t0,
+        "cuda_graphs": trainer.captures,
+        "replays": trainer.replays,
     }
+
+
+def _split(epochs: int, seed: int, t_len: int, n: int):
+    """(:func:`load_series`'s tuple, the schedule, the test window
+    starts) of :func:`run`: the first 70% of the windows train in an order
+    drawn from ``seed + 1`` each epoch, the last 20% test."""
+    series = load_series(seed=seed, t=t_len, n=n)
+    idx = _windows(series[0])
+    n_train = int(0.7 * len(idx))
+    n_val = int(0.1 * len(idx))
+    rng = np.random.default_rng(seed + 1)
+    schedule = [rng.permutation(idx[:n_train]) for _ in range(epochs)]
+    return series, schedule, idx[n_train + n_val:]
 
 
 def _tree_from_npz(path) -> dict:

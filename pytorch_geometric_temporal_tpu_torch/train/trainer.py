@@ -29,7 +29,11 @@ shapes, strides and dtypes, and the identity of the signal an epoch reads:
 
 A step returns fresh tensors, not the graph's outputs.  Random draws
 from PyTorch's default CUDA generator differ from replay to replay as from
-step to step; a draw from a step's own CUDA ``torch.Generator`` cannot be
+step to step.  A draw from a CUDA ``torch.Generator`` of the caller's is
+captured only when the trainer was handed it (``generators=``): each
+replay then draws from that generator's state at the call, as the eager
+step does (reseed it before a call for the same mask every step, as the
+JAX step passes its key in); a draw from any other generator cannot be
 captured.  A step that cannot be captured raises with the operation that
 blocked it; nothing falls back to eager execution.  ``captures`` and
 ``replays`` count the graphs captured and the replays run.  The step
@@ -144,8 +148,9 @@ class _StepGraphs:
     inputs (the counterpart of ``jax.jit``'s cache of compiled programs)."""
 
     def __init__(self, name: str, device: torch.device,
-                 stream: torch.cuda.Stream):
+                 stream: torch.cuda.Stream, generators=()):
         self.name, self.device, self.stream = name, device, stream
+        self.generators = tuple(generators)
         self.warm = set()
         self.graphs = {}
         self.replays = 0
@@ -188,6 +193,10 @@ class _StepGraphs:
             [t if s is None else s for s, t in zip(statics, leaves)], spec)
         before = _counters.read()
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            # a replay reads the generator's seed and offset at its call
+            # and advances the offset by what the graph draws
+            graph.register_generator_state(gen)
         try:
             with torch.cuda.graph(graph, stream=self.stream):
                 out = fn(*args)
@@ -242,13 +251,14 @@ class _Captures:
     """The trainers' side of the graphs: one :class:`_StepGraphs` a step
     function, sharing the side stream, with their counts summed."""
 
-    def _init_capture(self, capture: Optional[bool], names) -> None:
+    def _init_capture(self, capture: Optional[bool], names,
+                      generators=()) -> None:
         self.capture = _resolve_capture(capture, self.device)
         self._graphs = None
         if self.capture:
             stream = torch.cuda.Stream(self.device)
             self._graphs = {n: _StepGraphs(f"{type(self).__name__}.{n}",
-                                           self.device, stream)
+                                           self.device, stream, generators)
                             for n in names}
 
     @property
@@ -361,12 +371,17 @@ class BatchTrainer(_Captures):
         capture: run :meth:`train_step` and :meth:`eval_step` as replays of
             CUDA graphs (default: on for a CUDA trainer; True on the CPU
             raises); a batch of a new shape is captured anew.
+        generators: CUDA ``torch.Generator`` objects the step draws from
+            (a dropout mask's), registered with each graph it captures, so
+            a replay draws what the eager step would draw from the
+            generator's state at the call.
     """
 
     def __init__(self, model: torch.nn.Module,
                  apply_fn: Optional[Callable] = None, lr: float = 1e-3,
                  loss_fn: Optional[Callable] = None, scaler=None,
-                 device=None, capture: Optional[bool] = None):
+                 device=None, capture: Optional[bool] = None,
+                 generators=()):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.apply_fn = apply_fn if apply_fn is not None else self.model
@@ -380,7 +395,7 @@ class BatchTrainer(_Captures):
             else:
                 loss_fn = losses_lib.mse
         self.loss_fn = loss_fn
-        self._init_capture(capture, ("train_step", "eval_step"))
+        self._init_capture(capture, ("train_step", "eval_step"), generators)
 
     def _train(self, x, y):
         x, y = x.to(self.device), y.to(self.device)

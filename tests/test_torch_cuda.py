@@ -8,6 +8,7 @@ cuBLAS).  Run on the card with ``python -m pytest tests/test_torch_cuda.py
 order, 1e-4 of the output's scale.
 """
 
+import os
 import traceback
 
 import numpy as np
@@ -1380,3 +1381,162 @@ def test_captured_nccl_dp_step_matches_eager(cuda):
         _assert_same_run(lc, le, pc, pe)
     finally:
         par.mesh.release_group_of_one()
+
+
+# ---------------------------------------------------------------------------
+# The loops the JAX side compiles, captured: the METR-LA protocol, the
+# full-sequence protocols, the harness's epoch, MTGNN's dropout step
+# ---------------------------------------------------------------------------
+
+
+def _params_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def test_captured_metrla_protocol_equals_eager_to_the_bit(cuda):
+    """The METR-LA loop at 48 sensors, 288 steps, 2 epochs of batches of
+    16: captured (one train graph, one test graph: the batch shape is
+    fixed) against capture=False, curve, MAE and parameters to the bit."""
+    from pytorch_geometric_temporal_tpu_torch.protocols import (
+        metrla_protocol as mp)
+
+    epochs, bs, t_len, n, K = 2, 16, 288, 48, 3
+    (data, ei, w, means, stds, _), schedule, test_idx = mp._split(
+        epochs, 0, t_len, n)
+    runs = {c: mp._train(data, ei, w, means, stds, schedule, test_idx, bs,
+                         K, cuda, None, 0, c) for c in (False, None)}
+    (me, ce, te), (mc, cc, tc) = runs[False], runs[None]
+    train_calls = epochs * (len(schedule[0]) // bs)
+    eval_calls = len(test_idx) // bs
+    assert eval_calls >= 2
+    assert (te.captures, te.replays) == (0, 0)
+    assert (tc.captures, tc.replays) == (2, train_calls + eval_calls - 2)
+    assert ce == cc and me == mc and np.isfinite(me)
+    assert _params_equal(te.model, tc.model)
+
+
+@pytest.mark.parametrize("name", ["twittertennis_evolvegcno",
+                                  "twittertennis_evolvegcnh"])
+def test_captured_full_sequence_protocol_equals_eager_to_the_bit(cuda, name):
+    """Four epochs of a full-sequence TwitterTennis run (24 per-snapshot
+    graphs normalized inside the step): the first epoch eager, the second
+    captured, the rest replayed; losses, test MSE and parameters equal to
+    the eager run's to the bit."""
+    from pytorch_geometric_temporal_tpu_torch.protocols import RUNS
+
+    eager = RUNS[name](4, device=cuda, capture=False)
+    captured = RUNS[name](4, device=cuda)
+    assert (eager.captures, eager.replays) == (0, 0)
+    assert (captured.captures, captured.replays) == (1, 3)
+    assert captured.losses == eager.losses
+    assert captured.test_mse == eager.test_mse
+    assert _params_equal(eager.model, captured.model)
+
+
+def _harness_state(ckpt_dir):
+    steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+    return torch.load(os.path.join(ckpt_dir, str(steps[-1]), "state.pt"),
+                      weights_only=True)
+
+
+def _tree_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    return a == b
+
+
+def test_captured_harness_equals_eager_resumes_and_rolls_back(cuda, tmp_path):
+    """The harness on Chickenpox, four epochs eager and captured (one
+    epoch graph, one validation graph): histories and the last checkpoint
+    equal to the bit; a captured run resumed at epoch 2 captures its own
+    graph after the restore and equals the uninterrupted one to the bit; a
+    NaN planted in epoch 1 is rolled back inside the replays."""
+    from pytorch_geometric_temporal_tpu_torch.protocols import harness
+
+    def run(epochs, name, capture=None, **kw):
+        lines = []
+        _, hist = harness.main(epochs, ckpt_dir=str(tmp_path / name),
+                               log=lines.append, capture=capture, **kw)
+        return hist, lines
+
+    eager, _ = run(4, "eager", capture=False)
+    whole, lines = run(4, "whole")
+    assert lines[-1] == "2 CUDA graphs captured, 6 replays"
+    assert whole == eager
+    assert _tree_equal(_harness_state(tmp_path / "eager"),
+                       _harness_state(tmp_path / "whole"))
+    run(2, "resumed")
+    rest, lines = run(4, "resumed")
+    assert any(line.startswith("resumed from step") for line in lines)
+    assert lines[-1] == "2 CUDA graphs captured, 2 replays"
+    assert rest == whole[2:]
+    assert _tree_equal(_harness_state(tmp_path / "resumed"),
+                       _harness_state(tmp_path / "whole"))
+    guarded, lines = run(3, "guarded", nan_epochs={1})
+    assert sum("rolled back" in line for line in lines) == 1
+    assert [h["epoch"] for h in guarded] == [0, 2]
+    assert guarded[1]["train_mse"] == whole[1]["train_mse"]
+
+
+@pytest.mark.parametrize("reseed", [True, False])
+def test_mtgnn_dropout_step_captures_with_its_generator(cuda, monkeypatch,
+                                                        reseed):
+    """MTGNN in train mode, its dropout masks drawn from a CUDA generator
+    made once and handed to the trainer: three steps captured (one graph,
+    two replays) equal the eager steps to the bit, whether the generator
+    is reseeded before each step (the same mask every step) or runs on.
+    cuDNN's default convolution backward is not deterministic (two eager
+    runs differ in the last bits), so both run with its deterministic
+    algorithms."""
+    from pytorch_geometric_temporal_tpu_torch.models import MTGNN
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    n, t = 20, 24
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(rng.normal(size=(4, 2, n, t)).astype(
+        np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=(4, 12, n, 1)).astype(
+        np.float32)).to(cuda)
+    runs = {}
+    for capture in (False, None):
+        model = MTGNN(True, True, 2, n, [2, 3, 6, 7], 7, 0.3, 5, 16, 2, 8,
+                      8, 16, 32, t, 2, 12, 3, 0.05, 3.0, True,
+                      generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        tr = BatchTrainer(model, lambda xb, m=model, g=gen: m(
+            xb, train=True, generator=g), lr=1e-3, loss_fn=mse,
+            capture=capture, generators=(gen,))
+        losses = []
+        for _ in range(3):
+            if reseed:
+                gen.manual_seed(7)
+            losses.append(tr.train_step(x, y))
+        runs[capture] = (torch.stack(losses), model, tr)
+    (le, me, te), (lc, mc, tc) = runs[False], runs[None]
+    assert (te.captures, tc.captures, tc.replays) == (0, 1, 2)
+    assert torch.equal(le, lc) and torch.isfinite(lc).all()
+    assert _params_equal(me, mc)
+
+
+def test_degrees_on_the_card_are_the_same_bits_every_run(cuda):
+    """Weighted degrees sum each node's edges in one order (a stable sort,
+    not atomics): two graphs of the same edges give the same bits, close
+    to the CPU's in-order sum (METR-LA's k-NN graph, Gaussian weights)."""
+    from pytorch_geometric_temporal_tpu_torch.protocols import (
+        metrla_protocol as mp)
+
+    _, ei, w, *_ = mp.load_series(seed=0, t=288, n=207)
+    graphs = [Graph.from_edge_index(ei, w, num_nodes=207, device=d)
+              for d in (cuda, cuda, "cpu")]
+    for name in ("in_degree", "out_degree"):
+        a, b, host = (getattr(g, name)() for g in graphs)
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), host, rtol=1e-6, atol=0)
