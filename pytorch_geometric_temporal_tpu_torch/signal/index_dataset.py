@@ -31,6 +31,7 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import _counters
 from .._device import resolve_device
 
 PathLike = Union[str, "os.PathLike[str]"]
@@ -118,15 +119,19 @@ class DeviceWindower:
 
     def __call__(self, start_indices) -> Tuple[torch.Tensor, torch.Tensor]:
         """(x, y) for host (numpy-convertible) start indices."""
+        span = _counters.span
         h = self.horizon
-        idx = np.asarray(start_indices, dtype=np.int64)
-        _check_starts(idx, self.data.shape[0], 2 * h)
-        start = torch.from_numpy(idx)
-        if self.device.type == "cuda":
-            # from pinned memory the upload does not wait for the work
-            # already queued on the stream
-            start = start.pin_memory().to(self.device, non_blocking=True)
-        win = self.data[start[:, None] + self._steps[None, :]]
+        with span("loader.check"):
+            idx = np.asarray(start_indices, dtype=np.int64)
+            _check_starts(idx, self.data.shape[0], 2 * h)
+        with span("loader.upload"):
+            start = torch.from_numpy(idx)
+            if self.device.type == "cuda":
+                # from pinned memory the upload does not wait for the work
+                # already queued on the stream
+                start = start.pin_memory().to(self.device, non_blocking=True)
+        with span("loader.gather"):
+            win = self.data[start[:, None] + self._steps[None, :]]
         return win[:, :h], win[:, h:]
 
 
@@ -188,12 +193,14 @@ class StreamingWindower:
         return out
 
     def __call__(self, start_indices) -> Tuple[torch.Tensor, torch.Tensor]:
-        buf = self.host_batch(start_indices)
-        buf = buf.astype(_device_dtype(buf.dtype), copy=False)
-        # a blocking copy that always copies (to the CPU too): the next
-        # host_batch overwrites the buffer
-        win = torch.from_numpy(buf).to(resolve_device(self.device),
-                                       copy=True)
+        with _counters.span("loader.read"):
+            buf = self.host_batch(start_indices)
+            buf = buf.astype(_device_dtype(buf.dtype), copy=False)
+        with _counters.span("loader.upload"):
+            # a blocking copy that always copies (to the CPU too): the next
+            # host_batch overwrites the buffer
+            win = torch.from_numpy(buf).to(resolve_device(self.device),
+                                           copy=True)
         h = self.horizon
         return win[:, :h], win[:, h:]
 
@@ -262,7 +269,13 @@ class IndexLoader:
             rng=self._rng, drop_last=self.drop_last,
             world_size=self.world_size, rank=self.rank,
         ):
-            yield self.windower(batch)
+            # yielded unbound: a suspended generator holding the batch
+            # would keep it alive while the next one is gathered
+            yield self._window(batch)
+
+    def _window(self, batch):
+        with _counters.span("loader.batch"):
+            return self.windower(batch)
 
 
 def iter_index_batches(

@@ -143,6 +143,12 @@ def _clone(tree):
     return pytree.tree_map_only(torch.Tensor, torch.Tensor.clone, tree)
 
 
+def _step_name(name: str) -> str:
+    """A step's name in its span and record: the step function's own name
+    (``BatchTrainer.train_step`` -> ``train_step``)."""
+    return name.rsplit(".", 1)[-1]
+
+
 class _StepGraphs:
     """The CUDA graphs of one step function, one for each signature of its
     inputs (the counterpart of ``jax.jit``'s cache of compiled programs)."""
@@ -150,6 +156,7 @@ class _StepGraphs:
     def __init__(self, name: str, device: torch.device,
                  stream: torch.cuda.Stream, generators=()):
         self.name, self.device, self.stream = name, device, stream
+        self.step = _step_name(name)
         self.generators = tuple(generators)
         self.warm = set()
         self.graphs = {}
@@ -160,20 +167,27 @@ class _StepGraphs:
         ``args``' tensors are copied into the graph's static inputs;
         ``held`` objects are read and written in place, so their identity
         is part of the signature."""
-        key, leaves, spec = _signature(args, held)
-        entry = self.graphs.get(key)
-        if entry is None:
-            if key not in self.warm:
-                self.warm.add(key)
-                return self._eager(fn, args)
-            entry = self.graphs[key] = self._capture(fn, leaves, spec)
-        for static, t in zip(entry.statics, leaves):
-            if static is not None:
-                static.copy_(t)
-        entry.graph.replay()
-        _counters.add(entry.counted)
-        self.replays += 1
-        return _clone(entry.out)
+        span = _counters.span
+        with _counters.step(self.step):
+            key, leaves, spec = _signature(args, held)
+            entry = self.graphs.get(key)
+            if entry is None:
+                if key not in self.warm:
+                    self.warm.add(key)
+                    with span("step.warm"):
+                        return self._eager(fn, args)
+                with span("step.capture"):
+                    entry = self.graphs[key] = self._capture(fn, leaves, spec)
+            with span("step.copy_in"):
+                for static, t in zip(entry.statics, leaves):
+                    if static is not None:
+                        static.copy_(t)
+            with span("step.replay"):
+                entry.graph.replay()
+                _counters.add(entry.counted)
+            self.replays += 1
+            with span("step.clone_out"):
+                return _clone(entry.out)
 
     def _eager(self, fn, args):
         current = torch.cuda.current_stream(self.device)
@@ -220,6 +234,7 @@ class _DeviceGraphs:
 
     def __init__(self, name: str, capture: Optional[bool]):
         self.name, self.capture = name, capture
+        self.step = _step_name(name)
         self._graphs = {}
 
     def captures_on(self, device: torch.device) -> bool:
@@ -229,7 +244,8 @@ class _DeviceGraphs:
                  held: tuple = ()):
         """``fn(*args)``, eagerly or through the device's graphs."""
         if not self.captures_on(device):
-            return fn(*args)
+            with _counters.step(self.step):
+                return fn(*args)
         graphs = self._graphs.get(device)
         if graphs is None:
             graphs = self._graphs[device] = _StepGraphs(
@@ -327,7 +343,8 @@ class SnapshotTrainer(_Captures):
         """One update on the mean loss over the signal's snapshots;
         returns that (detached, on-device) loss."""
         if self._graphs is None:
-            return self._train(signal, init_carry)
+            with _counters.step("train_epoch"):
+                return self._train(signal, init_carry)
         return self._graphs["train_epoch"](
             lambda carry: self._train(signal, carry), (init_carry,),
             held=(signal,))
@@ -339,7 +356,8 @@ class SnapshotTrainer(_Captures):
             return self._epoch_loss(signal, carry)[0]
 
         if self._graphs is None:
-            return run(init_carry)
+            with _counters.step("evaluate"):
+                return run(init_carry)
         return self._graphs["evaluate"](run, (init_carry,), held=(signal,))
 
     def fit(self, signal, epochs: int, init_carry=(),
@@ -398,27 +416,34 @@ class BatchTrainer(_Captures):
         self._init_capture(capture, ("train_step", "eval_step"), generators)
 
     def _train(self, x, y):
+        span = _counters.span
         x, y = x.to(self.device), y.to(self.device)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.apply_fn(x), y)
-        loss.backward()
-        self.optimizer.step()
+        with span("step.forward"):
+            loss = self.loss_fn(self.apply_fn(x), y)
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            self.optimizer.step()
         return loss.detach()
 
     def _eval(self, x, y):
         x, y = x.to(self.device), y.to(self.device)
-        return self.loss_fn(self.apply_fn(x), y)
+        with _counters.span("step.forward"):
+            return self.loss_fn(self.apply_fn(x), y)
 
     def train_step(self, x, y) -> torch.Tensor:
         """One update; returns the (detached, on-device) batch loss."""
         if self._graphs is None:
-            return self._train(x, y)
+            with _counters.step("train_step"):
+                return self._train(x, y)
         return self._graphs["train_step"](self._train, (x, y))
 
     @torch.no_grad()
     def eval_step(self, x, y) -> torch.Tensor:
         if self._graphs is None:
-            return self._eval(x, y)
+            with _counters.step("eval_step"):
+                return self._eval(x, y)
         return self._graphs["eval_step"](self._eval, (x, y))
 
     def fit(self, loader, epochs: int, val_loader=None,

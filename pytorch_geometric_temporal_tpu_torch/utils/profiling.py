@@ -74,7 +74,17 @@ def trace(log_dir: str):
     when CUDA is available); on exit the Chrome-format trace is written to
     ``log_dir/trace_<pid>_<ns>.json`` (view in Perfetto or
     ``chrome://tracing``).  Yields the profiler, whose ``key_averages()``
-    can be read after the block."""
+    can be read after the block.
+
+    The trace carries the port's spans beside the device's records, on
+    the same clock: ``pgtt.loader.*`` inside the index loaders' batches and
+    ``pgtt.step.<fn>`` around each step call, with ``step.warm`` /
+    ``step.capture`` / ``step.copy_in`` / ``step.replay`` /
+    ``step.clone_out`` inside a captured step and ``step.forward`` /
+    ``step.backward`` / ``step.optimizer`` inside an eager one (the list:
+    ``_counters``).  Each step call in the block also leaves its counts in
+    ``_counters.step_records()`` (the fused kernel's launches, collective
+    bytes).  With no profiler running a span costs one check."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
