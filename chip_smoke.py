@@ -122,8 +122,9 @@ stay kernels executed under replay.
    ``StreamingWindower`` over the file against the device windower, step
    and streaming times, and the fused kernel on that f32 operator at
    F = 64·4 = 256: timed, and against the copies with the other f32
-   feature tiles; the SHA-256 of the kernel's output on the raw graph's
-   tiles at that width;
+   feature tiles; timed at F = 64·66 = 4,224 (DCRNN's published widths,
+   the benchmark's ``pems-dcrnn64``); the SHA-256 of the kernel's output
+   on the raw graph's tiles at that width;
 16. phase 3's DCRNNSeq and operators trained through
    ``make_mixed_precision_step`` with ``bf16_policy`` (f32 master
    parameters in a ``TrainState``, bf16 compute, Adam 1e-3): forward and
@@ -214,10 +215,12 @@ stay kernels executed under replay.
    (``cost-shape``, ``cost-point``, ``gather-point`` lines, which
    ``tools/fit_kernel_costs.py`` refits from), with the committed
    constants' prediction and the constants refitted on this run; the
-   operators of phases 15, 21 and 22 are held-out points.  The committed
-   model's median relative error of the warm prediction must stay within
-   ``COST_MEDIAN_TOL`` on the sweep, on the held-out points and on the
-   gathers;
+   operators of phases 15, 21 and 22 are held-out points.  The model
+   prices f32 tiles dense, so an f32 half with walked tiles is timed with
+   every tile dense, and as built beside it (``walked_warm_ms``).  The
+   committed model's median relative error of the warm prediction must
+   stay within ``COST_MEDIAN_TOL`` on the sweep, on the held-out points
+   and on the gathers;
 24. (run after phase 16) phases 3, 6, 15 and 16's (bf16 and f16) paths eager
    (``capture=False``) and captured, from the same parameters on the same
    batches: host time
@@ -246,6 +249,7 @@ the f32 feature-tile sweep, stand on the lines before the total.
 
 import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import inspect
 import json
@@ -540,7 +544,11 @@ def cost_point(torch, report, half, f, label, held_out):
     """One point of the cost model: the fused kernel on ``half`` at width
     ``f``, warm and cold; logs the half's layout once (``cost-shape``) and
     the point (``cost-point``), the lines tools/fit_kernel_costs.py reads,
-    and enters both into the run's record."""
+    and enters both into the run's record.  The model prices every f32
+    tile dense (its f32 constants predate the walked tiles), so a half
+    with walked tiles is timed with its lists emptied, every tile dense;
+    the half as built is timed beside it (``walked_warm_ms``,
+    ``walked_cold_ms``), the points a refit for the walked path reads."""
     from pytorch_geometric_temporal_tpu_torch.ops import bcsr
 
     if label not in report["cost_shapes"]:
@@ -550,9 +558,13 @@ def cost_point(torch, report, half, f, label, held_out):
                                         "tiles": tiles.tolist(),
                                         "rems": rems.tolist()}))
     x = torch.randn(half.num_cols, f, device="cuda").to(half.blocks.dtype)
+    dense = half
+    if half.num_walked:
+        dense = dataclasses.replace(
+            half, walk_ptr=torch.zeros_like(half.walk_ptr), num_walked=0)
 
-    def run():
-        bcsr.hybrid_spmm(half, x)
+    def run(h=dense):
+        bcsr.hybrid_spmm(h, x)
 
     c = COST_SWEEP
     point = {"shape": label,
@@ -561,6 +573,11 @@ def cost_point(torch, report, half, f, label, held_out):
              "f": f, "warm_ms": warm_ms(torch, run, x, c["warm_reps"]),
              "cold_ms": cold_ms(torch, run, c["cold_reps"]),
              "held_out": held_out}
+    if half.num_walked:
+        point.update(walked_warm_ms=warm_ms(torch, lambda: run(half), x,
+                                            c["warm_reps"]),
+                     walked_cold_ms=cold_ms(torch, lambda: run(half),
+                                            c["cold_reps"]))
     log("cost-point " + json.dumps(point))
     report["cost_points"].append(point)
     return point
@@ -657,8 +674,8 @@ def finish_hybrid_build(started):
         raise SystemExit(f"nvcc failed on {out.name}:\n{stderr}")
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, i, i, p, p, p, p, i, p,
-                                     i, p]
+    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p,
+                                     i, p, i, p]
     lib.pgtt_hybrid_spmm.restype = i
     return lib
 
@@ -671,6 +688,7 @@ def hybrid_with(torch, lib, half, x):
     rc = lib.pgtt_hybrid_spmm(
         half.blocks.data_ptr(), half.blocks.shape[0],
         int(half.blocks.dtype == torch.bfloat16), half.block_cols.data_ptr(),
+        half.walk_ptr.data_ptr(), half.walk_data.data_ptr(),
         half.items.data_ptr(), half.num_block_items, half.items.shape[0],
         half.rem_row_ptr.data_ptr(),
         half.rem_row_cols.data_ptr(), half.rem_row_vals.data_ptr(),
@@ -2785,6 +2803,8 @@ def phase_index_pems(torch, kernel_report, smi):
     f_hop = bs * 2 * c["f"]
     report_fused(torch, kernel_report, mats[0].fwd, f_hop,
                  "PeMS index DCRNN f32")
+    report_fused(torch, kernel_report, mats[0].fwd, 64 * 66,
+                 "PeMS DCRNN-64 f32")
     cost_point(torch, kernel_report, mats[0].fwd, f_hop,
                "pems-p15 P_fwd.fwd", held_out=True)
     sweep_f32_tile(torch, kernel_report, mats[0].fwd, f_hop,

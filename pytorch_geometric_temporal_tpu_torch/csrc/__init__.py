@@ -101,8 +101,8 @@ def load() -> ctypes.CDLL:
     lib.pgtt_tile_spmm.restype = i
     lib.pgtt_rem_scatter.argtypes = [p, p, p, p, p, p, i, p, i, i, p]
     lib.pgtt_rem_scatter.restype = i
-    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, i, i, p, p, p, p, i, p,
-                                     i, p]
+    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p,
+                                     i, p, i, p]
     lib.pgtt_hybrid_spmm.restype = i
     _LIB = lib
     return lib

@@ -80,6 +80,25 @@
 //    0.89-1.00 ms).  96 keeps more device time a step on the paths the
 //    port drives: 94 launches at F=256 a DCRNN step, 2 at F=768 an ASTGCN
 //    one.
+//  - Walked f32 tiles.  The dense FFMA loop multiplies every zero of a
+//    tile, and graphs such as a road network's band fill their tiles to
+//    4-5%.  A tile of at most F32_WALK_MAX_NNZ nonzeros (ops/bcsr.py, 22%
+//    full) comes as lists (ops/bcsr.py _walk_lists): for each K chunk the
+//    producer bulk-copies the chunk's 129 row pointers and (column, value)
+//    pairs into the stage's tile slot in place of the tile box, and stages
+//    the x rows as for a dense tile; each lane walks its rows' nonzeros in
+//    turn into the same accumulators, a pair and U float4s of x for 4U
+//    FMAs each.  Each output's fmaf chain is the dense one less its zero
+//    terms, which leave it unchanged for finite x: the outputs are the
+//    dense path's bit for bit.  What bounds a walked tile is the shared
+//    loads a nonzero (one pair, U float4s), ~2.1 us a launch of 88 tiles
+//    at F=96 for each 1,024 nonzeros a tile; the cut is where that meets
+//    the dense loop's flat cost (tools/walk_cut_sweep.py, H100 80GB HBM3,
+//    700 W: crossings at 3,950-4,760 nonzeros).  On the PeMS stand-in's
+//    operator (88 tiles of ~750 nonzeros) the kernel went from 0.0358 to
+//    0.0195 ms at F=256 and from 0.418 to 0.172 ms at F=4,224, where the
+//    rest of an item (x staged through the ring, the epilogue's writes)
+//    now takes most of its time.
 //  - Remainder in the epilogue, spread over all 256 consumer threads.  The
 //    accumulator goes to a shared-memory block (128 x FT f32) and the
 //    item's row pointers to shared memory (cp.async, issued before the
@@ -132,6 +151,12 @@ constexpr int SW = 128;           // bytes per swizzled row (TMA box width)
 // remainder edges whose indices a producer thread holds at once
 constexpr int EDGE_BATCH = 512;
 constexpr int EDGE_SLOTS = EDGE_BATCH / NP;
+// a walked f32 K chunk's list in the stage's tile slot (ops/bcsr.py
+// _walk_lists): 129 u16 row pointers in WALK_HEAD bytes, then (column in
+// the chunk, f32 bits) int32 pairs
+constexpr int WALK_HEAD = 272;
+static_assert(2 * (BLK + 1) <= WALK_HEAD && WALK_HEAD % UNIT == 0,
+              "row pointers, then 16-byte aligned pairs");
 
 constexpr int pow2_floor(int v) {
   int p = 1;
@@ -408,8 +433,10 @@ template <typename T, int NT>
 __device__ __forceinline__ void produce(
     unsigned char* smem, uint32_t full0, uint32_t empty0,
     const CUtensorMap* map_a, const CUtensorMap* map_x,
-    const int* __restrict__ block_cols, const Item* __restrict__ items,
-    int num_block, int num_base, const int* __restrict__ rem_cols,
+    const int* __restrict__ block_cols, const int* __restrict__ walk_ptr,
+    const unsigned char* __restrict__ walk_data,
+    const Item* __restrict__ items, int num_block, int num_base,
+    const int* __restrict__ rem_cols,
     const float* __restrict__ rem_vals, const T* __restrict__ x, int F,
     int x_vec) {
   using C = Cfg<T, NT>;
@@ -461,6 +488,13 @@ __device__ __forceinline__ void produce(
     for (int t = it.t0; t < it.t1; ++t) {
       const int xrow0 = block_cols[t] * BLK;
       for (int kc = 0; kc < C::CHUNKS; ++kc) {
+        // a walked chunk's list (f32 tiles only) comes in place of its box
+        int w0 = 0, w1 = 0;
+        if constexpr (sizeof(T) == 4)
+          if (pt == 0) {
+            w0 = walk_ptr[C::CHUNKS * t + kc];
+            w1 = walk_ptr[C::CHUNKS * t + kc + 1];
+          }
         mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t a_s = smem0 + stage * C::STAGE_BYTES;
         const uint32_t b_s = a_s + C::A_BYTES;
@@ -478,8 +512,12 @@ __device__ __forceinline__ void produce(
           }
         }
         if (pt == 0) {
-          mbar_arrive_expect_tx(full, C::A_BYTES + (x_vec ? C::B_BYTES : 0));
-          tma_2d(a_s, map_a, kc * C::KC, t * BLK, full);
+          const uint32_t a_bytes = w1 > w0 ? (w1 - w0) * UNIT : C::A_BYTES;
+          mbar_arrive_expect_tx(full, a_bytes + (x_vec ? C::B_BYTES : 0));
+          if (w1 > w0)
+            bulk_copy(a_s, walk_data + (size_t)w0 * UNIT, a_bytes, full);
+          else
+            tma_2d(a_s, map_a, kc * C::KC, t * BLK, full);
           if (x_vec)
 #pragma unroll
             for (int b = 0; b < C::NBOX; ++b)
@@ -693,9 +731,10 @@ __device__ __forceinline__ void rem_stages(
 template <typename T, int NT>
 __device__ __forceinline__ void consume(
     unsigned char* smem, float* cblk, int* rptr, Item* dslots,
-    uint32_t full0, uint32_t empty0, const Item* __restrict__ items,
-    int num_block, int num_base, const int* __restrict__ rem_row_ptr,
-    float* __restrict__ out, int F, int out_vec) {
+    uint32_t full0, uint32_t empty0, const int* __restrict__ walk_ptr,
+    const Item* __restrict__ items, int num_block, int num_base,
+    const int* __restrict__ rem_row_ptr, float* __restrict__ out, int F,
+    int out_vec) {
   using C = Cfg<T, NT>;
   constexpr bool MMA = sizeof(T) == 2;
   constexpr int NACC = MMA ? NT * 4 : C::FT / 2;
@@ -746,6 +785,11 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
     for (int c = 0; c < n_stages; ++c) {
+      // stage c is K chunk c % CHUNKS of tile t0 + c / CHUNKS
+      bool walked = false;
+      if constexpr (!MMA)
+        walked = walk_ptr[C::CHUNKS * it.t0 + c + 1] >
+                 walk_ptr[C::CHUNKS * it.t0 + c];
       mbar_wait(full0 + 8 * stage, phase);
       const uint32_t a_s = smem0 + stage * C::STAGE_BYTES;
       const uint32_t b_s = a_s + C::A_BYTES;
@@ -772,6 +816,50 @@ __device__ __forceinline__ void consume(
                           (((((n % 64) >> 3) ^ lrow) & 7) << 4),
                       b0, b1);
             mma_bf16(&acc[4 * (NT - 1)], a0, a1, a2, a3, b0, b1);
+          }
+        }
+      } else if (walked) {
+        // the tile slot holds the chunk's row pointers and its nonzeros in
+        // (row, column) order: each lane walks the nonzeros of its R rows
+        // in turn, one (column, value) pair and U float4s of x for 4U FMAs
+        // each.  Each output's chain is the dense loop's, k ascending, less
+        // the terms whose tile value is zero
+        using M = F32Tile<C::FT>;
+        const int fg = lane % M::FG, rg = lane / M::FG;
+        const unsigned char* st = smem + stage * C::STAGE_BYTES;
+        const uint16_t* wrp = reinterpret_cast<const uint16_t*>(st);
+        const int2* pairs = reinterpret_cast<const int2*>(st + WALK_HEAD);
+        const unsigned char* xs = st + C::A_BYTES;
+        int ub[M::U];
+#pragma unroll
+        for (int m = 0; m < M::U; ++m) {
+          const int q = fg + M::FG * m;
+          ub[m] = (q >> 3) * C::B_BOX + ((q & 7) << 4);
+        }
+        int e[M::R], n[M::R];
+#pragma unroll
+        for (int i = 0; i < M::R; ++i) {
+          const int r = r0 + rg + M::RG * i;
+          e[i] = wrp[r];
+          n[i] = wrp[r + 1];
+        }
+#pragma unroll
+        for (int i = 0; i < M::R; ++i) {
+#pragma unroll 2
+          for (int p = e[i]; p < n[i]; ++p) {
+            const int2 q = pairs[p];
+            const float v = __int_as_float(q.y);
+            const int k = q.x;
+#pragma unroll
+            for (int m = 0; m < M::U; ++m) {
+              const float4 b = *reinterpret_cast<const float4*>(
+                  xs + ((ub[m] ^ ((k & 7) << 4)) + k * SW));
+              float* d = &acc[(i * M::U + m) * 4];
+              d[0] = fmaf(v, b.x, d[0]);
+              d[1] = fmaf(v, b.y, d[1]);
+              d[2] = fmaf(v, b.z, d[2]);
+              d[3] = fmaf(v, b.w, d[3]);
+            }
           }
         }
       } else {
@@ -896,6 +984,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 hybrid_spmm_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_x,
                    const int* __restrict__ block_cols,
+                   const int* __restrict__ walk_ptr,
+                   const unsigned char* __restrict__ walk_data,
                    const Item* __restrict__ items, int num_block,
                    int num_base, const int* __restrict__ rem_row_ptr,
                    const int* __restrict__ rem_cols,
@@ -921,10 +1011,11 @@ hybrid_spmm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
   if ((threadIdx.x >> 5) >= CONSUMER_WARPS)
-    produce<T, NT>(smem, full0, empty0, &map_a, &map_x, block_cols, items,
-                   num_block, num_base, rem_cols, rem_vals, x, F, x_vec);
+    produce<T, NT>(smem, full0, empty0, &map_a, &map_x, block_cols,
+                   walk_ptr, walk_data, items, num_block, num_base, rem_cols,
+                   rem_vals, x, F, x_vec);
   else
-    consume<T, NT>(smem, cblk, rptr, dslots, full0, empty0, items,
+    consume<T, NT>(smem, cblk, rptr, dslots, full0, empty0, walk_ptr, items,
                    num_block, num_base, rem_row_ptr, out, F, out_vec);
 }
 
@@ -971,7 +1062,8 @@ bool encode(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
 
 template <typename T, int NT>
 int launch(const void* blocks, int num_tiles, const int* block_cols,
-           const int* items, int num_block, int num_base,
+           const int* walk_ptr, const void* walk_data, const int* items,
+           int num_block, int num_base,
            const int* rem_row_ptr, const int* rem_cols, const float* rem_vals,
            const void* x, int num_cols, float* out, int F, cudaStream_t s) {
   using C = Cfg<T, NT>;
@@ -1005,7 +1097,9 @@ int launch(const void* blocks, int num_tiles, const int* block_cols,
       (x_vec && !encode<T>(&map_x, x, num_cols, F, C::KC)))
     return (int)cudaErrorInvalidValue;
   kern<<<items_all < max_ctas ? items_all : max_ctas, THREADS, C::SMEM, s>>>(
-      map_a, map_x, block_cols, reinterpret_cast<const Item*>(items),
+      map_a, map_x, block_cols, walk_ptr,
+      static_cast<const unsigned char*>(walk_data),
+      reinterpret_cast<const Item*>(items),
       num_block, num_base, rem_row_ptr, rem_cols, rem_vals,
       static_cast<const T*>(x), out, F, x_vec, out_vec);
   return (int)cudaGetLastError();
@@ -1027,15 +1121,17 @@ int pick_nt(int width) {
 
 template <typename T>
 int dispatch(int nt, const void* blocks, int num_tiles, const int* block_cols,
-             const int* items, int num_block, int num_base,
+             const int* walk_ptr, const void* walk_data, const int* items,
+             int num_block, int num_base,
              const int* rem_row_ptr, const int* rem_cols,
              const float* rem_vals, const void* x, int num_cols, float* out,
              int F, cudaStream_t s) {
 #define PGTT_NT(N)                                                       \
   case N:                                                                \
-    return launch<T, N>(blocks, num_tiles, block_cols, items, num_block, \
-                        num_base, rem_row_ptr, rem_cols, rem_vals, x,    \
-                        num_cols, out, F, s);
+    return launch<T, N>(blocks, num_tiles, block_cols, walk_ptr,         \
+                        walk_data, items, num_block, num_base,           \
+                        rem_row_ptr, rem_cols, rem_vals, x, num_cols,    \
+                        out, F, s);
   switch (nt) {
     PGTT_NT(1)
     PGTT_NT(2)
@@ -1055,7 +1151,9 @@ int dispatch(int nt, const void* blocks, int num_tiles, const int* block_cols,
 extern "C" {
 
 // blocks (num_tiles >= nnzb, 128, 128) f32 or bf16 (is_bf16), the
-// row-sorted tiles; block_cols (nnzb) int32; items (num_base, 8) int32, the
+// row-sorted tiles; block_cols (nnzb) int32; walk_ptr (nnzb * 4 + 1) int32
+// and walk_data, the walked f32 tiles' nonzero lists (16-byte units; a
+// dense tile's are empty; not read for bf16); items (num_base, 8) int32, the
 // item list's descriptors (row0, rows, first tile, end tile, first
 // remainder edge, end edge, 0, 0; 16-byte aligned), the first num_block of
 // them row blocks, the rest remainder-only tasks; rem_row_ptr (num_rows + 1)
@@ -1064,7 +1162,8 @@ extern "C" {
 // tiles' dtype; out (num_rows, F) f32, fully written (the items cover every
 // row).
 int pgtt_hybrid_spmm(const void* blocks, int num_tiles, int is_bf16,
-                     const int* block_cols, const int* items, int num_block,
+                     const int* block_cols, const int* walk_ptr,
+                     const void* walk_data, const int* items, int num_block,
                      int num_base, const int* rem_row_ptr,
                      const int* rem_cols, const float* rem_vals,
                      const void* x, int num_cols, float* out, int F,
@@ -1075,12 +1174,14 @@ int pgtt_hybrid_spmm(const void* blocks, int num_tiles, int is_bf16,
   const int nft = (F + max_ft - 1) / max_ft;
   const int nt = pick_nt((F + nft - 1) / nft);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(nt, blocks, num_tiles, block_cols, items,
-                                   num_block, num_base, rem_row_ptr,
+    return dispatch<__nv_bfloat16>(nt, blocks, num_tiles, block_cols,
+                                   walk_ptr, walk_data, items, num_block,
+                                   num_base, rem_row_ptr,
                                    rem_cols, rem_vals, x, num_cols, out, F,
                                    s);
-  return dispatch<float>(nt, blocks, num_tiles, block_cols, items, num_block,
-                         num_base, rem_row_ptr, rem_cols, rem_vals, x,
+  return dispatch<float>(nt, blocks, num_tiles, block_cols, walk_ptr,
+                         walk_data, items, num_block, num_base, rem_row_ptr,
+                         rem_cols, rem_vals, x,
                          num_cols, out, F, s);
 }
 

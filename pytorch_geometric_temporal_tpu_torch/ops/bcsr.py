@@ -16,7 +16,9 @@ One fused kernel applies one half of the operator
 - **hybrid SpMM** (:func:`hybrid_spmm`): ``out = tiles @ x + remainder``,
   the tile products of each row block and then each row's remainder edges
   in ascending column order, summed in f32 and written once; rows without
-  tiles or edges come out zero.
+  tiles or edges come out zero.  An f32 tile of few nonzeros is walked
+  through its nonzero lists (:func:`_walk_lists`) instead of multiplied
+  densely, with the same bits for finite x.
 
 The port's first two kernels (``csrc/bcsr_kernels.cu``) stay beside it as
 its baseline, off the main path:
@@ -89,6 +91,11 @@ class _BCSRHalf:
     remainder-only tasks, which cut the other row blocks into about equal
     remainder edges (``block_rbs`` and ``rem_tasks`` read them back).
 
+    The walked tiles' nonzeros (f32 tiles only, :func:`_walk_lists`):
+    ``walk_ptr`` (nnzb·4 + 1,) int32 bounds, in 16-byte units of
+    ``walk_data``, of each (tile, K chunk)'s list — empty for a dense tile
+    — and ``num_walked`` the tiles that have lists.
+
     Index tensors are int32, the kernels' type.  ``_host`` keeps the numpy
     arrays of the JAX package's ``_host`` dict (``blocks`` before the cast
     to the tile dtype, the remainder padded to ``rem_k``-edge chunks).
@@ -107,11 +114,14 @@ class _BCSRHalf:
     rem_row_vals: torch.Tensor
     rem_row_ptr: torch.Tensor
     items: torch.Tensor
+    walk_ptr: torch.Tensor
+    walk_data: torch.Tensor
     num_block_items: int
     num_rows: int
     num_cols: int
     nnzb: int
     num_rem: int
+    num_walked: int
     pack: int = 1
 
     @property
@@ -314,6 +324,23 @@ F32_MAX_FT = 96
 # most (a longer row is a task of its own): eight to sixteen remainder
 # stages, few enough items that a task's two barriers stay small
 REM_TASK_EDGES = 1024
+# An f32 tile of at most this many nonzeros (22% full) is walked: the fused
+# kernel multiplies its nonzeros one by one against the staged x rows
+# instead of the dense 128 x 128 block (:func:`_walk_lists`).  Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W (tools/walk_cut_sweep.py: 88 row blocks
+# of one tile, cold L2): the dense path takes 21 us at F=96 and 33 us at
+# F=256 whatever the fill; the walked one, fitted over 128 to 7,680
+# nonzeros a tile placed uniformly, 13.0 and 17.4 us plus 2.1 and 4.1 us
+# for each 1,024, crossing the dense one at 4,016 and 3,950 nonzeros (in
+# a band near the diagonal: 4,759 and 4,582).  The cut sits under each.
+F32_WALK_MAX_NNZ = 3584
+# A walked tile's K chunk (32 columns of f32) travels through the stage's
+# 16 KB tile slot: its 129 row pointers (u16, padded to WALK_HEAD bytes),
+# then (column in the chunk, f32 value) pairs of 8 bytes, so a chunk holds
+# at most WALK_CHUNK_NNZ nonzeros; a tile with a fuller chunk stays dense.
+WALK_KC = 32
+WALK_HEAD = 272
+WALK_CHUNK_NNZ = (BLOCK * 128 - WALK_HEAD) // 8
 
 
 def _costs(costs) -> KernelCosts:
@@ -695,6 +722,59 @@ def _kernel_items(tile_cnt, rem_row_ptr, block=BLOCK):
             np.asarray(tasks, np.int32).reshape(-1, 2))
 
 
+def _walk_lists(tiles, block_of_edge, rows, cols, block=BLOCK):
+    """The nonzeros of the f32 tiles that the fused kernel walks:
+    ``(walk_ptr, walk_data, walked)``.
+
+    A tile is walked when it holds at most :data:`F32_WALK_MAX_NNZ`
+    nonzeros and each of its K chunks (``WALK_KC`` columns) at most
+    :data:`WALK_CHUNK_NNZ`; ``walked`` (nnzb,) bool marks them.  The
+    nonzeros are read from the filled ``tiles`` at the edges' positions
+    (``tiles[t][row % block, col % block]``), so they are the tile's values
+    to the bit.  Each (tile t, chunk kc) of a walked tile has a list
+    ``walk_data[walk_ptr[4t + kc]:walk_ptr[4t + kc + 1]]`` (16-byte units;
+    ``walk_data`` is int32, four words a unit): 129 u16 pointers, a row's
+    nonzeros at [p[row], p[row + 1]), padded to ``WALK_HEAD`` bytes, then
+    the nonzeros in (row, column) order as (column in the chunk, f32 bits)
+    int32 pairs, padded to a whole unit.  A dense tile's lists are empty."""
+    nnzb, cells = len(tiles), block * block
+    chunks = block // WALK_KC
+    flat = np.unique(np.asarray(block_of_edge, np.int64) * cells
+                     + (np.asarray(rows, np.int64) % block) * block
+                     + np.asarray(cols, np.int64) % block)
+    vals = tiles.reshape(-1)[flat]
+    flat, vals = flat[vals != 0], vals[vals != 0]
+    tile, row, col = flat // cells, flat // block % block, flat % block
+    seg = tile * chunks + col // WALK_KC
+    per_seg = np.bincount(seg, minlength=nnzb * chunks).reshape(nnzb, chunks)
+    walked = ((per_seg.sum(1) <= F32_WALK_MAX_NNZ)
+              & (per_seg.max(1, initial=0) <= WALK_CHUNK_NNZ))
+    head = WALK_HEAD // 16
+    units = np.where(np.repeat(walked, chunks),
+                     head + (per_seg.reshape(-1) + 1) // 2, 0)
+    walk_ptr = np.concatenate([[0], np.cumsum(units)]).astype(np.int32)
+    data = np.zeros(int(walk_ptr[-1]) * 4, np.int32)
+    segs = np.flatnonzero(units)
+    # row pointers: a walked segment's nonzeros a row, summed
+    on = walked[tile]
+    tile, row, col, seg, vals = (a[on] for a in (tile, row, col, seg, vals))
+    per_row = np.bincount(seg * block + row,
+                          minlength=nnzb * chunks * block)
+    ptr = np.zeros((len(segs), block + 1), np.int64)
+    ptr[:, 1:] = np.cumsum(per_row.reshape(-1, block)[segs], 1)
+    data16 = data.view(np.uint16)
+    data16[walk_ptr[segs][:, None] * 8 + np.arange(block + 1)] = ptr
+    # the nonzeros by (segment, row, column)
+    order = np.lexsort((col, row, seg))
+    seg, col, vals = seg[order], col[order], vals[order]
+    first = np.concatenate([[0], np.cumsum(np.bincount(
+        seg, minlength=nnzb * chunks))])[seg]
+    word = walk_ptr[seg] * 4 + head * 4 + 2 * (np.arange(len(seg)) - first)
+    data[word] = col % WALK_KC
+    data[word + 1] = vals.astype(np.float32).view(np.int32)
+    return walk_ptr, data, walked
+
+
 def _build_half(rows, cols, vals, n, block, dtype=None,
                 min_block_edges: int = 0, pack="auto",
                 rem_k: int = REM_K, device="cpu") -> _BCSRHalf:
@@ -735,6 +815,12 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
     tiles = bcsr_fill(cols, rows, vals, block_of_edge, block, max(nnzb, 1))
     if nnzb == 0:
         tiles = tiles[:0]
+    if dtype in (None, torch.float32):
+        walk_ptr, walk_data, walked = _walk_lists(tiles, block_of_edge, rows,
+                                                  cols, block)
+    else:  # bf16 tiles multiply on the tensor cores, every one dense
+        walk_ptr = np.zeros(nnzb * (block // WALK_KC) + 1, np.int32)
+        walk_data, walked = np.zeros(0, np.int32), np.zeros(0, bool)
     # trailing all-zero tile (the JAX package's dummy-slot target)
     blocks = np.concatenate(
         [tiles, np.zeros((1, block, block), tiles.dtype)], axis=0)
@@ -788,11 +874,14 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         rem_row_vals=put(rem_vals[by_row], torch.float32),
         rem_row_ptr=put(rem_row_ptr),
         items=put(items),
+        walk_ptr=put(walk_ptr),
+        walk_data=put(walk_data),
         num_block_items=len(block_rbs),
         num_rows=n_pad,
         num_cols=n_pad,
         nnzb=int(nnzb),
         num_rem=num_rem,
+        num_walked=int(walked.sum()),
         pack=int(pack),
     )
     object.__setattr__(half, "_host", host)
@@ -972,23 +1061,31 @@ def hybrid_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((half.num_rows, f), dtype=torch.float32,
                       device=x.device)
     if f:
+        bf16 = _is_bf16(half.blocks.dtype)
         _launch(hybrid_spmm, "pgtt_hybrid_spmm", x, half.blocks.data_ptr(),
-                half.blocks.shape[0], int(_is_bf16(half.blocks.dtype)),
-                half.block_cols.data_ptr(), half.items.data_ptr(),
-                half.num_block_items, half.items.shape[0],
-                half.rem_row_ptr.data_ptr(), half.rem_row_cols.data_ptr(),
-                half.rem_row_vals.data_ptr(), x.data_ptr(), half.num_cols,
-                out.data_ptr(), f)
+                half.blocks.shape[0], int(bf16), half.block_cols.data_ptr(),
+                half.walk_ptr.data_ptr(), half.walk_data.data_ptr(),
+                half.items.data_ptr(), half.num_block_items,
+                half.items.shape[0], half.rem_row_ptr.data_ptr(),
+                half.rem_row_cols.data_ptr(), half.rem_row_vals.data_ptr(),
+                x.data_ptr(), half.num_cols, out.data_ptr(), f)
+        nft = _fused_shape(f, bf16)[1]
+        hybrid_spmm.walked_tiles += half.num_walked * nft
+        hybrid_spmm.dense_tiles += (half.nnzb - half.num_walked) * nft
     return out
 
 
 hybrid_spmm.launches = 0
+# the fused kernel's (tile, feature tile) products, walked and dense
+hybrid_spmm.walked_tiles = 0
+hybrid_spmm.dense_tiles = 0
 
 
 def reset_launch_counts() -> None:
     hybrid_spmm.launches = 0
     tile_spmm.launches = 0
     rem_scatter_.launches = 0
+    hybrid_spmm.walked_tiles = hybrid_spmm.dense_tiles = 0
 
 
 def launch_counts() -> tuple:
@@ -1006,6 +1103,23 @@ def add_launch_counts(delta) -> None:
 
 
 _counters.register("bcsr_launches", launch_counts, add_launch_counts)
+
+
+def tile_counts() -> tuple:
+    """The fused kernel's (walked, dense) tile × feature-tile products over
+    its launches: each launch adds its half's walked and dense tiles times
+    its feature tiles."""
+    return hybrid_spmm.walked_tiles, hybrid_spmm.dense_tiles
+
+
+def add_tile_counts(delta) -> None:
+    """Add ``delta`` (a :func:`tile_counts` tuple), as
+    :func:`add_launch_counts` does for a capture and its replays."""
+    hybrid_spmm.walked_tiles += delta[0]
+    hybrid_spmm.dense_tiles += delta[1]
+
+
+_counters.register("bcsr_tiles", tile_counts, add_tile_counts)
 
 
 def bcsr_matmul(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:

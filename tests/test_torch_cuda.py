@@ -1540,3 +1540,130 @@ def test_degrees_on_the_card_are_the_same_bits_every_run(cuda):
         a, b, host = (getattr(g, name)() for g in graphs)
         assert torch.equal(a, b)
         torch.testing.assert_close(a.cpu(), host, rtol=1e-6, atol=0)
+
+
+# --- walked f32 tiles (ops/bcsr.py _walk_lists) ---------------------------
+# The fused kernel multiplies a sparse f32 tile by walking its nonzeros.
+# Each output is the dense path's fmaf chain less the terms whose tile value
+# is zero, so for finite x the two paths give the same bits: each operator
+# is held against its twin built with every tile dense.
+
+
+def walk_case(name):
+    """(edge_index, weights, n) of the walked-tile operators: a PeMS-like
+    band (6 edges a node within ±8, every tile walked), the same with
+    scrambled ids (most edges in the remainder) and a band beside a first
+    tile 40% full (dense)."""
+    rng = np.random.default_rng(19)
+    n = 6000
+    s = np.repeat(np.arange(n), 6)
+    r = np.clip(s + rng.integers(-8, 9, s.size), 0, n - 1)
+    if name == "scrambled":
+        sigma = rng.permutation(n)
+        s, r = sigma[s], sigma[r]
+    elif name == "mixed":
+        full = np.flatnonzero(rng.random(128 * 128) < 0.4)
+        s = np.concatenate([s, full % 128])
+        r = np.concatenate([r, full // 128])
+    return (np.stack([s, r]), rng.uniform(0.1, 1.0, s.size).astype(
+        np.float32), n)
+
+
+def walked_and_dense(cuda, monkeypatch, name):
+    ei, w, n = walk_case(name)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    mat = bcsr.BCSRMatrix.from_graph(g)
+    with monkeypatch.context() as m:
+        m.setattr(bcsr, "F32_WALK_MAX_NNZ", -1)
+        dense = bcsr.BCSRMatrix.from_graph(g)
+    assert dense.fwd.num_walked == dense.bwd.num_walked == 0
+    return mat, dense
+
+
+@pytest.mark.parametrize("name", ["band", "scrambled", "mixed"])
+@pytest.mark.parametrize("f", [4, 13, 24, 256, 768, 4224])
+def test_walked_tiles_give_the_dense_paths_bits(cuda, monkeypatch, name, f):
+    """Forward on each half and through ``_BCSRSpmm`` (the backward runs
+    the transposed half): the same bits as the all-dense operator, and the
+    plain version within 1e-4 of the output's scale."""
+    mat, dense = walked_and_dense(cuda, monkeypatch, name)
+    assert mat.fwd.num_walked == mat.fwd.nnzb - (name == "mixed")
+    if name == "scrambled":
+        assert mat.fwd.num_rem > 5 * mat.fwd.nnzb
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    for half, twin in ((mat.fwd, dense.fwd), (mat.bwd, dense.bwd)):
+        x = torch.randn(half.num_cols, f, device=cuda, generator=gen)
+        out = bcsr.hybrid_spmm(half, x)
+        assert torch.equal(out.view(torch.int32),
+                           bcsr.hybrid_spmm(twin, x).view(torch.int32))
+        ref = bcsr.hybrid_spmm_plain(half, x)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * max(
+            1.0, float(ref.abs().max())))
+    x = torch.randn(2, mat.num_nodes, -(-f // 2), device=cuda, generator=gen)
+    grads = []
+    for m in (mat, dense):
+        xr = x.clone().requires_grad_(True)
+        out = bcsr.bcsr_spmm(m, xr)
+        out.backward(torch.cos(out))
+        grads.append((out.detach(), xr.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_a_tile_above_the_cut_takes_the_dense_path(cuda, monkeypatch):
+    """The mixed operator's full tile is dense, its band tiles walked; with
+    the cut moved under the band tiles' nonzeros every tile is dense.  The
+    launches count their (tile, feature tile) products by path."""
+    mat, _ = walked_and_dense(cuda, monkeypatch, "mixed")
+    half = mat.fwd
+    full = int(torch.count_nonzero(half.blocks[0]))
+    assert full > bcsr.F32_WALK_MAX_NNZ
+    assert not bool(half.walk_ptr[4] > half.walk_ptr[0])   # tile 0 dense
+    x = torch.randn(half.num_cols, 200, device=cuda)
+    bcsr.reset_launch_counts()
+    out = bcsr.hybrid_spmm(half, x)
+    ref = bcsr.hybrid_spmm_plain(half, x)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    nft = bcsr._fused_shape(200, False)[1]
+    assert bcsr.tile_counts() == ((half.nnzb - 1) * nft, nft)
+    ei, w, n = walk_case("mixed")
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    band = int(torch.count_nonzero(half.blocks[1:half.nnzb], (1, 2)).max())
+    monkeypatch.setattr(bcsr, "F32_WALK_MAX_NNZ", band - 1)
+    lowered = bcsr.BCSRMatrix.from_graph(g).fwd
+    assert lowered.num_walked < half.num_walked
+    assert torch.equal(bcsr.hybrid_spmm(lowered, x).view(torch.int32),
+                       out.view(torch.int32))
+    bcsr.reset_launch_counts()
+
+
+def test_a_captured_step_counts_the_eager_steps_tiles(cuda):
+    """DCRNNSeq over f32 BCSR operators: each captured train step (warm,
+    capture, replays) adds to ``bcsr_tiles`` what an eager step adds."""
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    ei, w, n = walk_case("band")
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    ops = DiffusionOperators.from_graph(g, bcsr=True)
+    assert ops.p_fwd.fwd.num_walked == ops.p_fwd.fwd.nnzb > 0
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.normal(size=(2, 3, n, 4)).astype(
+        np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=(2, 3, n, 8)).astype(
+        np.float32)).to(cuda)
+    deltas = {}
+    for capture in (False, True):
+        model = DCRNNSeq(4, 8, 2, generator=torch.Generator().manual_seed(0))
+        tr = BatchTrainer(model, lambda xb, m=model: m(xb, ops), lr=1e-2,
+                          capture=capture)
+        deltas[capture] = []
+        for _ in range(4):
+            before = bcsr.tile_counts()
+            tr.train_step(x, y)
+            torch.cuda.synchronize()
+            deltas[capture].append(tuple(
+                a - b for a, b in zip(bcsr.tile_counts(), before)))
+    assert tr.captures == 1 and tr.replays == 3
+    assert deltas[False][0][0] > 0 and deltas[False][0][1] == 0
+    assert deltas[True] == deltas[False] == [deltas[False][0]] * 4
