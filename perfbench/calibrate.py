@@ -48,14 +48,13 @@ def readings_for(cell, seed: int, device, controls: bool) -> dict:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     p0 = record["params0"]
-    want = check.reference_run(cell.config, inputs, starts, p0, device)
+    want = check.reference_run(cell, inputs, starts, p0, device)
     out = {"seed": seed,
            "program": check.readings(record, want, p0, inputs, starts)}
     if controls:
         for name, kw in (("control", {"precision": "tf32"}),
                          ("half_batch", {"batch_fraction": 0.5})):
-            got = check.reference_run(cell.config, inputs, starts, p0, device,
-                                      **kw)
+            got = check.reference_run(cell, inputs, starts, p0, device, **kw)
             out[name] = check.readings(got, want, p0, inputs, starts)
         same = dict(want, params3=p0)
         out["unchanged"] = check.readings(same, want, p0, inputs, starts)

@@ -5,10 +5,11 @@ three steps, through the window's own call and feed, and keeps what they
 produced: the windows the loader gathered, each step's loss, Adam's first
 moment after step 1 (the first gradient as the optimizer got it, times
 1 − β1) and the parameters after step 3.  Once the window has closed and
-the program's state is freed, the reference (``reference/dcrnn.py``) cuts
-the same windows from the benchmark's own series, rebuilds the operators
-from the edge list and takes the same three steps from the same initial
-parameters.  The numbers compared:
+the program's state is freed, the reference of the configuration's family
+(``reference/<family>.py``) cuts the same windows from the benchmark's own
+series, rebuilds the operators from the edge list and takes the same three
+steps from the same initial parameters, with TF32 off.  The numbers
+compared:
 
 - ``windows``: the largest |program − reference| over the three batches'
   inputs and targets (exact: limit 0), and every start inside the train
@@ -24,13 +25,12 @@ parameters.  The numbers compared:
 
 from __future__ import annotations
 
+import contextlib
 import math
 import statistics
 
 import numpy as np
 import torch
-
-from .reference import dcrnn as ref
 
 NAMES = ("windows", "loss", "grad", "step")
 BETA1 = 0.9
@@ -54,13 +54,27 @@ def norm_gap(got: dict, want: dict, keep=None) -> float:
     return worst
 
 
-def reference_run(config: dict, inputs, starts, params0: dict, device,
+@contextlib.contextmanager
+def _tf32_off():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def reference_run(cell, inputs, starts, params0: dict, device,
                   precision: str = "float32", batch_fraction: float = 1.0):
     """The reference's three steps over the windows at ``starts`` from
     ``params0``: {"windows", "losses", "grad1", "params3"}.  ``precision``
     and ``batch_fraction`` make the control (the reference computed in
     TF32) and a planted fault (each step's loss over the first part of
     its batch); the benchmark's runs use neither."""
+    ref, config = cell.family.REFERENCE, cell.config
     model, recipe = config["model"], config["recipe"]
     lags = int(recipe["seq_len"])
     # the windows are cut on the host, from the benchmark's own series
@@ -76,9 +90,10 @@ def reference_run(config: dict, inputs, starts, params0: dict, device,
         keep = max(1, int(round(x.shape[0] * batch_fraction)))
         batches.append((x[:keep], y[:keep]))
     params = {k: v.to(device) for k, v in params0.items()}
-    losses, first, last = ref.train(
-        params, ops, batches, means, stds, model, float(recipe["lr"]),
-        int(config["reference"]["block"]), precision)
+    with _tf32_off():
+        losses, first, last = ref.train(
+            params, ops, batches, means, stds, model, float(recipe["lr"]),
+            int(config["reference"]["block"]), precision)
     return {"windows": wins, "losses": losses, "grad1": first,
             "params3": last}
 

@@ -1,7 +1,7 @@
 """The yardstick's arithmetic: the card's peaks, the least time of one
-aggregation (``need_bound``), and the operations a DCRNN step needs,
-all counted from shapes and from the cell's graph, never from what the
-program stored or launched.
+aggregation (``need_bound``), and the operations a DCRNN step needs (its
+family, ``families/dcrnn.py``, hands them on), all counted from shapes and
+from the cell's graph, never from what the program stored or launched.
 
 Peaks: NVIDIA's data sheet for the H100 SXM part, dense rates, at the full
 700 W limit.  The configurations state f32 with TF32 off, so their
@@ -92,14 +92,19 @@ def dcrnn_work(model: dict, seq_len: int, batch: int, num_nodes: int,
     return flops, hops
 
 
-def hops_bound_s(stats: dict, hops) -> float:
-    n = stats["num_nodes"]
+def hops_bound_s(operators: dict, hops) -> float:
+    """Σ ``need_bound_s`` of the ``hops`` [(operator name, is the
+    gradient's, width)] on the ``operators`` {name: {"nnz", "shape",
+    "x_rows"}}.  A gradient's product is with the transpose: it writes one
+    row for each of the operator's columns and reads the x rows that
+    ``x_rows`` counts second."""
     total = 0.0
-    for d, grad, width in hops:
-        x_rows = stats[d][1 if grad else 0]
-        total += need_bound_s(stats["nnz"], x_rows, n, width)
+    for name, grad, width in hops:
+        op = operators[name]
+        total += need_bound_s(op["nnz"], op["x_rows"][1 if grad else 0],
+                              op["shape"][1 if grad else 0], width)
     return total
 
 
-def hops_flops(stats: dict, hops) -> int:
-    return sum(2 * stats["nnz"] * width for _, _, width in hops)
+def hops_flops(operators: dict, hops) -> int:
+    return sum(2 * operators[name]["nnz"] * width for name, _, width in hops)

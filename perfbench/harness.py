@@ -3,8 +3,9 @@ the comparison that decides ``correct``, and the result.
 
 The window drives the program's own path: ``make_index_loaders(...,
 shuffle=True)`` → ``IndexLoader`` → ``DeviceWindower`` → ``BatchTrainer``
-(``train_step`` a batch, captured on the card) → ``DCRNNSeq`` →
-``diffusion_basis`` → ``spmm``; ``eval_step`` over the validation loader
+(``train_step`` a batch, captured on the card) → the model that the
+configuration's family builds (``families/<family>.py``), whose graph
+aggregations run through ``spmm``; ``eval_step`` over the validation loader
 at each epoch's end, then one host sync, where the epoch's mean losses are
 read, as ``BatchTrainer.fit`` does.  The window runs train steps, with the
 epoch ends that fall among them, until ``--seconds`` have passed; it ends
@@ -26,15 +27,11 @@ import time
 import numpy as np
 import torch
 
-from . import check, costs, manifest, trace
+from . import check, manifest, trace
 from . import traffic as traffic_lib
 
 # top-level module names the process may not hold once the window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pytorch_geometric_temporal_tpu")
-# the program's parameter names (by suffix) -> the reference's
-PARAM_NAMES = {"cell.w_zr": "w_zr", "cell.b_zr": "b_zr", "cell.w_h": "w_h",
-               "cell.b_h": "b_h", "readout.kernel": "w_out",
-               "readout.bias": "b_out"}
 FIRST_STEPS = 3
 # the traced sub-window after the window: train steps for this long
 TRACE_SECONDS = 3.0
@@ -103,19 +100,6 @@ class _Recorder:
         return self.windower(starts)
 
 
-class _Forecaster(torch.nn.Module):
-    """``DCRNNSeq``'s hidden states, each through a ``Dense`` readout when
-    the configuration has one."""
-
-    def __init__(self, seq, readout):
-        super().__init__()
-        self.seq, self.readout = seq, readout
-
-    def forward(self, x, graph):
-        h = self.seq(x, graph)
-        return h if self.readout is None else self.readout(h)
-
-
 @dataclasses.dataclass
 class Program:
     trainer: object
@@ -128,19 +112,17 @@ class Program:
     captured: bool          # train_step and eval_step replay CUDA graphs
 
 
-def build_program(config: dict, inputs, seed: int, device,
+def build_program(family, config: dict, inputs, seed: int, device,
                   capture=None) -> Program:
-    """The program on the cell's inputs; ``capture`` is ``BatchTrainer``'s
-    (None: captured on the card)."""
+    """The program on the cell's inputs, its model from ``family``;
+    ``capture`` is ``BatchTrainer``'s (None: captured on the card)."""
     from pytorch_geometric_temporal_tpu_torch.data._common import (
         make_index_loaders)
-    from pytorch_geometric_temporal_tpu_torch.models import DCRNNSeq
-    from pytorch_geometric_temporal_tpu_torch.models._cells import Dense
     from pytorch_geometric_temporal_tpu_torch.ops import Graph
     from pytorch_geometric_temporal_tpu_torch.train import (
-        BatchTrainer, ZScoreScaler, masked_mae_loss)
+        BatchTrainer, ZScoreScaler)
 
-    m, r = config["model"], config["recipe"]
+    r = config["recipe"]
     graph = Graph.from_edge_index(
         np.stack([inputs.senders, inputs.receivers]), inputs.weights,
         num_nodes=inputs.num_nodes, device=device)
@@ -154,38 +136,17 @@ def build_program(config: dict, inputs, seed: int, device,
     # the port's initializers draw on the CPU from a CPU generator
     gen = torch.Generator().manual_seed(
         int(np.random.SeedSequence([int(seed), 1]).generate_state(1)[0]))
-    seq = DCRNNSeq(int(m["input_dim"]), int(m["rnn_units"]),
-                   int(m["basis_terms"]), device=device, generator=gen)
-    out = m.get("output_dim")
-    readout = (Dense(int(m["rnn_units"]), int(out), device=device,
-                     generator=gen) if out else None)
-    model = _Forecaster(seq, readout)
+    model = family.build(config, inputs, graph, device, gen)
     _mark("model")
     scaler = ZScoreScaler(mean=torch.tensor(inputs.means, device=device),
                           std=torch.tensor(inputs.stds, device=device))
-    loss_fn = None
-    if out and int(out) < inputs.series.shape[-1]:
-        # the loss is over the first ``out`` features (speed), as the
-        # configuration's published output_dim has it
-        part = ZScoreScaler(mean=scaler.mean[:int(out)],
-                            std=scaler.std[:int(out)])
-
-        def loss_fn(pred, target):
-            return masked_mae_loss(part.inverse(pred),
-                                   part.inverse(target[..., :int(out)]))
-    trainer = BatchTrainer(model, lambda xb: model(xb, graph),
-                           lr=float(r["lr"]), loss_fn=loss_fn, scaler=scaler,
+    trainer = BatchTrainer(model.module, model.forward, lr=float(r["lr"]),
+                           loss_fn=model.loss(scaler), scaler=scaler,
                            device=device, capture=capture)
-    names = {}
-    for name, _ in model.named_parameters():
-        hit = [v for k, v in PARAM_NAMES.items() if name.endswith(k)]
-        if len(hit) != 1:
-            raise RuntimeError(f"parameter {name!r} has no reference name")
-        names[name] = hit[0]
     dev = torch.device(device)
     captured = dev.type == "cuda" and capture is not False
-    return Program(trainer, model, train, val, recorder, names, dev,
-                   captured)
+    return Program(trainer, model.module, train, val, recorder, model.names,
+                   dev, captured)
 
 
 class _FirstSteps:
@@ -344,7 +305,8 @@ class Run:
     fetch_ms: list                     # the window's host spans
     step_host_ms: list
     step_ms: list                      # the window's steps (CUDA events)
-    graph: dict                        # costs.operator_stats
+    family: object                     # families/<family>.py: work
+    operators: dict                    # the family's operators(inputs)
 
 
 def _percentile(values, q):
@@ -371,7 +333,7 @@ def set_up(cell: manifest.Cell, seed: int, device):
     inputs = traffic_lib.make(cell.config, cell.traffic, seed, device)
     _mark("inputs drawn")
     capture = cell.traffic.get("capture")
-    prog = build_program(cell.config, inputs, seed, device,
+    prog = build_program(cell.family, cell.config, inputs, seed, device,
                          None if capture is None else bool(capture))
     _mark("program built")
     first = _FirstSteps(prog)
@@ -441,22 +403,21 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace_on: bool,
         f"{window_s:.3f} s; epoch ends at [{ends}] s; epoch losses (train, "
         f"val) {log.epochs}")
 
-    graph_stats = costs.operator_stats(inputs.senders, inputs.receivers,
-                                       inputs.num_nodes)
+    operators = cell.family.operators(inputs)
     # the program's state goes before the reference runs
     del prog, loop, log.losses
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    want = check.reference_run(config, inputs, starts, record["params0"],
+    want = check.reference_run(cell, inputs, starts, record["params0"],
                                device)
     values = check.readings(record, want, record["params0"], inputs, starts)
     correct, checks = check.judge(values, config["limits"])
 
     if trace_on:
         run = Run(config, summary, sub.kinds, log.fetch_ms, log.step_host_ms,
-                  step_ms, graph_stats)
+                  step_ms, cell.family, operators)
         metrics = {}
         for m in cell.per_layer:
             value = manifest.load_metric(m["name"], cell.here).read(run)

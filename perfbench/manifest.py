@@ -1,9 +1,11 @@
 """Finds a cell's files by the names in ``BENCHMARK.json``.
 
 A cell names a configuration (``configs/<config>.json``) and a traffic mix
-(``workloads/<traffic>.json``); each per-layer metric is a reader of its
-own (``metrics/<name>.py``).  Adding a cell, a configuration or a metric
-adds files and entries; nothing here changes.
+(``workloads/<traffic>.json``); the configuration's ``model.family`` names
+the model's family (``families/<family>.py``) and its plain reference
+(``reference/<family>.py``); each per-layer metric is a reader of its own
+(``metrics/<name>.py``).  Adding a cell, a configuration, a model family
+or a metric adds files and entries; nothing here changes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ class Cell:
     end_to_end: list        # the BENCHMARK.json entries this cell reports
     per_layer: list
     here: Path              # the benchmark's folder: metric readers
+    family: object          # the configuration's families/<family>.py
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -58,15 +61,38 @@ def load_cell(name: str, root: Path = ROOT, here: Path = HERE) -> Cell:
                             if _reports(m, name)],
                 per_layer=[m for m in bench["per_layer"]
                            if _reports(m, name)],
-                here=here)
+                here=here, family=load_family(config["model"]["family"], here))
+
+
+def _module(prefix: str, path: Path):
+    spec = importlib.util.spec_from_file_location(
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_family(name: str, here: Path = HERE):
+    """The model family ``families/<name>.py`` (see ``families/__init__``);
+    exits naming the families there when it has none of that name."""
+    path = here / "families" / f"{name}.py"
+    if not path.is_file():
+        found = sorted(p.stem for p in (here / "families").glob("*.py")
+                       if not p.stem.startswith("_"))
+        raise SystemExit(f"unknown model family {name!r}; "
+                         f"{here / 'families'} has {found}")
+    return _module("perfbench_family_", path)
+
+
+def load_reference(family_file):
+    """The plain reference ``reference/<family>.py`` of the family module at
+    ``family_file`` (``families/<family>.py``)."""
+    path = Path(family_file).resolve()
+    return _module("perfbench_reference_",
+                   path.parent.parent / "reference" / path.name)
 
 
 def load_metric(name: str, here: Path = HERE):
     """The reader module ``metrics/<name>.py``: ``LAYER``, ``UNIT``,
     ``MOVES``, ``SOURCE`` and ``read(run) -> float | None``."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return _module("perfbench_metric_", here / "metrics" / f"{name}.py")

@@ -5,8 +5,6 @@ from __future__ import annotations
 
 import re
 
-from perfbench import costs
-
 # the kernels that carry the aggregation: the fused kernel and the two it
 # replaced (csrc/hybrid_spmm.cu, csrc/bcsr_kernels.cu)
 SPMM_KERNELS = re.compile(r"hybrid_spmm|tile_spmm_(f32|mma)_kernel|"
@@ -27,13 +25,11 @@ def all_seconds(run) -> float:
 
 
 def work(run):
-    """(GEMM operations, hops) of every step in the traced sub-window."""
-    model = run.config["model"]
-    seq_len = int(run.config["recipe"]["seq_len"])
-    n = run.graph["num_nodes"]
+    """(GEMM operations, hops) of every step in the traced sub-window, by
+    the configuration's family."""
     flops, hops = 0, []
     for kind, batch in run.sub_kinds:
-        f, h = costs.dcrnn_work(model, seq_len, batch, n, kind == "train")
+        f, h = run.family.work(run.config, batch, kind == "train")
         flops += f
         hops += h
     return flops, hops

@@ -21,4 +21,4 @@ def read(run):
     if spent <= 0:
         return None
     _, hops = _common.work(run)
-    return 100.0 * costs.hops_bound_s(run.graph, hops) / spent
+    return 100.0 * costs.hops_bound_s(run.operators, hops) / spent

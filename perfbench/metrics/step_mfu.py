@@ -18,6 +18,6 @@ def read(run):
     if s is None or s.window_s <= 0 or not _common.train_steps(run):
         return None
     gemm, hops = _common.work(run)
-    ops = gemm + costs.hops_flops(run.graph, hops)
+    ops = gemm + costs.hops_flops(run.operators, hops)
     peak = costs.PEAK_FLOPS[run.config["recipe"]["dtype"]]
     return 100.0 * ops / s.window_s / peak

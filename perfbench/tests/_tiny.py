@@ -1,5 +1,5 @@
 """A cell shrunk to a size the CPU runs in seconds: few sensors, one day,
-small batches and, for the CPU only, a narrow hidden state."""
+small batches and, for the CPU only, the model its family shrinks."""
 
 from perfbench import manifest
 
@@ -9,6 +9,5 @@ def tiny_cell(name: str, num_nodes: int = 48, **load):
     cell.config["data"].update(num_nodes=num_nodes, series_days=1)
     cell.config["recipe"]["batch_size"] = 16
     cell.config["reference"]["block"] = 8
-    cell.config["model"]["rnn_units"] = min(cell.config["model"]["rnn_units"],
-                                            8)
+    cell.family.tiny(cell.config)
     return cell

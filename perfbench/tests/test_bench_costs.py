@@ -54,8 +54,9 @@ def test_dcrnn_work_by_hand(train):
         want_hops += [("fwd", True, 9)] * 2 + [("bwd", True, 9)] * 2
     assert flops == want
     assert sorted(hops) == sorted(want_hops)
-    stats = costs.operator_stats(SENDERS, RECEIVERS, 3)
-    assert costs.hops_flops(stats, hops) == 2 * 4 * 9 * len(want_hops)
+    ops = {d: {"nnz": 4, "shape": (3, 3), "x_rows": (3, 3)}
+           for d in ("fwd", "bwd")}
+    assert costs.hops_flops(ops, hops) == 2 * 4 * 9 * len(want_hops)
 
 
 def test_one_step_train_has_no_backward_hop():
@@ -76,3 +77,14 @@ def test_pems_step_hops(k, train, want):
     through the candidate basis at t = 0)."""
     model = {"input_dim": 2, "rnn_units": 2, "basis_terms": k}
     assert len(costs.dcrnn_work(model, 12, 64, 11160, train)[1]) == want
+
+
+def test_hops_bound_on_a_rectangular_operator():
+    """A hop's gradient is the transpose's product: it writes a row for
+    each of the operator's columns and reads the rows of x it counts
+    second."""
+    ops = {"a": {"nnz": 4, "shape": (3, 5), "x_rows": (2, 3)}}
+    hops = [("a", False, 7), ("a", True, 7)]
+    want = costs.need_bound_s(4, 2, 3, 7) + costs.need_bound_s(4, 3, 5, 7)
+    assert costs.hops_bound_s(ops, hops) == pytest.approx(want, rel=1e-12)
+    assert costs.hops_flops(ops, hops) == 2 * 2 * 4 * 7

@@ -5,6 +5,7 @@ import json
 import math
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 
@@ -173,3 +174,67 @@ def test_a_cell_is_added_by_files_alone(tmp_path, capsys):
     assert res["correct"] is True
     assert res["metrics"]["fetch_ms_max"]["value"] > 0
     assert "loader_ms_per_batch" in res["metrics"]
+
+
+def _copy(tmp_path):
+    here = tmp_path / "perfbench"
+    shutil.copytree(manifest.HERE, here,
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    return here
+
+
+def _add_config(tmp_path, here, family):
+    """A configuration of ``family``, a copy of ``dcrnn-pgti-pems`` under
+    another name, and a cell of it, with their entries."""
+    bench = json.loads((manifest.ROOT / "BENCHMARK.json").read_text())
+    cfg = json.loads((here / "configs" / "dcrnn-pgti-pems.json").read_text())
+    cfg.update(name="twin")
+    cfg["model"]["family"] = family
+    (here / "configs" / "twin.json").write_text(json.dumps(cfg))
+    bench["configs"].append({"name": "twin", "source": cfg["source"],
+                             "file": "perfbench/configs/twin.json",
+                             "reduced": cfg["reduced"], "why": "a test"})
+    bench["workloads"].append({"name": "twin-ordered", "config": "twin",
+                               "traffic": "pems-ordered", "chips": 1,
+                               "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def _files(root):
+    return {p.relative_to(root) for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_family_is_added_by_files_alone(tmp_path, capsys):
+    """A model family's two files, copies of DCRNN's under a new name, a
+    configuration of it, a cell and their entries, in a copy of the
+    benchmark: the harness builds the model, counts its work and runs its
+    reference from the new files with no file of the copy changed."""
+    from perfbench import run
+    from perfbench.tests._tiny import tiny_cell
+
+    here = _copy(tmp_path)
+    added = {Path("families/dcrnn_twin.py"), Path("reference/dcrnn_twin.py"),
+             Path("configs/twin.json")}
+    for sub in ("families", "reference"):
+        shutil.copy(here / sub / "dcrnn.py", here / sub / "dcrnn_twin.py")
+    _add_config(tmp_path, here, "dcrnn_twin")
+    cell = tiny_cell("twin-ordered", root=tmp_path, here=here)
+    assert cell.family.__file__ == str(here / "families" / "dcrnn_twin.py")
+    assert (cell.family.REFERENCE.__file__
+            == str(here / "reference" / "dcrnn_twin.py"))
+    assert run.report(cell, 2**31 + 17, 0.2, True, "cpu") == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["correct"] is True
+    assert _files(here) == _files(manifest.HERE) | added
+    for rel in _files(manifest.HERE):
+        assert (here / rel).read_bytes() == (manifest.HERE / rel).read_bytes()
+
+
+def test_an_unknown_family_exits_with_the_families_found(tmp_path):
+    here = _copy(tmp_path)
+    _add_config(tmp_path, here, "nonesuch")
+    with pytest.raises(SystemExit, match=r"'nonesuch'.*\['dcrnn'\]"):
+        manifest.load_cell("twin-ordered", root=tmp_path, here=here)
