@@ -1,11 +1,12 @@
 """The port's tracing: process-wide counters of the work it issues, spans of
 its host work, and a record of each step's counts.
 
-**Counters.** ``ops/bcsr.py`` counts the kernels' launches and
-``parallel/collectives.py`` the bytes each collective sends, each where it
-issues the work.  A CUDA graph's capture runs that Python and executes
-none of the work; each replay executes it and runs no Python.  Every
-counter registers its reader and its adder here, and
+**Counters.** ``ops/bcsr.py`` counts the kernels' launches,
+``parallel/collectives.py`` the bytes each collective sends and
+``models/attention/astgcn.py`` the bytes of edge-mode hop 1's per-edge
+messages, each where it issues the work.  A CUDA graph's capture runs that
+Python and executes none of the work; each replay executes it and runs no
+Python.  Every counter registers its reader and its adder here, and
 :class:`~.train.trainer._StepGraphs` takes what a capture counted back out
 and adds it again at every replay, so the counters stay counts of work
 executed.
@@ -33,7 +34,9 @@ shared null context.  The port's spans:
   (the graph's launch) and ``step.clone_out``; inside an eager
   ``BatchTrainer`` step: ``step.forward`` (the model and the loss),
   ``step.backward`` and ``step.optimizer``.  A replay runs no Python, so
-  nothing inside a captured model is spanned.
+  nothing inside a captured model is spanned;
+- ``astgcn.*``: the parts of an ASTGCN block and its edge-mode hop 1
+  (``models/attention/astgcn.py``).
 
 **Step records.** While a profiler session is on, each top-level step call
 (:func:`step`) also keeps a :class:`StepRecord`: the step function's name

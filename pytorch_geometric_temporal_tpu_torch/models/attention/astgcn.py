@@ -25,6 +25,13 @@ Port of the JAX package's ``models/attention/astgcn.py``.
   segment softmax; the (N, N) ``Vs``/``bs`` parameters of the dense module
   have no sparse counterpart, a documented deviation) and no (N, N) tensor
   is ever materialized.
+- Edge mode's hop 1 (:class:`_WeightedHop`) forms its per-edge messages a
+  few time steps at a time, forward and backward alike, and keeps none of
+  them for the backward.  The counter ``astgcn_hop1`` counts its calls and
+  the bytes of messages they formed (``_counters``); the spans
+  ``astgcn.temporal_attention``, ``astgcn.spatial_attention``,
+  ``astgcn.cheb`` ⊃ ``astgcn.hop1``, ``astgcn.time_conv`` mark a block's
+  parts, ``astgcn.hop1_grad`` hop 1's backward.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ... import _counters
 from ..._device import resolve_device
 from ...config import get_config
 from ...ops.graph import (Graph, _memo, cheb_norm,
@@ -91,21 +99,88 @@ def _lhat_dense(graph: Graph, normalization: Optional[str]) -> torch.Tensor:
     return _lhat_graph(graph, normalization).to_adj()
 
 
+def _hop1_chunk(x: torch.Tensor, num_edges: int) -> int:
+    """Time steps of hop 1's per-edge messages formed at a time."""
+    B, _, _, F = x.shape
+    return max(1, _HOP1_CHUNK // max(B * num_edges * F, 1))
+
+
+# hop 1's calls and bytes of per-edge messages formed, forward and backward
+_hop1_counts = [0, 0]
+
+
+def hop1_counts() -> tuple:
+    """(calls, bytes of per-edge messages formed) of hop 1, forward and
+    backward: each (B, t, E, F) block that a call gathers."""
+    return tuple(_hop1_counts)
+
+
+def add_hop1_counts(delta) -> None:
+    """Add ``delta`` (a :func:`hop1_counts` tuple); a CUDA graph's replays
+    re-add what its capture counted (``_counters``)."""
+    _hop1_counts[0] += delta[0]
+    _hop1_counts[1] += delta[1]
+
+
+_counters.register("astgcn_hop1", hop1_counts, add_hop1_counts)
+
+
+class _WeightedHop(torch.autograd.Function):
+    """Hop 1 of edge mode: out[b, t, r] = Σ_{e: s_e -> r} w[b, e] ·
+    x[b, t, s_e] for x (B, T, N, F) and w (B, E).  The per-edge messages
+    (B, t, E, F) are formed a few time steps at a time and not kept: the
+    backward saves x and w alone and gathers each chunk again."""
+
+    @staticmethod
+    def forward(ctx, x, w, senders, receivers, num_nodes):
+        ctx.save_for_backward(x, w, senders, receivers)
+        # the block's T_0 is laid out (B, N, F, T): gathered as it is,
+        # each edge's F values would lie T apart
+        xc = x.contiguous()
+        step = _hop1_chunk(x, w.shape[1])
+        wv = w[:, None, :, None]
+        outs, formed = [], 0
+        for lo in range(0, x.shape[1], step):
+            xt = xc[:, lo:lo + step]
+            msgs = xt.index_select(2, senders).mul_(wv)
+            formed += msgs.numel() * msgs.element_size()
+            outs.append(xt.new_zeros(xt.shape[:2] + (num_nodes, x.shape[3]))
+                        .index_add_(2, receivers, msgs))
+        add_hop1_counts((1, formed))
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, senders, receivers = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        with _counters.span("astgcn.hop1_grad"):
+            x, g = x.contiguous(), g.contiguous()
+            gx = torch.zeros_like(x) if need_x else None
+            gw = torch.zeros_like(w) if need_w else None
+            step = _hop1_chunk(x, w.shape[1])
+            wv = w[:, None, :, None]
+            formed = 0
+            for lo in range(0, x.shape[1], step):
+                gg = g[:, lo:lo + step].index_select(2, receivers)
+                formed += gg.numel() * gg.element_size()
+                if need_w:
+                    # Σ over t and f of g[r_e] · x[s_e]
+                    xs = x[:, lo:lo + step].index_select(2, senders)
+                    formed += xs.numel() * xs.element_size()
+                    gw += xs.mul_(gg).sum((1, 3))
+                if need_x:
+                    gx[:, lo:lo + step].index_add_(2, senders, gg.mul_(wv))
+            add_hop1_counts((1, formed))
+        return gx, gw, None, None, None
+
+
 def _weighted_hop(rev: Graph, x: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """Per-batch weighted aggregation: out[b, t, r] = Σ_{s->r} w[b, e] ·
-    x[b, t, s] for x (B, T, N, F) and w (B, E).  The per-edge messages
-    (B, T, E, F) are formed a few time steps at a time."""
-    B, T, _, F = x.shape
-    step = max(1, _HOP1_CHUNK // max(B * w.shape[1] * F, 1))
-    w = w[:, None, :, None]
-    outs = []
-    for lo in range(0, T, step):
-        xt = x[:, lo:lo + step]
-        msgs = xt.index_select(2, rev.senders) * w
-        outs.append(xt.new_zeros(xt.shape[:2] + (rev.num_nodes, F))
-                    .index_add_(2, rev.receivers, msgs))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    x[b, t, s] for x (B, T, N, F) and w (B, E) (:class:`_WeightedHop`)."""
+    with _counters.span("astgcn.hop1"):
+        return _WeightedHop.apply(x, w, rev.senders, rev.receivers,
+                                  rev.num_nodes)
 
 
 class ChebConvAttention(FlaxModule):
@@ -287,18 +362,39 @@ class SpatialAttentionSparse(FlaxModule):
                           diag=exp_d / denom)
 
 
+def _vector(n: int, init: str, generator, device) -> torch.Tensor:
+    """A (n,) attention vector: "uniform" U[0, 1) (PGT's), "glorot" Glorot
+    over (n, 1).  Both draw the same n numbers from ``generator``."""
+    if init == "uniform":
+        return uniform((n,), generator, device)
+    if init == "glorot":
+        return glorot((n, 1), generator, device).reshape(n)
+    raise ValueError(f"vector_init must be 'uniform' or 'glorot'; got "
+                     f"{init!r}")
+
+
 class TemporalAttention(FlaxModule):
-    """E = softmax(Ve · σ(LHS·RHS + be)) over (B, T, T)."""
+    """E = softmax(Ve · σ(LHS·RHS + be)) over (B, T, T).
+
+    ``vector_init`` draws U1 (N,) and U3 (F,): "uniform" is PGT's U[0, 1);
+    "glorot" is Glorot over (length, 1).  The logits LHS·RHS sum
+    x·U1·U2·U3·x over every node twice, so with U[0, 1) on a large graph
+    (N ≈ 10⁴) they reach 10⁴–10⁶, the sigmoid saturates, and the gradient
+    comes from the few logits at its knee, where f32 rounding of so large a
+    sum moves it by percents: two f32 evaluations of the first gradient
+    then differ as much as either differs from float64.  Glorot vectors
+    keep the logits within tens at any N."""
 
     def __init__(self, in_channels: int, num_of_vertices: int,
                  num_of_timesteps: int, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 vector_init: str = "uniform"):
         super().__init__()
         device = resolve_device(device)
         F_, N, T = in_channels, num_of_vertices, num_of_timesteps
-        self.U1 = nn.Parameter(uniform((N,), generator, device))
+        self.U1 = nn.Parameter(_vector(N, vector_init, generator, device))
         self.U2 = nn.Parameter(glorot((F_, N), generator, device))
-        self.U3 = nn.Parameter(uniform((F_,), generator, device))
+        self.U3 = nn.Parameter(_vector(F_, vector_init, generator, device))
         self.be = nn.Parameter(glorot((1, T, T), generator, device))
         self.Ve = nn.Parameter(glorot((T, T), generator, device))
 
@@ -319,11 +415,13 @@ class ASTGCNBlock(FlaxModule):
                  num_of_vertices: int, num_of_timesteps: int,
                  normalization: Optional[str] = None, use_bias: bool = True,
                  attention_mode: str = "dense", device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 temporal_vector_init: str = "uniform"):
         super().__init__()
         self.attention_mode = attention_mode
         self.temporal_attention = TemporalAttention(
-            in_channels, num_of_vertices, num_of_timesteps, device, generator)
+            in_channels, num_of_vertices, num_of_timesteps, device, generator,
+            temporal_vector_init)
         if attention_mode == "edge":
             self.spatial_attention = SpatialAttentionSparse(
                 in_channels, num_of_timesteps, device, generator)
@@ -345,19 +443,25 @@ class ASTGCNBlock(FlaxModule):
         self.layer_norm = LayerNorm(nb_time_filter, device=device)
 
     def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
-        e = self.temporal_attention(x)
-        x_tilde = torch.einsum("bnft,bts->bnfs", x, e)
-        if self.attention_mode == "edge":
-            g0 = graph[0] if isinstance(graph, (list, tuple)) else graph
-            s = self.spatial_attention(x_tilde, g0)
-        else:
-            s = self.spatial_attention(x_tilde)
+        span = _counters.span
+        with span("astgcn.temporal_attention"):
+            e = self.temporal_attention(x)
+            x_tilde = torch.einsum("bnft,bts->bnfs", x, e)
+        with span("astgcn.spatial_attention"):
+            if self.attention_mode == "edge":
+                g0 = graph[0] if isinstance(graph, (list, tuple)) else graph
+                s = self.spatial_attention(x_tilde, g0)
+            else:
+                s = self.spatial_attention(x_tilde)
         xt = x.movedim(-1, 1)  # (B, T, N, F)
-        x_hat = torch.relu(self.chebconv_attention(xt, graph, s))
-        # time conv over T: layout (B, N, T, C)
-        x_hat = self.time_convolution(x_hat.transpose(1, 2))
-        res = self.residual_convolution(x.movedim(-1, 2))
-        out = self.layer_norm(torch.relu(res + x_hat))
+        with span("astgcn.cheb"):
+            x_hat = torch.relu(self.chebconv_attention(xt, graph, s))
+        with span("astgcn.time_conv"):
+            # time conv over T: layout (B, N, T, C); the residual conv and
+            # the LayerNorm
+            x_hat = self.time_convolution(x_hat.transpose(1, 2))
+            res = self.residual_convolution(x.movedim(-1, 2))
+            out = self.layer_norm(torch.relu(res + x_hat))
         return out.movedim(2, -1)  # (B, N, C, T')
 
 
@@ -366,7 +470,10 @@ class ASTGCN(FlaxModule):
 
     ``attention_mode``: 'dense' (O(N²)), 'edge' (sparse L̂ + per-edge
     attention, no (N, N) tensors — the large-graph mode), or 'auto' (edge
-    above the dense threshold).
+    above the dense threshold).  ``temporal_vector_init``: each block's
+    temporal-attention vectors U1, U3, PGT's "uniform" or "glorot", the
+    one that stays well conditioned on large graphs
+    (:class:`TemporalAttention`).
     """
 
     def __init__(self, nb_block: int, in_channels: int, K: int,
@@ -374,7 +481,8 @@ class ASTGCN(FlaxModule):
                  num_for_predict: int, len_input: int, num_of_vertices: int,
                  normalization: Optional[str] = None, use_bias: bool = True,
                  attention_mode: str = "auto", device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 temporal_vector_init: str = "uniform"):
         super().__init__()
         device = resolve_device(device)
         self.len_input, self.nb_block = len_input, nb_block
@@ -385,12 +493,12 @@ class ASTGCN(FlaxModule):
         self.block_0 = ASTGCNBlock(
             in_channels, K, nb_chev_filter, nb_time_filter, time_strides,
             num_of_vertices, len_input, normalization, use_bias, mode,
-            device, generator)
+            device, generator, temporal_vector_init)
         for i in range(1, nb_block):
             self.add_module(f"block_{i}", ASTGCNBlock(
                 nb_time_filter, K, nb_chev_filter, nb_time_filter, 1,
                 num_of_vertices, len_input // time_strides, normalization,
-                use_bias, mode, device, generator))
+                use_bias, mode, device, generator, temporal_vector_init))
         final_conv(self, num_for_predict, len_input // time_strides,
                    nb_time_filter, device, generator)
 

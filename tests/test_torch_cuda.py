@@ -9,6 +9,7 @@ order, 1e-4 of the output's scale.
 """
 
 import os
+import statistics
 import traceback
 
 import numpy as np
@@ -467,6 +468,88 @@ def test_edge_mode_astgcn_tiles_the_reversed_lhat_once(cuda, monkeypatch):
         ASTGCN(**cfg, normalization=None, generator=gen)(x, g)
         MSTGCN(2, 2, 3, 8, 8, 1, 3, 6, generator=gen)(x, g)
     assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 0)
+
+
+# chip_smoke.py's phase 14 limits for edge-mode ASTGCN against the segment
+# path: the forward's largest absolute error; every parameter gradient's
+# largest error over its largest entry, and its error's 2-norm over its
+# 2-norm (the spatial attention's scalar bias sums ~E terms that nearly
+# cancel, added by atomics in an order that changes from run to run)
+EDGE_TOLS = (1e-4, 1e-2, 1e-2)
+
+
+def test_astgcn_configuration_trains_a_step_at_reduced_n(cuda, monkeypatch):
+    """The benchmark's ASTGCN configuration (perfbench/configs/
+    astgcn-guo2019-pems.json: 2 blocks, K=3, 64 and 64 filters, 12 -> 12,
+    edge mode, "sym", Glorot temporal-attention vectors) at N = 5,000 through ``BatchTrainer``'s eager step:
+    one operator build and 4 fused launches (a hop past T_1 a block,
+    forward and gradient), hop 1's message bytes as its shapes give them,
+    and the bcsr path against the segment path within ``EDGE_TOLS``."""
+    import json
+    from pathlib import Path
+
+    from pytorch_geometric_temporal_tpu_torch import _counters
+    from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer
+
+    root = Path(__file__).resolve().parent.parent
+    m = json.loads((root / "perfbench" / "configs"
+                    / "astgcn-guo2019-pems.json").read_text())["model"]
+    n, b, t = 5000, 2, int(m["len_input"])
+    ei, w = banded(n, 30_000, seed=21)
+    g = Graph.from_edge_index(ei, w, num_nodes=n, device=cuda)
+    model = ASTGCN(
+        nb_block=m["nb_block"], in_channels=m["in_channels"], K=m["K"],
+        nb_chev_filter=m["nb_chev_filter"],
+        nb_time_filter=m["nb_time_filter"], time_strides=m["time_strides"],
+        num_for_predict=m["num_for_predict"], len_input=t,
+        num_of_vertices=n, normalization=m["normalization"],
+        attention_mode=m["attention_mode"],
+        temporal_vector_init=m["temporal_vector_init"],
+        generator=torch.Generator().manual_seed(3))
+
+    def forward(xb):
+        return model(xb.permute(0, 2, 3, 1), g).transpose(1, 2)[..., None]
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(b, t, n, m["in_channels"], generator=gen).to(cuda)
+    y = torch.randn(b, m["num_for_predict"], n, 1, generator=gen).to(cuda)
+    trainer = BatchTrainer(model, forward, lr=1e-3, loss_fn=mse,
+                           device=cuda, capture=False)
+    builds = _Builds(monkeypatch)
+    bcsr.reset_launch_counts()
+    before = _counters.read()
+    trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 4)
+    calls, nbytes = _counters.counted_since(before)["astgcn_hop1"]
+    entries = int(ei.shape[1]) + 2 * n          # L̂'s listed entries
+    widths = m["in_channels"] + m["nb_time_filter"]
+    # forward and the backward's two gathers, f32
+    assert (calls, nbytes) == (2 * m["nb_block"], 3 * b * t * entries
+                               * widths * 4)
+
+    def outputs_and_grads():
+        out = forward(x)
+        return out.detach(), torch.autograd.grad(mse(out, y),
+                                                 list(model.parameters()))
+
+    out, grads = outputs_and_grads()
+    with config_override(spmm_backend="segment"):
+        want, want_grads = outputs_and_grads()
+    fwd_tol, grad_tol, l2_tol = EDGE_TOLS
+    assert float((out - want).abs().max()) <= fwd_tol
+    # a leaf whose gradient is 0 or round-off (a saturated sigmoid's) is
+    # measured against the larger of its own scale and the median leaf's
+    big = statistics.median(float(gs.abs().max()) for gs in want_grads)
+    norm = statistics.median(float(torch.linalg.norm(gs))
+                             for gs in want_grads)
+    for (name, _), gb, gs in zip(model.named_parameters(), grads,
+                                 want_grads):
+        rel = float((gb - gs).abs().max()) / max(float(gs.abs().max()), big)
+        l2 = float(torch.linalg.norm(gb - gs)) / max(
+            float(torch.linalg.norm(gs)), norm)
+        assert rel <= grad_tol and l2 <= l2_tol, (name, rel, l2)
+    assert builds.calls == 1
 
 
 def test_stconv_launches_over_a_prepared_chebyshev_operator(cuda):
