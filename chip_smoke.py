@@ -103,7 +103,9 @@ stay kernels executed under replay.
 14. edge-mode ASTGCN (``normalization="sym"``, K=3, 2 blocks, 64/64
    filters) at N=50,000: the reversed scaled Laplacian is tiled once (f32
    tiles) in the first forward, then 2 forward + 2 backward fused launches
-   a step; per-edge attention sums to 1 per column; output and gradients
+   a step, and hop 1's kernel (``csrc/weighted_hop.cu``) once a block
+   forward and once backward, with no per-edge message formed; per-edge
+   attention sums to 1 per column; output and gradients
    against ``spmm_backend="segment"``; the fused kernel timed on that f32
    operator at F=24 and F=768, and at F=768 against the copies with the
    other f32 feature tiles (equal bytes, cold times); ``normalization=None``
@@ -234,7 +236,13 @@ stay kernels executed under replay.
    the group of one ``make_mesh`` makes, at phase 15's width and depth:
    its first step against ``BatchTrainer``'s on the same batch within
    ``DDP_TOLS``, then eager against captured as in phase 24, and the
-   all-reduce bytes a replay sends against the formula.
+   all-reduce bytes a replay sends against the formula;
+26. (run after phase 14) edge-mode ASTGCN's hop 1 kernel
+   (``csrc/weighted_hop.cu``) at the benchmark cell's shapes (B = 32,
+   N = 11,160, T = 12, F = 2 and 64, the reversed L-hat of phase 15's
+   banded graph): forward, g_x and g_w against the plain version within
+   the bound of two f32 sum orders, two runs equal to the bit, then each
+   timed cold beside its byte bound and the plain version's time.
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
@@ -242,7 +250,7 @@ without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
 its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16, 19
 (both ranks), 25 (its first step), 21 and 22 (phase 24's are checked, not
-summed); the
+summed), the hop-1 kernel's of phase 14 (phase 26's are not counted); the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -354,6 +362,9 @@ STGCN = dict(f_in=1, spatial=16, out=64, kernel=3, K=3, t=12, steps=5,
              timed_steps=10)
 # phase 14
 EDGE = dict(f_in=2, t=12, K=3, blocks=2, filters=64, steps=3)
+# phase 26: hop 1 at the benchmark cell's batch, steps and widths (blocks 1
+# and 2), on the reversed L-hat of phase 15's graph
+HOP = dict(b=32, t=12, fs=(2, 64), reps=20, plain_reps=5)
 # phases 13 and 14 against the f32 segment path (forward; gradients by the
 # largest entry; gradients by the 2-norm): about three times the errors
 # read on an H100 (phase 13, bf16 tiles: 1.2e-2 on outputs up to 3.5, 2.2e-1
@@ -2387,10 +2398,11 @@ def phase_stconv(torch, kernel_report, smi):
 
 
 def phase_astgcn_edge(torch, kernel_report, smi):
-    from pytorch_geometric_temporal_tpu_torch import config_override
+    from pytorch_geometric_temporal_tpu_torch import _counters, config_override
     from pytorch_geometric_temporal_tpu_torch.models import ASTGCN
     from pytorch_geometric_temporal_tpu_torch.models.attention import astgcn
-    from pytorch_geometric_temporal_tpu_torch.ops import Graph, bcsr
+    from pytorch_geometric_temporal_tpu_torch.ops import (Graph, bcsr,
+                                                          weighted_hop)
     from pytorch_geometric_temporal_tpu_torch.ops.bcsr import BCSRMatrix
     from pytorch_geometric_temporal_tpu_torch.train import BatchTrainer, mse
 
@@ -2413,10 +2425,11 @@ def phase_astgcn_edge(torch, kernel_report, smi):
     log(f"  ASTGCN(edge, sym, K={K}, {c['blocks']} blocks, {c['filters']} "
         f"filters), {sum(p.numel() for p in model.parameters())} "
         f"parameters, N={n}, L-hat of {e_lhat} entries; hop 1's per-edge "
-        f"messages in block 2: T*E*F*4 B = "
-        f"{T * e_lhat * c['filters'] * 4 / 2**30:.2f} GiB, formed "
-        f"{max(1, astgcn._HOP1_CHUNK // (e_lhat * c['filters']))} steps at a "
-        f"time")
+        f"messages in block 2 (the plain version's; the card's kernel forms "
+        f"none): T*E*F*4 B = {T * e_lhat * c['filters'] * 4 / 2**30:.2f} "
+        f"GiB, formed "
+        f"{max(1, weighted_hop._MESSAGE_CHUNK // (e_lhat * c['filters']))}"
+        f" steps at a time")
 
     # the per-edge attention is column-normalized on the card
     with torch.no_grad():
@@ -2433,18 +2446,28 @@ def phase_astgcn_edge(torch, kernel_report, smi):
                            loss_fn=mse)
     per_step = 2 * c["blocks"] * (K - 2)
     torch.cuda.reset_peak_memory_stats()
-    losses, step_s, counts = [], [], []
+    losses, step_s, counts, hops = [], [], [], []
     with counted_builds() as builds:
         bcsr.reset_launch_counts()
+        before = _counters.read()
+
+        def hop_counts():
+            # (forward launches, backward launches, hop 1's message bytes)
+            d = _counters.counted_since(before)
+            return d["weighted_hop"][:2] + d["astgcn_hop1"][1:]
+
         with torch.no_grad():
             model(x, g)
         counts.append((builds.calls, launch_counts(bcsr)["H"]))
+        hops.append(hop_counts())
         for _ in range(c["steps"]):
             t0 = time.perf_counter()
             losses.append(float(trainer.train_step(x, y)))
             step_s.append(time.perf_counter() - t0)
             counts.append((builds.calls, launch_counts(bcsr)["H"]))
+            hops.append(hop_counts())
         launches = launch_counts(bcsr)
+        copied = _counters.counted_since(before)["weighted_hop"][2]
     fwd = c["blocks"] * (K - 2)
     want = [(1, fwd)] + [(1, fwd + per_step * (i + 1))
                          for i in range(c["steps"])]
@@ -2454,6 +2477,19 @@ def phase_astgcn_edge(torch, kernel_report, smi):
         f"{launches['K1']} and K2 {launches['K2']} (expected 0)")
     if counts != want or launches["K1"] or launches["K2"]:
         raise SystemExit("edge-mode ASTGCN: build or launch counts differ")
+    blocks = c["blocks"]
+    want_hops = [(blocks * (1 + i), blocks * i, 0)
+                 for i in range(c["steps"] + 1)]
+    log(f"  hop-1 kernel (forward launches, backward launches, bytes of "
+        f"per-edge messages) after the first forward and after each step: "
+        f"{hops} (expected {want_hops}: {blocks} launches a forward, "
+        f"{2 * blocks} a step, no message); {copied} bytes copied into "
+        f"dense rows")
+    if hops != want_hops:
+        raise SystemExit("edge-mode ASTGCN: hop 1 skipped its kernel or "
+                         "formed messages")
+    kernel_report["WH"] = {"launches": sum(hops[-1][:2]),
+                           "max_abs_err": 0.0}
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"edge-mode ASTGCN: losses not finite or not "
                          f"falling: {losses}")
@@ -2510,6 +2546,104 @@ def phase_astgcn_edge(torch, kernel_report, smi):
     if not torch.isfinite(out).all():
         raise SystemExit("normalization=None: non-finite output")
 
+
+
+def hop_outputs(wh, rev, csrs, x, w, g):
+    """(out, g_x, g_w) of the hop-1 kernel."""
+    return (wh.weighted_hop_forward(x, w, csrs[0], rev.num_nodes),
+            *wh.weighted_hop_backward(g, x, w, csrs[1], True, True))
+
+
+def hop_plain(wh, rev, x, w, g):
+    """(out, g_x, g_w) of hop 1's plain version."""
+    args = (rev.senders, rev.receivers)
+    return (wh.plain_forward(x, w, *args, rev.num_nodes)[0],
+            *wh.plain_backward(g, x, w, *args, True, True)[:2])
+
+
+def phase_weighted_hop(torch, report, smi):
+    from pytorch_geometric_temporal_tpu_torch.models.attention import astgcn
+    from pytorch_geometric_temporal_tpu_torch.ops import Graph
+    from pytorch_geometric_temporal_tpu_torch.ops import weighted_hop as wh
+
+    c, h = PEMS, HOP
+    ei, w0 = pems_graph(c)
+    g0 = Graph.from_edge_index(ei, w0, num_nodes=c["n"])
+    rev = astgcn._reversed(astgcn._lhat_graph(g0, "sym"))
+    csrs = wh.hop_csrs(rev)
+    n, e, b, t = c["n"], rev.senders.shape[0], h["b"], h["t"]
+    deg = max(int(k.ptr.diff().max()) for k in csrs)
+    log(f"  reversed L-hat of the PeMS stand-in: N={n}, {e} entries, at "
+        f"most {deg} a row either way; B={b}, T={t}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k = report["WH"]
+    lines = []
+    for f in h["fs"]:
+        p = t * f
+        # T_0 as each block makes it: (B, T, N, F) from the windows in
+        # block 1, (B, F, N, T) from block 1's convolutions in block 2
+        x = (torch.randn(b, t, n, f, device="cuda", generator=gen)
+             if f == 2 else torch.randn(b, f, n, t, device="cuda",
+                                        generator=gen).permute(0, 3, 2, 1))
+        w = torch.randn(b, e, device="cuda", generator=gen)
+        g = torch.randn(n, b, t, f, device="cuda", generator=gen).permute(
+            1, 2, 0, 3)                       # as the consumers give it
+        got = hop_outputs(wh, rev, csrs, x, w, g)
+        want = hop_plain(wh, rev, x, w, g)
+        mags = hop_plain(wh, rev, x.abs(), w.abs(), g.abs())
+        again = hop_outputs(wh, rev, csrs, x, w, g)
+        # two f32 sums of m products in other orders differ by at most
+        # 2·m·2^-24 of the sum of the products' magnitudes
+        ratios = []
+        for a, want_a, mag, terms in zip(got, want, mags, (deg, deg, p)):
+            bound = 2 * terms * 2.0 ** -24 * mag
+            ratios.append(float(((a - want_a).abs() / bound.clamp_min(
+                1e-30)).max()))
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   float((a - want_a).abs().max()))
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        log(f"  F={f} (P={p}): error over the sum-order bound, out / g_x / "
+            f"g_w: {', '.join(f'{r:.3g}' for r in ratios)} (at most 1); "
+            f"two runs equal to the bit: {same}; dense rows: x "
+            f"{wh.dense_rows(x)}, out {wh.dense_rows(got[0])}, g "
+            f"{wh.dense_rows(g)}")
+        if max(ratios) > 1 or not same:
+            raise SystemExit("the hop-1 kernel differs from its plain "
+                             "version or from its own second run")
+        del got, want, mags, again
+        # the forward copies T_0 into dense rows (timed with it, counted);
+        # the backward reads the rows the forward saved
+        fwd = cold_ms(torch, lambda: wh.weighted_hop_forward(
+            x, w, csrs[0], n), reps=h["reps"])
+        rows = wh.as_rows(x)
+        copy = cold_ms(torch, lambda: wh.as_rows(x), reps=h["reps"])
+        bwd = cold_ms(torch, lambda: wh.weighted_hop_backward(
+            g, rows, w, csrs[1], True, True), reps=h["reps"])
+        args = (rev.senders, rev.receivers)
+        plain_fwd = cold_ms(torch, lambda: wh.plain_forward(
+            x, w, *args, n), reps=h["plain_reps"])
+        plain_bwd = cold_ms(torch, lambda: wh.plain_backward(
+            g, x, w, *args, True, True), reps=h["plain_reps"])
+        index = 4 * (n + 1 + 2 * e)
+        fwd_b = 4 * (2 * b * n * p + b * e) + index
+        bwd_b = 4 * (3 * b * n * p + 2 * b * e) + index
+        fwd_bound = fwd_b / H100_BYTES_PER_S * 1e3
+        bwd_bound = bwd_b / H100_BYTES_PER_S * 1e3
+        lines.append((f, fwd + bwd, fwd_bound + bwd_bound,
+                      plain_fwd + plain_bwd))
+        log(f"  F={f}: kernel forward {fwd:.4f} ms with T_0's copy into "
+            f"dense rows ({copy:.4f} ms of it; bound {fwd_bound:.4f}, "
+            f"{fwd_b / 1e6:.1f} MB, share {fwd_bound / fwd:.3f}), backward "
+            f"{bwd:.4f} ms (bound {bwd_bound:.4f}, {bwd_b / 1e6:.1f} MB, "
+            f"share {bwd_bound / bwd:.3f}); plain forward {plain_fwd:.3f} "
+            f"ms, backward {plain_bwd:.3f} ms; cold L2, on {smi}")
+        del x, w, g, rows
+    ms, bound, plain = (sum(r[i] for r in lines) for i in (1, 2, 3))
+    log(f"  hop 1 a train step (both blocks, forward and backward): kernel "
+        f"{ms:.4f} ms, bound {bound:.4f} ms (share {bound / ms:.3f}), plain "
+        f"{plain:.3f} ms")
+    k.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+             library_ms=None)
 
 
 def pems_series(c):
@@ -4872,6 +5006,9 @@ def main() -> int:
     phase_stconv(torch, report, smi)
     log("== phase 14: edge-mode ASTGCN at N=50k")
     phase_astgcn_edge(torch, report, smi)
+    log("== phase 26: edge-mode ASTGCN's hop-1 kernel at the benchmark "
+        "cell's shapes")
+    phase_weighted_hop(torch, report, smi)
     log("== phase 15: index-batched DCRNN on the PeMS-scale stand-in")
     phase_index_pems(torch, report, smi)
     log("== phase 16: DCRNNSeq at N=50k in bf16 compute "
@@ -4920,6 +5057,16 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+    k = report["WH"]
+    kernels.append({
+        "name": "weighted_hop", "route": "cuda",
+        "source": "pytorch_geometric_temporal_tpu_torch/csrc/weighted_hop.cu",
+        "replaces": "none: the JAX package's hop 1 is XLA's gather and "
+                    "segment sum",
+        "launches": k["launches"],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     for line in report["f32_sweep"]:
         log(f"f32 feature-tile sweep on {smi}: {line}")
     log("fused kernel by path (cold ms, share of its bound): " + "; ".join(

@@ -3,8 +3,10 @@ its host work, and a record of each step's counts.
 
 **Counters.** ``ops/bcsr.py`` counts the kernels' launches,
 ``parallel/collectives.py`` the bytes each collective sends and
-``models/attention/astgcn.py`` the bytes of edge-mode hop 1's per-edge
-messages, each where it issues the work.  A CUDA graph's capture runs that
+``models/attention/astgcn.py`` edge-mode hop 1's calls with the bytes of
+per-edge messages they formed (``astgcn_hop1``) and ``ops/weighted_hop.py``
+its kernel's launches with the bytes it copied into rows
+(``weighted_hop``), each where it issues the work.  A CUDA graph's capture runs that
 Python and executes none of the work; each replay executes it and runs no
 Python.  Every counter registers its reader and its adder here, and
 :class:`~.train.trainer._StepGraphs` takes what a capture counted back out

@@ -104,5 +104,13 @@ def load() -> ctypes.CDLL:
     lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p,
                                      i, p, i, p]
     lib.pgtt_hybrid_spmm.restype = i
+    q = ctypes.c_int64
+    lib.pgtt_weighted_hop_fwd.argtypes = [p, q, q, p, q, q, p, p, p, p, q, q,
+                                          i, i, i, i, i, i, i, p]
+    lib.pgtt_weighted_hop_fwd.restype = i
+    lib.pgtt_weighted_hop_bwd.argtypes = [p, q, q, p, q, q, p, q, q, p, p, p,
+                                          p, q, q, p, q, i, i, i, i, i, i, i,
+                                          p]
+    lib.pgtt_weighted_hop_bwd.restype = i
     _LIB = lib
     return lib

@@ -25,10 +25,19 @@ Port of the JAX package's ``models/attention/astgcn.py``.
   segment softmax; the (N, N) ``Vs``/``bs`` parameters of the dense module
   have no sparse counterpart, a documented deviation) and no (N, N) tensor
   is ever materialized.
-- Edge mode's hop 1 (:class:`_WeightedHop`) forms its per-edge messages a
-  few time steps at a time, forward and backward alike, and keeps none of
-  them for the backward.  The counter ``astgcn_hop1`` counts its calls and
-  the bytes of messages they formed (``_counters``); the spans
+- Edge mode's hop 1 (:class:`_WeightedHop`) on the card is a kernel of its
+  own (``ops/weighted_hop.py``, ``csrc/weighted_hop.cu``): a segment sum
+  by receiver forward and one pass by sender backward over CSR orders of
+  the reversed L̂'s entries (built once per instance), on rows of T·F
+  contiguous values (a T_0 that lies otherwise is copied once), writing
+  the output's rows into an (N, B, T, F) buffer, which the combination's
+  batched GEMM and ``bcsr_spmm``'s flattening read without a copy; it
+  forms no message and adds nothing atomically.  On the CPU, its plain
+  version forms the per-edge messages a few time steps at a time, forward
+  and backward alike, and keeps none of them for the backward.  The
+  counter ``astgcn_hop1`` counts hop 1's calls and the bytes of messages
+  they formed, 0 on the card; ``weighted_hop`` the kernel's launches and
+  the bytes it copied into rows (``_counters``); the spans
   ``astgcn.temporal_attention``, ``astgcn.spatial_attention``,
   ``astgcn.cheb`` ⊃ ``astgcn.hop1``, ``astgcn.time_conv`` mark a block's
   parts, ``astgcn.hop1_grad`` hop 1's backward.
@@ -47,13 +56,13 @@ from ...config import get_config
 from ...ops.graph import (Graph, _memo, cheb_norm,
                           lambda_max as power_lambda_max)
 from ...ops.spmm import spmm
+from ...ops.weighted_hop import (HopCSR, as_rows, check as check_hop,
+                                 hop_csrs, plain_backward, plain_forward,
+                                 weighted_hop_backward,
+                                 weighted_hop_forward)
 from .._cells import Conv, FlaxModule, LayerNorm, glorot, uniform
 from .._validate import check_node_axis, check_rank
 from .mstgcn import final_conv
-
-# elements of one chunk of hop 1's per-edge messages (1 GiB of f32)
-_HOP1_CHUNK = 1 << 28
-
 
 class EdgeScores(NamedTuple):
     """Spatial attention restricted to graph edges (the sparse form).
@@ -99,19 +108,15 @@ def _lhat_dense(graph: Graph, normalization: Optional[str]) -> torch.Tensor:
     return _lhat_graph(graph, normalization).to_adj()
 
 
-def _hop1_chunk(x: torch.Tensor, num_edges: int) -> int:
-    """Time steps of hop 1's per-edge messages formed at a time."""
-    B, _, _, F = x.shape
-    return max(1, _HOP1_CHUNK // max(B * num_edges * F, 1))
-
-
 # hop 1's calls and bytes of per-edge messages formed, forward and backward
 _hop1_counts = [0, 0]
 
 
 def hop1_counts() -> tuple:
-    """(calls, bytes of per-edge messages formed) of hop 1, forward and
-    backward: each (B, t, E, F) block that a call gathers."""
+    """(calls, bytes of per-edge messages formed in device memory) of hop
+    1, forward and backward: each (B, t, E, F) block that a call gathers on
+    the plain path.  On the card the kernel forms none: its calls count
+    with 0 bytes."""
     return tuple(_hop1_counts)
 
 
@@ -127,51 +132,41 @@ _counters.register("astgcn_hop1", hop1_counts, add_hop1_counts)
 
 class _WeightedHop(torch.autograd.Function):
     """Hop 1 of edge mode: out[b, t, r] = Σ_{e: s_e -> r} w[b, e] ·
-    x[b, t, s_e] for x (B, T, N, F) and w (B, E).  The per-edge messages
-    (B, t, E, F) are formed a few time steps at a time and not kept: the
-    backward saves x and w alone and gathers each chunk again."""
+    x[b, t, s_e] for x (B, T, N, F) and w (B, E) (``ops/weighted_hop.py``).
+    A CUDA tensor takes the kernel over the CSR orders ``csrs`` (by
+    receiver, by sender); a CPU tensor the plain version, whose per-edge
+    messages (B, t, E, F) are formed a few time steps at a time and not
+    kept.  The backward saves x, w and the index tensors alone."""
 
     @staticmethod
-    def forward(ctx, x, w, senders, receivers, num_nodes):
-        ctx.save_for_backward(x, w, senders, receivers)
-        # the block's T_0 is laid out (B, N, F, T): gathered as it is,
-        # each edge's F values would lie T apart
-        xc = x.contiguous()
-        step = _hop1_chunk(x, w.shape[1])
-        wv = w[:, None, :, None]
-        outs, formed = [], 0
-        for lo in range(0, x.shape[1], step):
-            xt = xc[:, lo:lo + step]
-            msgs = xt.index_select(2, senders).mul_(wv)
-            formed += msgs.numel() * msgs.element_size()
-            outs.append(xt.new_zeros(xt.shape[:2] + (num_nodes, x.shape[3]))
-                        .index_add_(2, receivers, msgs))
-        add_hop1_counts((1, formed))
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    def forward(ctx, x, w, senders, receivers, num_nodes, csrs=None):
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, w, senders, receivers)
+            out, formed = plain_forward(x, w, senders, receivers, num_nodes)
+            add_hop1_counts((1, formed))
+            return out
+        check_hop(x, w)
+        # the rows the kernel reads, copied once where x's lie otherwise
+        x = as_rows(x)
+        ctx.save_for_backward(x, w, *csrs[1])
+        add_hop1_counts((1, 0))
+        return weighted_hop_forward(x, w, csrs[0], num_nodes)
 
     @staticmethod
     def backward(ctx, g):
-        x, w, senders, receivers = ctx.saved_tensors
         need_x, need_w = ctx.needs_input_grad[:2]
         with _counters.span("astgcn.hop1_grad"):
-            x, g = x.contiguous(), g.contiguous()
-            gx = torch.zeros_like(x) if need_x else None
-            gw = torch.zeros_like(w) if need_w else None
-            step = _hop1_chunk(x, w.shape[1])
-            wv = w[:, None, :, None]
-            formed = 0
-            for lo in range(0, x.shape[1], step):
-                gg = g[:, lo:lo + step].index_select(2, receivers)
-                formed += gg.numel() * gg.element_size()
-                if need_w:
-                    # Σ over t and f of g[r_e] · x[s_e]
-                    xs = x[:, lo:lo + step].index_select(2, senders)
-                    formed += xs.numel() * xs.element_size()
-                    gw += xs.mul_(gg).sum((1, 3))
-                if need_x:
-                    gx[:, lo:lo + step].index_add_(2, senders, gg.mul_(wv))
-            add_hop1_counts((1, formed))
-        return gx, gw, None, None, None
+            if g.device.type == "cpu":
+                x, w, senders, receivers = ctx.saved_tensors
+                gx, gw, formed = plain_backward(g, x, w, senders, receivers,
+                                                need_x, need_w)
+                add_hop1_counts((1, formed))
+            else:
+                x, w, *csr = ctx.saved_tensors
+                add_hop1_counts((1, 0))
+                gx, gw = weighted_hop_backward(g, x, w, HopCSR(*csr),
+                                               need_x, need_w)
+        return gx, gw, None, None, None, None
 
 
 def _weighted_hop(rev: Graph, x: torch.Tensor,
@@ -179,8 +174,9 @@ def _weighted_hop(rev: Graph, x: torch.Tensor,
     """Per-batch weighted aggregation: out[b, t, r] = Σ_{s->r} w[b, e] ·
     x[b, t, s] for x (B, T, N, F) and w (B, E) (:class:`_WeightedHop`)."""
     with _counters.span("astgcn.hop1"):
+        csrs = None if x.device.type == "cpu" else hop_csrs(rev)
         return _WeightedHop.apply(x, w, rev.senders, rev.receivers,
-                                  rev.num_nodes)
+                                  rev.num_nodes, csrs)
 
 
 class ChebConvAttention(FlaxModule):

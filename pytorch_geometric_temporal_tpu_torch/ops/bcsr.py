@@ -951,7 +951,7 @@ def _require_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: x must be contiguous")
 
 
-def _launch(wrapper, kernel: str, x: torch.Tensor, *args) -> None:
+def launch(wrapper, kernel: str, x: torch.Tensor, *args) -> None:
     """Call ``kernel`` of the CUDA library with ``args`` and x's current
     stream, on x's device; raise if the launch failed, else count it on
     ``wrapper``."""
@@ -993,7 +993,7 @@ def tile_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((half.num_rows, f), dtype=torch.float32,
                       device=x.device)
     if f:
-        _launch(tile_spmm, "pgtt_tile_spmm", x, half.blocks.data_ptr(),
+        launch(tile_spmm, "pgtt_tile_spmm", x, half.blocks.data_ptr(),
                 int(_is_bf16(half.blocks.dtype)), half.tile_ptr.data_ptr(),
                 half.block_cols.data_ptr(), x.data_ptr(), out.data_ptr(),
                 half.num_rows // BLOCK, f)
@@ -1031,7 +1031,7 @@ def rem_scatter_(half: _BCSRHalf, x: torch.Tensor,
         return out
     if not out.is_contiguous():
         raise ValueError("rem_scatter_: out must be contiguous")
-    _launch(rem_scatter_, "pgtt_rem_scatter", x, half.rem_rbs.data_ptr(),
+    launch(rem_scatter_, "pgtt_rem_scatter", x, half.rem_rbs.data_ptr(),
             half.rem_ptr.data_ptr(), half.rem_cols.data_ptr(),
             half.rem_vals.data_ptr(), half.rem_lrows.data_ptr(),
             x.data_ptr(), int(_is_bf16(x.dtype)), out.data_ptr(),
@@ -1062,7 +1062,7 @@ def hybrid_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     if f:
         bf16 = _is_bf16(half.blocks.dtype)
-        _launch(hybrid_spmm, "pgtt_hybrid_spmm", x, half.blocks.data_ptr(),
+        launch(hybrid_spmm, "pgtt_hybrid_spmm", x, half.blocks.data_ptr(),
                 half.blocks.shape[0], int(bf16), half.block_cols.data_ptr(),
                 half.walk_ptr.data_ptr(), half.walk_data.data_ptr(),
                 half.items.data_ptr(), half.num_block_items,

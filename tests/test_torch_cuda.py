@@ -483,8 +483,10 @@ def test_astgcn_configuration_trains_a_step_at_reduced_n(cuda, monkeypatch):
     astgcn-guo2019-pems.json: 2 blocks, K=3, 64 and 64 filters, 12 -> 12,
     edge mode, "sym", Glorot temporal-attention vectors) at N = 5,000 through ``BatchTrainer``'s eager step:
     one operator build and 4 fused launches (a hop past T_1 a block,
-    forward and gradient), hop 1's message bytes as its shapes give them,
-    and the bcsr path against the segment path within ``EDGE_TOLS``."""
+    forward and gradient), hop 1's calls with no message formed and its
+    kernel's 2 + 2 launches (``csrc/weighted_hop.cu``, a block forward
+    and backward), and the bcsr path against the segment path within
+    ``EDGE_TOLS``."""
     import json
     from pathlib import Path
 
@@ -521,12 +523,14 @@ def test_astgcn_configuration_trains_a_step_at_reduced_n(cuda, monkeypatch):
     trainer.train_step(x, y)
     torch.cuda.synchronize()
     assert (builds.calls, bcsr.hybrid_spmm.launches) == (1, 4)
-    calls, nbytes = _counters.counted_since(before)["astgcn_hop1"]
-    entries = int(ei.shape[1]) + 2 * n          # L̂'s listed entries
+    counted = _counters.counted_since(before)
+    # forward and backward a block; the kernel forms no message and reads
+    # the gradient where it lies, and each block's T_0, whose rows have
+    # gaps, is copied once into dense rows and saved for the backward
+    assert counted["astgcn_hop1"] == (2 * m["nb_block"], 0)
     widths = m["in_channels"] + m["nb_time_filter"]
-    # forward and the backward's two gathers, f32
-    assert (calls, nbytes) == (2 * m["nb_block"], 3 * b * t * entries
-                               * widths * 4)
+    assert counted["weighted_hop"] == (m["nb_block"], m["nb_block"],
+                                       b * t * n * widths * 4)
 
     def outputs_and_grads():
         out = forward(x)
@@ -550,6 +554,172 @@ def test_astgcn_configuration_trains_a_step_at_reduced_n(cuda, monkeypatch):
             float(torch.linalg.norm(gs)), norm)
         assert rel <= grad_tol and l2 <= l2_tol, (name, rel, l2)
     assert builds.calls == 1
+
+
+# -- edge-mode ASTGCN's hop 1 as a kernel (csrc/weighted_hop.cu) -------------
+
+def _hop_graph(n, cuda, hub=False, seed=31):
+    """The reversed L̂ (sym) of a banded graph like the PeMS stand-in (6
+    entries a sensor within ±8), or of a random directed graph with a hub
+    row of n/2 entries each way."""
+    from pytorch_geometric_temporal_tpu_torch.models.attention import astgcn
+
+    rng = np.random.default_rng(seed)
+    if hub:
+        s = rng.integers(0, n, 6 * n)
+        r = rng.integers(0, n, 6 * n)
+        r[: n // 2] = 7
+        s[n // 2:n] = 11
+    else:
+        s = np.repeat(np.arange(n), 6)
+        r = np.clip(s + rng.integers(-8, 9, s.shape[0]), 0, n - 1)
+    w = rng.uniform(0.3, 1.0, s.shape[0]).astype(np.float32)
+    g = Graph.from_edge_index(np.stack([s, r]), w, num_nodes=n, device=cuda)
+    return astgcn._reversed(astgcn._lhat_graph(g, "sym"))
+
+
+def _t0_like(b, t, n, f, layout, gen, cuda):
+    """A (B, T, N, F) input laid out as block 2's T_0 lies, (B, F, N, T)
+    ("bfnt"), or as block 1's from contiguous windows ("contiguous")."""
+    if layout == "bfnt":
+        return torch.randn(b, f, n, t, generator=gen).to(cuda).permute(
+            0, 3, 2, 1)
+    return torch.randn(b, t, n, f, generator=gen).to(cuda)
+
+
+def _hop_plain(wh, rev, x, w, g):
+    """(out, g_x, g_w) of the plain version."""
+    args = (rev.senders, rev.receivers)
+    return (wh.plain_forward(x, w, *args, rev.num_nodes)[0],
+            *wh.plain_backward(g, x, w, *args, True, True)[:2])
+
+
+def _hop_both(wh, rev, x, w, g):
+    """(out, g_x, g_w) of the kernel and of the plain version, and the
+    same sums over |terms| (the plain version on |x|, |w|, |g|)."""
+    by_r, by_s = wh.hop_csrs(rev)
+    out = wh.weighted_hop_forward(x, w, by_r, rev.num_nodes)
+    gx, gw = wh.weighted_hop_backward(g, x, w, by_s, True, True)
+    return ((out, gx, gw), _hop_plain(wh, rev, x, w, g),
+            _hop_plain(wh, rev, x.abs(), w.abs(), g.abs()))
+
+
+def _within_sum_order(got, want, mag, terms):
+    """Two f32 sums of the same ``terms`` products in other orders differ
+    by at most 2·terms·2⁻²⁴ of the sum of the products' magnitudes (each
+    recursive sum errs by at most (terms − 1)·u of it)."""
+    bound = 2 * terms * 2.0 ** -24 * mag
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("layout", ["bfnt", "contiguous"])
+@pytest.mark.parametrize("f", [2, 64])
+def test_weighted_hop_matches_plain_at_the_cells_shapes(cuda, f, layout):
+    """B = 32, N = 11,160, T = 12: block 1 (F = 2, P = 24) and block 2
+    (F = 64, P = 768), x laid out as either block's T_0, (B, F, N, T) and
+    contiguous, copied into dense rows by each call (counted); g in the
+    layout the consumers give, rows of an (N, B, T, F) buffer, read where
+    it lies.  Each output within the bound of two sum orders of its terms:
+    a row's entries for out and g_x, its P values for g_w."""
+    from pytorch_geometric_temporal_tpu_torch.ops import weighted_hop as wh
+
+    b, t, n = 32, 12, 11_160
+    rev = _hop_graph(n, cuda)
+    gen = torch.Generator().manual_seed(0)
+    x = _t0_like(b, t, n, f, layout, gen, cuda)
+    w = torch.randn(b, rev.senders.shape[0], generator=gen).to(cuda)
+    g = torch.randn(n, b, t, f, generator=gen).to(cuda).permute(1, 2, 0, 3)
+    before = wh.weighted_hop_counts()
+    got, want, mags = _hop_both(wh, rev, x, w, g)
+    torch.cuda.synchronize()
+    counts = wh.weighted_hop_counts()
+    assert tuple(a - c for a, c in zip(counts, before)) == (
+        1, 1, 2 * x.numel() * 4)
+    deg = int(max(k.ptr.diff().max() for k in wh.hop_csrs(rev)))
+    assert got[0].permute(2, 0, 1, 3).is_contiguous()
+    assert got[0].shape == (b, t, n, f)
+    for a, e, m, terms in zip(got, want, mags, (deg, deg, t * f)):
+        assert a.shape == e.shape
+        _within_sum_order(a, e, m, terms)
+
+
+def test_weighted_hop_on_a_hub_row_and_bits(cuda):
+    """A random directed graph with a hub row of 2,500 entries, P = 768
+    and P = 25 off the 16-byte grid (F = 5, T = 5: single values), against
+    the plain version within the sum-order bound; two runs of each
+    kernel give the same bits (no atomics)."""
+    from pytorch_geometric_temporal_tpu_torch.ops import weighted_hop as wh
+
+    n = 5000
+    rev = _hop_graph(n, cuda, hub=True)
+    by_r, by_s = wh.hop_csrs(rev)
+    deg = int(max(by_r.ptr.diff().max(), by_s.ptr.diff().max()))
+    assert deg >= n // 2
+    gen = torch.Generator().manual_seed(1)
+    for b, t, f in ((4, 12, 64), (3, 5, 5)):
+        x = _t0_like(b, t, n, f, "bfnt", gen, cuda)
+        w = torch.randn(b, rev.senders.shape[0], generator=gen).to(cuda)
+        g = torch.randn(n, b, t, f, generator=gen).to(cuda).permute(
+            1, 2, 0, 3)
+        got, want, mags = _hop_both(wh, rev, x, w, g)
+        for a, e, m, terms in zip(got, want, mags, (deg, deg, t * f)):
+            _within_sum_order(a, e, m, terms)
+        again = (wh.weighted_hop_forward(x, w, by_r, n),
+                 *wh.weighted_hop_backward(g, x, w, by_s, True, True))
+        for a, c in zip(got, again):
+            assert torch.equal(a, c)
+
+
+def test_weighted_hop_through_autograd_counts_and_names(cuda):
+    """``_weighted_hop`` on the card: one launch forward and one backward,
+    hop 1's calls with 0 bytes of messages, each output skipped where
+    autograd needs none, a non-f32 input refused, and the kernels' names
+    (``weighted_hop_*``) apart from the aggregation kernels that
+    ``spmm_ms_per_step`` reads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.metrics import _common
+    from pytorch_geometric_temporal_tpu_torch import _counters
+    from pytorch_geometric_temporal_tpu_torch.models.attention import astgcn
+    from pytorch_geometric_temporal_tpu_torch.ops import weighted_hop as wh
+
+    n, b, t, f = 3000, 2, 12, 8
+    rev = _hop_graph(n, cuda)
+    gen = torch.Generator().manual_seed(2)
+    x = _t0_like(b, t, n, f, "bfnt", gen, cuda).requires_grad_(True)
+    w = torch.randn(b, rev.senders.shape[0], generator=gen).to(
+        cuda).requires_grad_(True)
+    before = _counters.read()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = astgcn._weighted_hop(rev, x, w)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+    counted = _counters.counted_since(before)
+    # x, laid out (B, F, N, T), copied once into dense rows and saved
+    assert counted["weighted_hop"] == (1, 1, x.numel() * 4)
+    assert counted["astgcn_hop1"] == (2, 0)
+    names = {e.name for e in prof.events() if "weighted_hop" in e.name}
+    assert any("fwd" in k for k in names) and any("bwd" in k for k in names)
+    assert not any(_common.SPMM_KERNELS.search(k) for k in names)
+    want_x, want_w = x.grad.clone(), w.grad.clone()
+    args = (rev.senders, rev.receivers)
+    g, xd, wd = 2 * out.detach(), x.detach(), w.detach()
+    plain = wh.plain_backward(g, xd, wd, *args, True, True)[:2]
+    mags = wh.plain_backward(g.abs(), xd.abs(), wd.abs(), *args, True,
+                             True)[:2]
+    deg = int(wh.hop_csrs(rev)[1].ptr.diff().max())
+    for a, e, m, terms in zip((want_x, want_w), plain, mags, (deg, t * f)):
+        _within_sum_order(a, e, m, terms)
+    # x alone, then w alone, take a gradient
+    gx, = torch.autograd.grad(astgcn._weighted_hop(rev, x, w.detach())
+                              .square().sum(), [x])
+    assert torch.equal(gx, want_x)
+    gw, = torch.autograd.grad(astgcn._weighted_hop(rev, x.detach(), w)
+                              .square().sum(), [w])
+    assert torch.equal(gw, want_w)
+    with pytest.raises(TypeError, match="f32"):
+        astgcn._weighted_hop(rev, x.detach().bfloat16(), w.detach())
 
 
 def test_stconv_launches_over_a_prepared_chebyshev_operator(cuda):
