@@ -683,28 +683,21 @@ def finish_hybrid_build(started):
     _, stderr = proc.communicate(timeout=600)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {out.name}:\n{stderr}")
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p,
-                                     i, p, i, p]
-    lib.pgtt_hybrid_spmm.restype = i
-    return lib
+    from pytorch_geometric_temporal_tpu_torch import csrc
+
+    return csrc.declare(ctypes.CDLL(str(out)), ("pgtt_hybrid_spmm",))
 
 
 def hybrid_with(torch, lib, half, x):
     """The fused kernel of another build ``lib`` on (half, x), with the
-    arguments ``bcsr.hybrid_spmm`` passes; no launch is counted."""
-    f = x.shape[1]
-    out = torch.empty((half.num_rows, f), dtype=torch.float32, device="cuda")
-    rc = lib.pgtt_hybrid_spmm(
-        half.blocks.data_ptr(), half.blocks.shape[0],
-        int(half.blocks.dtype == torch.bfloat16), half.block_cols.data_ptr(),
-        half.walk_ptr.data_ptr(), half.walk_data.data_ptr(),
-        half.items.data_ptr(), half.num_block_items, half.items.shape[0],
-        half.rem_row_ptr.data_ptr(),
-        half.rem_row_cols.data_ptr(), half.rem_row_vals.data_ptr(),
-        x.data_ptr(), half.num_cols, out.data_ptr(), f,
-        torch.cuda.current_stream().cuda_stream)
+    arguments ``bcsr.hybrid_spmm`` passes (``bcsr.hybrid_args``); no launch
+    is counted."""
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    out = torch.empty((half.num_rows, x.shape[1]), dtype=torch.float32,
+                      device="cuda")
+    rc = lib.pgtt_hybrid_spmm(*bcsr.hybrid_args(half, x, out),
+                              torch.cuda.current_stream().cuda_stream)
     if rc:
         raise SystemExit(f"hybrid_spmm of another build: CUDA error {rc}")
     return out
@@ -1670,7 +1663,7 @@ def phase_dynamic(torch, kernel_report):
     graphs = dynamic_graphs(rng)
     stacked = stack_bcsr([
         BCSRMatrix.from_graph(g, dtype=torch.bfloat16,
-                              min_block_edges="auto", pack=3)
+                              min_block_edges="auto")
         for g in graphs])
     sizes = [operator_bytes(m) for m in stacked]
     log("  min_block_edges='auto' θ at F=64 under each cost model "
@@ -4717,15 +4710,13 @@ def phase_recovery(torch, kernel_report, smi):
               else mat.iperm.cpu().numpy()[:n])
         theta[key] = thetas(ip[s_e], ip[r_e], n, torch.bfloat16, f)
         tiles_b = mat.fwd.nnzb * 128 * 128 * 2
-        host_b = sum(a.nbytes for half in (mat.fwd, mat.bwd)
-                     for a in half._host.values())
         log(f"  ({key}) reorder={reorder!r}, costs={costs.name}: built in "
             f"{secs:.2f} s (host); min_block_edges='auto' θ at F={f} "
             f"{theta[key]}; fwd nnzb={mat.fwd.nnzb} rem={mat.fwd.num_rem}, "
             f"bwd nnzb={mat.bwd.nnzb} rem={mat.bwd.num_rem}; bf16 tiles "
             f"{tiles_b / 1e9:.3f} GB a half, {operator_bytes(mat) / 1e9:.3f} "
-            f"GB on the card in all, {host_b / 1e9:.3f} GB of host arrays "
-            f"kept; perm {'kept' if mat.perm is not None else 'none'}")
+            f"GB on the card in all; perm "
+            f"{'kept' if mat.perm is not None else 'none'}")
     if (mats["plain_v5e"].perm is not None or mats["plain"].perm is not None
             or mats["reordered"].perm is None):
         raise SystemExit("phase 22: reorder='auto' did not reorder")
@@ -4893,7 +4884,7 @@ def phase_cost_model(torch, report, smi):
         vals = rng.uniform(0.1, 1.0, rows.size).astype(np.float32)
         for dtype in (torch.bfloat16, torch.float32):
             half = bcsr._build_half(rows, cols, vals, nrb * 128, 128, dtype,
-                                    c["theta"], 1, device="cuda")
+                                    c["theta"], device="cuda")
             got = half.row_block_layout()
             if not (np.array_equal(got[0], tiles)
                     and np.array_equal(got[1], rems)):

@@ -26,6 +26,22 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# The library's C interface: each ``pgtt_*`` entry point's argument types in
+# order (pointers and the stream as void*, then int and int64_t as they are
+# declared in the sources); every one returns an int, 0 or a CUDA error.
+SIGNATURES = {
+    "pgtt_tile_spmm": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
+    "pgtt_rem_scatter": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
+    "pgtt_hybrid_spmm": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                         _I, _P, _I, _P),
+    "pgtt_weighted_hop_fwd": (_P, _Q, _Q, _P, _Q, _Q, _P, _P, _P, _P, _Q,
+                              _Q, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pgtt_weighted_hop_bwd": (_P, _Q, _Q, _P, _Q, _Q, _P, _Q, _Q, _P, _P,
+                              _P, _P, _Q, _Q, _P, _Q, _I, _I, _I, _I, _I,
+                              _I, _I, _P),
+}
+
 _LIB: Optional[ctypes.CDLL] = None
 # what the last build (or cache hit) reported: seconds and nvcc's output
 build_info = {"seconds": None, "log": "", "path": None}
@@ -85,6 +101,17 @@ def _build(out: Path) -> None:
                       log="".join(logs), path=str(out))
 
 
+def declare(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Give ``lib``'s entry points ``names`` their types from
+    :data:`SIGNATURES` (a library built from one source holds only that
+    source's); returns ``lib``."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = list(SIGNATURES[name])
+        fn.restype = _I
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built first if no build of these sources exists."""
     global _LIB
@@ -95,22 +122,5 @@ def load() -> ctypes.CDLL:
         build_info.update(seconds=0.0, log="(cached build)", path=str(out))
     else:
         _build(out)
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgtt_tile_spmm.argtypes = [p, i, p, p, p, p, i, i, p]
-    lib.pgtt_tile_spmm.restype = i
-    lib.pgtt_rem_scatter.argtypes = [p, p, p, p, p, p, i, p, i, i, p]
-    lib.pgtt_rem_scatter.restype = i
-    lib.pgtt_hybrid_spmm.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p,
-                                     i, p, i, p]
-    lib.pgtt_hybrid_spmm.restype = i
-    q = ctypes.c_int64
-    lib.pgtt_weighted_hop_fwd.argtypes = [p, q, q, p, q, q, p, p, p, p, q, q,
-                                          i, i, i, i, i, i, i, p]
-    lib.pgtt_weighted_hop_fwd.restype = i
-    lib.pgtt_weighted_hop_bwd.argtypes = [p, q, q, p, q, q, p, q, q, p, p, p,
-                                          p, q, q, p, q, i, i, i, i, i, i, i,
-                                          p]
-    lib.pgtt_weighted_hop_bwd.restype = i
-    _LIB = lib
-    return lib
+    _LIB = declare(ctypes.CDLL(str(out)))
+    return _LIB

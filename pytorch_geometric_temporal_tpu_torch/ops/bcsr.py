@@ -5,9 +5,10 @@ Port of the JAX package's ``ops/bcsr.py``.  The aggregation matrix
 at least ``min_block_edges`` edges are stored dense, and the edges of
 sparser tiles spill to a COO *remainder* grouped by row block.  The
 host-side construction (:meth:`BCSRMatrix.from_graph`, ``_build_half`` and
-its helpers) also produces the JAX package's arrays (the remainder padded
-to ``rem_k``-edge chunks there), so the two packages can be compared array
-by array; the kernels read the remainder without that padding.
+its helpers) makes only what the kernels and their plain versions read:
+the tiles, their coordinates and row pointers, the remainder unpadded (by
+row block and by row), the fused kernel's item list and the walked tiles'
+nonzero lists.
 
 One fused kernel applies one half of the operator
 (``csrc/hybrid_spmm.cu``, replaces both ``_tile_kernel_call`` and
@@ -53,8 +54,6 @@ from .. import _counters
 from .graph import Graph
 
 BLOCK = 128
-# remainder edges per chunk of the JAX package's padded layout (``_host``)
-REM_K = 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -70,7 +69,9 @@ class _BCSRHalf:
     """One direction of the hybrid block-sparse operator, on one device.
 
     Tile fields: ``blocks`` holds the ``nnzb`` real tiles plus one trailing
-    all-zero tile (kept for parity with the JAX package), ``block_rows`` /
+    all-zero tile (the fused kernel encodes its tiles' TMA map over
+    ``blocks.shape[0]`` tiles, which must be at least one: a half whose
+    edges all spilled has none of its own), ``block_rows`` /
     ``block_cols`` their row-sorted coordinates, and ``tile_ptr``
     (num_rows/128 + 1) the row pointers K1 walks.
 
@@ -96,9 +97,7 @@ class _BCSRHalf:
     ``walk_data``, of each (tile, K chunk)'s list — empty for a dense tile
     — and ``num_walked`` the tiles that have lists.
 
-    Index tensors are int32, the kernels' type.  ``_host`` keeps the numpy
-    arrays of the JAX package's ``_host`` dict (``blocks`` before the cast
-    to the tile dtype, the remainder padded to ``rem_k``-edge chunks).
+    Index tensors are int32, the kernels' type.
     """
 
     blocks: torch.Tensor
@@ -122,7 +121,6 @@ class _BCSRHalf:
     nnzb: int
     num_rem: int
     num_walked: int
-    pack: int = 1
 
     @property
     def block_rbs(self) -> torch.Tensor:
@@ -168,22 +166,19 @@ class BCSRMatrix:
 
     @staticmethod
     def from_graph(graph: Graph, dtype=None, min_block_edges=32,
-                   expected_f: int = 64, pack="auto", rem_k: int = REM_K,
-                   reorder=None,
+                   expected_f: int = 64, reorder=None,
                    costs: Optional[KernelCosts] = None) -> "BCSRMatrix":
         """Host-side construction from a Graph (aggregation M[r,s] = w),
         on the graph's device, with 128×128 tiles (the kernels' size).
 
         ``dtype=torch.bfloat16`` stores bf16 tiles (x is then cast to bf16
         in the kernels; accumulation stays f32).  ``min_block_edges``,
-        ``expected_f``, ``pack``, ``rem_k`` and ``reorder`` mean what they
-        mean in the JAX package.  Its two layout decisions,
-        ``min_block_edges="auto"`` and ``reorder="auto"``, are priced by
-        ``costs`` (default :data:`DEFAULT_COSTS`, the :data:`H100` makespan
-        model of the fused kernel at width ``expected_f``);
-        ``costs=TPU_V5E`` makes the JAX package's decisions.  ``pack``
-        only shapes the step arrays kept in ``_host``; the CUDA kernels do
-        not use them.
+        ``expected_f`` and ``reorder`` mean what they mean in the JAX
+        package.  Its two layout decisions, ``min_block_edges="auto"`` and
+        ``reorder="auto"``, are priced by ``costs`` (default
+        :data:`DEFAULT_COSTS`, the :data:`H100` makespan model of the fused
+        kernel at width ``expected_f``); ``costs=TPU_V5E`` makes the JAX
+        package's decisions.
         """
         block = BLOCK
         device = graph.device
@@ -224,10 +219,10 @@ class BCSRMatrix:
                 device, torch.long)
 
         return BCSRMatrix(
-            fwd=_build_half(r, s, w, n, block, dtype, min_block_edges, pack,
-                            rem_k, device),
-            bwd=_build_half(s, r, w, n, block, dtype, min_block_edges, pack,
-                            rem_k, device),
+            fwd=_build_half(r, s, w, n, block, dtype, min_block_edges,
+                            device=device),
+            bwd=_build_half(s, r, w, n, block, dtype, min_block_edges,
+                            device=device),
             num_nodes=n,
             perm=index(perm),
             iperm=index(iperm),
@@ -609,73 +604,18 @@ def bcsr_structure_counts(cols, rows, block, grid_cols):
     return bcsr_structure(cols, rows, block, grid_cols)
 
 
-def _build_remainder(rows, cols, vals, block, rem_k=REM_K):
-    """Group remainder edges by row block, sorted by (row block, col).
-
-    Returns ``(compact, padded)``.  ``compact`` is what K2 walks: (rbs,
-    ptr, cols, vals, lrows) — the row blocks that own edges, their edge
-    pointers, and the edges.  ``padded`` is the JAX package's layout of the
-    same edges in rem_k-edge chunks per row block (padding val 0, col 0,
-    lrow 0), kept for builder parity: (rem_cols, rem_vals, rem_lrows,
-    rem_step_rb)."""
+def _build_remainder(rows, cols, vals, block):
+    """Group remainder edges by row block, sorted by (row block, col): what
+    K2 walks, (rbs, ptr, cols, vals, lrows) — the row blocks that own
+    edges, their edge pointers, and the edges."""
     order = np.lexsort((cols, rows // block))
     rows, cols, vals = rows[order], cols[order], vals[order]
     rb_of_edge = rows // block
     lrows = (rows - rb_of_edge * block).astype(np.int32)
     rbs, counts = np.unique(rb_of_edge, return_counts=True)
     ptr = np.concatenate([[0], np.cumsum(counts)])
-    chunks_per_rb = -(-counts // rem_k)
-    s_r = int(chunks_per_rb.sum())
-    chunk_start = np.concatenate([[0], np.cumsum(chunks_per_rb)[:-1]])
-    slot = np.repeat(chunk_start * rem_k - ptr[:-1], counts) \
-        + np.arange(len(rows))
-    padded = []
-    for a, dtype in ((cols, np.int32), (vals, np.float32),
-                     (lrows, np.int32)):
-        p = np.zeros((s_r * rem_k,), dtype)
-        p[slot] = a
-        padded.append(p)
-    compact = (rbs.astype(np.int32), ptr, cols.astype(np.int32),
-               vals.astype(np.float32), lrows)
-    return compact, (padded[0], padded[1].reshape(s_r, rem_k),
-                     padded[2].reshape(s_r, rem_k),
-                     np.repeat(rbs, chunks_per_rb).astype(np.int32))
-
-
-def _build_steps(block_rows, block_cols, nb, pack: int = 1):
-    """The JAX package's packed step list (``pack`` same-row tiles per TPU
-    grid step, dummy slots on the trailing zero tile).  Kept for construction
-    parity; the CUDA kernels walk ``tile_ptr`` instead."""
-    nnzb = len(block_rows)
-    tile_cnt = np.bincount(block_rows, minlength=nb) if nnzb else \
-        np.zeros(nb, np.int64)
-    groups = np.maximum(-(-tile_cnt // pack), 1)
-    s = int(groups.sum())
-    step_rows = np.repeat(np.arange(nb, dtype=np.int32), groups)
-    flat_bidx = np.full(s * pack, nnzb, np.int32)
-    flat_cols = np.zeros(s * pack, np.int32)
-    if nnzb:
-        slot_start = np.zeros(nb, np.int64)
-        slot_start[1:] = np.cumsum(groups * pack)[:-1]
-        row_start_tile = np.zeros(nb, np.int64)
-        row_start_tile[1:] = np.cumsum(tile_cnt)[:-1]
-        tile_slot = (slot_start[block_rows]
-                     + (np.arange(nnzb) - row_start_tile[block_rows]))
-        flat_bidx[tile_slot] = np.arange(nnzb, dtype=np.int32)
-        flat_cols[tile_slot] = block_cols
-    return step_rows, flat_cols, flat_bidx
-
-
-def tune_pack(tile_cnt, candidates=(1, 2, 3, 4, 6, 8),
-              c_step: float = 254e-9, c_slot: float = 39e-9) -> int:
-    """The JAX package's tiles-per-step choice (TPU cost model)."""
-    best_p, best_cost = 1, float("inf")
-    for p in candidates:
-        groups = np.maximum(-(-tile_cnt // p), 1)
-        cost = float(groups.sum()) * (c_step + p * c_slot)
-        if cost < best_cost:
-            best_p, best_cost = p, cost
-    return int(best_p)
+    return (rbs.astype(np.int32), ptr, cols.astype(np.int32),
+            vals.astype(np.float32), lrows)
 
 
 def _task_count(edges):
@@ -776,8 +716,7 @@ def _walk_lists(tiles, block_of_edge, rows, cols, block=BLOCK):
 
 
 def _build_half(rows, cols, vals, n, block, dtype=None,
-                min_block_edges: int = 0, pack="auto",
-                rem_k: int = REM_K, device="cpu") -> _BCSRHalf:
+                min_block_edges: int = 0, *, device="cpu") -> _BCSRHalf:
     from ..native import bcsr_fill, bcsr_structure
 
     n_pad = _round_up(max(n, 1), block)
@@ -790,19 +729,17 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
     compact = (np.zeros((0,), np.int32), np.zeros((1,), np.int64),
                np.zeros((0,), np.int32), np.zeros((0,), np.float32),
                np.zeros((0,), np.int32))
-    padded = (np.zeros((0,), np.int32), np.zeros((0, rem_k), np.float32),
-              np.zeros((0, rem_k), np.int32), np.zeros((0,), np.int32))
     num_rem = 0
     if min_block_edges > 1 and nnzb > 0:
         cnt = np.bincount(block_of_edge, minlength=nnzb)
         edge_is_sparse = (cnt < min_block_edges)[block_of_edge]
         num_rem = int(edge_is_sparse.sum())
         if num_rem:
-            compact, padded = _build_remainder(
+            compact = _build_remainder(
                 rows[edge_is_sparse].astype(np.int32),
                 cols[edge_is_sparse].astype(np.int32),
                 vals[edge_is_sparse].astype(np.float32),
-                block, rem_k,
+                block,
             )
             keep = ~edge_is_sparse
             rows, cols, vals = rows[keep], cols[keep], vals[keep]
@@ -821,22 +758,12 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
     else:  # bf16 tiles multiply on the tensor cores, every one dense
         walk_ptr = np.zeros(nnzb * (block // WALK_KC) + 1, np.int32)
         walk_data, walked = np.zeros(0, np.int32), np.zeros(0, bool)
-    # trailing all-zero tile (the JAX package's dummy-slot target)
+    # one trailing all-zero tile: the fused kernel's TMA map over the tiles
+    # needs at least one, and a half whose edges all spilled has none
     blocks = np.concatenate(
         [tiles, np.zeros((1, block, block), tiles.dtype)], axis=0)
     tile_cnt = (np.bincount(block_rows, minlength=nb) if nnzb
                 else np.zeros(nb, np.int64))
-    if pack == "auto":
-        pack = tune_pack(tile_cnt)
-    step_rows, step_cols, step_bidx = _build_steps(
-        block_rows, block_cols, nb, pack)
-    host = {
-        "blocks": blocks, "block_rows": block_rows,
-        "block_cols": block_cols, "step_rows": step_rows,
-        "step_cols": step_cols, "step_bidx": step_bidx,
-        **dict(zip(("rem_cols", "rem_vals", "rem_lrows", "rem_step_rb"),
-                   padded)),
-    }
     rem_rbs, rem_ptr, rem_cols, rem_vals, rem_lrows = compact
     # the remainder by (row, col): a stable re-sort of the (row block, col)
     # order, for the fused kernel's per-row walk
@@ -860,7 +787,7 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
     def put(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
-    half = _BCSRHalf(
+    return _BCSRHalf(
         blocks=put(blocks, dtype or torch.float32),
         block_rows=put(block_rows),
         block_cols=put(block_cols),
@@ -882,48 +809,7 @@ def _build_half(rows, cols, vals, n, block, dtype=None,
         nnzb=int(nnzb),
         num_rem=num_rem,
         num_walked=int(walked.sum()),
-        pack=int(pack),
     )
-    object.__setattr__(half, "_host", host)
-    return half
-
-
-def hybrid_hbm_bytes(half: _BCSRHalf, f: int) -> dict:
-    """The JAX package's HBM traffic model of the TPU kernels (per-step
-    tile and X fetches, the materialized remainder gather), for one
-    forward product at feature width ``f``.  Returns ``{"tile",
-    "remainder", "total"}`` bytes.  It models the Pallas kernels, not the
-    CUDA ones."""
-    s_tile = 2 if _is_bf16(half.blocks.dtype) else 4
-    s_x = s_tile
-    if f <= 128:
-        f_eff, f_tiles = f, 1
-    else:
-        f_eff = _round_up(f, 128)
-        ft = min(512, f_eff)
-        if f_eff % ft:
-            f_eff = _round_up(f_eff, ft)
-        f_tiles = f_eff // ft
-    host = half._host
-    slots = int(host["step_bidx"].size)
-    nb_runs = int(np.unique(host["step_rows"]).shape[0])
-    tile = (
-        slots * BLOCK * BLOCK * s_tile * f_tiles
-        + slots * BLOCK * f_eff * s_x
-        + nb_runs * BLOCK * f_eff * 4
-    )
-    rem = 0
-    if half.num_rem:
-        p = int(host["rem_cols"].shape[0])
-        s_r = int(host["rem_step_rb"].shape[0])
-        rem_k = int(host["rem_vals"].shape[-1])
-        touched = int(np.unique(host["rem_step_rb"]).shape[0])
-        rem = (
-            p * f_eff * s_x * 3
-            + s_r * rem_k * 8
-            + touched * BLOCK * f_eff * 4 * 2
-        )
-    return {"tile": tile, "remainder": rem, "total": tile + rem}
 
 
 # ---------------------------------------------------------------------------
@@ -1048,6 +934,21 @@ def hybrid_spmm_plain(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     return rem_scatter_plain(half, x, tile_spmm_plain(half, x))
 
 
+def hybrid_args(half: _BCSRHalf, x: torch.Tensor, out: torch.Tensor) -> tuple:
+    """``pgtt_hybrid_spmm``'s arguments for ``out = half @ x``, in its
+    order, less the stream (``csrc.SIGNATURES`` gives their types): the
+    tiles and their count, whether they are bf16, the tile columns, the
+    walk lists, the item list with its row blocks and length, the
+    remainder by row, x with its rows, out and the width."""
+    return (half.blocks.data_ptr(), half.blocks.shape[0],
+            int(_is_bf16(half.blocks.dtype)), half.block_cols.data_ptr(),
+            half.walk_ptr.data_ptr(), half.walk_data.data_ptr(),
+            half.items.data_ptr(), half.num_block_items, half.items.shape[0],
+            half.rem_row_ptr.data_ptr(), half.rem_row_cols.data_ptr(),
+            half.rem_row_vals.data_ptr(), x.data_ptr(), half.num_cols,
+            out.data_ptr(), x.shape[1])
+
+
 def hybrid_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     """Fused kernel: out (num_rows, F) f32 = tiles @ x + remainder.
 
@@ -1061,15 +962,9 @@ def hybrid_spmm(half: _BCSRHalf, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((half.num_rows, f), dtype=torch.float32,
                       device=x.device)
     if f:
-        bf16 = _is_bf16(half.blocks.dtype)
-        launch(hybrid_spmm, "pgtt_hybrid_spmm", x, half.blocks.data_ptr(),
-                half.blocks.shape[0], int(bf16), half.block_cols.data_ptr(),
-                half.walk_ptr.data_ptr(), half.walk_data.data_ptr(),
-                half.items.data_ptr(), half.num_block_items,
-                half.items.shape[0], half.rem_row_ptr.data_ptr(),
-                half.rem_row_cols.data_ptr(), half.rem_row_vals.data_ptr(),
-                x.data_ptr(), half.num_cols, out.data_ptr(), f)
-        nft = _fused_shape(f, bf16)[1]
+        launch(hybrid_spmm, "pgtt_hybrid_spmm", x,
+               *hybrid_args(half, x, out))
+        nft = _fused_shape(f, _is_bf16(half.blocks.dtype))[1]
         hybrid_spmm.walked_tiles += half.num_walked * nft
         hybrid_spmm.dense_tiles += (half.nnzb - half.num_walked) * nft
     return out
@@ -1210,8 +1105,8 @@ def stack_bcsr(mats) -> StackedBCSR:
     """Per-snapshot BCSR operators as one sequence over time — the tiled
     path for **dynamic-edge sequences**::
 
-        mats = [BCSRMatrix.from_graph(g_t, dtype=torch.bfloat16, pack=4)
-                for g_t in graphs]           # same N, same pack
+        mats = [BCSRMatrix.from_graph(g_t, dtype=torch.bfloat16)
+                for g_t in graphs]           # same N, same dtype
         h = h0
         for mat_t in stack_bcsr(mats):       # one fused launch per step
             h = f(bcsr_spmm(mat_t, h))
@@ -1219,29 +1114,18 @@ def stack_bcsr(mats) -> StackedBCSR:
     The JAX package pads every step's tiles, steps and remainder chunks
     to common shapes and stacks them for ``lax.scan``; here the time loop
     runs in Python, so the steps stay as they were built, without padding
-    or copies, and the kernel reads each step's own arrays.  The same
-    operators are accepted and refused: all must share ``num_nodes``,
-    ``pack``, ``rem_k``, the tile dtype and the ``reorder=`` setting.
+    or copies, and the kernel reads each step's own arrays.  All must
+    share ``num_nodes``, the tile dtype and the ``reorder=`` setting.  The
+    JAX package also refuses steps whose TPU layouts differ (tiles a grid
+    step, remainder edges a chunk); the port keeps no such layout.
     """
     mats = list(mats)
     if not mats:
         raise ValueError("stack_bcsr needs at least one operator")
     m0 = mats[0]
-
-    def rem_k(half):
-        return half._host["rem_vals"].shape[-1]
-
     for m in mats:
         if m.num_nodes != m0.num_nodes:
             raise ValueError("stack_bcsr: operators must share num_nodes")
-        if (m.fwd.pack, m.bwd.pack) != (m0.fwd.pack, m0.bwd.pack):
-            raise ValueError(
-                "stack_bcsr: operators must share pack (pass an explicit "
-                "pack= to BCSRMatrix.from_graph)")
-        if (rem_k(m.fwd), rem_k(m.bwd)) != (rem_k(m0.fwd), rem_k(m0.bwd)):
-            raise ValueError(
-                "stack_bcsr: operators must share rem_k (pass an "
-                "explicit rem_k= to BCSRMatrix.from_graph)")
         if m.fwd.blocks.dtype != m0.fwd.blocks.dtype:
             raise ValueError(
                 "stack_bcsr: operators must share tile dtype (a sequence "

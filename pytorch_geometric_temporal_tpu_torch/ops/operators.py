@@ -160,7 +160,7 @@ def prenormalize_gcn(graph: Graph, improved: bool = False,
 def stack_bcsr_gcn(graphs, improved: bool = False,
                    add_self_loops: bool = True, dtype=None,
                    min_block_edges="auto", expected_f: int = 64,
-                   pack: int = 4, device=None):
+                   device=None):
     """Per-step prenormalized GCN operators for a dynamic-edge sequence:
     ``host_gcn_norm`` + BCSR for every snapshot, as one
     :func:`~.bcsr.stack_bcsr` sequence."""
@@ -170,8 +170,7 @@ def stack_bcsr_gcn(graphs, improved: bool = False,
     return stack_bcsr([
         BCSRMatrix.from_graph(
             host_gcn_norm(g, improved, add_self_loops, device), dtype=dtype,
-            min_block_edges=min_block_edges, expected_f=expected_f,
-            pack=pack)
+            min_block_edges=min_block_edges, expected_f=expected_f)
         for g in graphs
     ])
 

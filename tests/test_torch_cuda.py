@@ -323,7 +323,7 @@ def test_one_fused_launch_per_step_of_a_stacked_operator(cuda):
         graphs.append(Graph.from_edge_index(ei, w / 20.0, num_nodes=n,
                                             device=cuda))
     stacked = stack_bcsr([bcsr.BCSRMatrix.from_graph(
-        g, dtype=torch.bfloat16, pack=3) for g in graphs])
+        g, dtype=torch.bfloat16) for g in graphs])
     h0 = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(
         cuda).requires_grad_()
     bcsr.reset_launch_counts()

@@ -290,6 +290,44 @@ def test_fused_wrapper_refuses_other_devices():
         bcsr.hybrid_spmm(half, torch.zeros(half.num_cols, 3, device="meta"))
 
 
+def test_kernel_signatures_match_the_sources():
+    """``csrc.SIGNATURES`` names every ``int pgtt_*(...)`` entry point of
+    ``csrc/*.cu`` with its arguments' types in order (a pointer as void*,
+    int, int64_t), and ``bcsr.hybrid_args`` gives the fused kernel all of
+    its arguments but the stream: ctypes passes a drifted list through
+    unchecked."""
+    import ctypes
+    import re
+
+    from pytorch_geometric_temporal_tpu_torch import csrc
+    from pytorch_geometric_temporal_tpu_torch.ops import bcsr
+
+    def c_type(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return {"int": ctypes.c_int, "int64_t": ctypes.c_int64}[
+            param.split()[0]]
+
+    protos = {}
+    for src in csrc.SOURCES:
+        for name, params in re.findall(r"^int (pgtt_\w+)\(([^)]*)\)",
+                                       src.read_text(), re.M):
+            protos[name] = tuple(c_type(p.strip())
+                                 for p in params.split(","))
+    assert len(protos) == 5
+    assert protos == csrc.SIGNATURES
+
+    g = Graph.from_edge_index(np.array([[0, 1, 2], [1, 2, 0]]),
+                              device="cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        half = bcsr.BCSRMatrix.from_graph(g, dtype=dtype).fwd
+        x = torch.zeros(half.num_cols, 3, dtype=dtype)
+        out = torch.empty(half.num_rows, 3)
+        args = bcsr.hybrid_args(half, x, out)
+        assert len(args) == len(csrc.SIGNATURES["pgtt_hybrid_spmm"]) - 1
+        assert all(isinstance(a, int) for a in args)
+
+
 def test_index_batching_raises_without_cuda(no_cuda, tmp_path):
     from pytorch_geometric_temporal_tpu_torch.data import _common
     from pytorch_geometric_temporal_tpu_torch.signal import (

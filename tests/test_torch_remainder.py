@@ -17,7 +17,7 @@ numpy walk of ``csrc/hybrid_spmm.cu``'s item list and remainder epilogue.
   the tile products, every output written exactly once; the outputs agree
   with ``hybrid_spmm_plain`` (the same f32 products in another order of
   the tile sums: 1e-5 of the output's scale).
-- The JAX package's builder arrays are unchanged by the new fields
+- The tensors the kernels read equal the JAX package's builder arrays
   (``test_torch_bcsr.py`` holds them equal).
 
 Inputs are made with numpy from a seed.
@@ -66,7 +66,7 @@ def build(draw, bf16=False):
     seed, n, e, band, frac, mbe = draw
     s, r, w = banded_edges(seed, n, e, band, frac)
     dtype = torch.bfloat16 if bf16 else None
-    return tb._build_half(r, s, w, n, 128, dtype, mbe, 1)
+    return tb._build_half(r, s, w, n, 128, dtype, mbe)
 
 
 def rows_of_tasks(half):
@@ -105,7 +105,7 @@ def test_tasks_cover_remainder_only_rows_once(draw, bf16):
 def test_task_edges_within_the_cap_or_one_row(draw):
     if draw is None:
         s, r, w = hub_edges()
-        half = tb._build_half(r, s, w, 1500, 128, None, 10**6, 1)
+        half = tb._build_half(r, s, w, 1500, 128, None, 10**6)
     else:
         half = build(draw)
     tasks, ptr = rows_of_tasks(half)
@@ -120,7 +120,7 @@ def test_task_edges_within_the_cap_or_one_row(draw):
 @pytest.mark.parametrize("mbe", [0, 1, 2])
 def test_no_remainder_no_tasks(mbe):
     s, r, w = banded_edges(4, 1000, 20000)
-    half = tb._build_half(r, s, w, 1000, 128, None, mbe, 1)
+    half = tb._build_half(r, s, w, 1000, 128, None, mbe)
     assert half.num_rem == 0
     assert tuple(half.rem_tasks.shape) == (0, 2)
     np.testing.assert_array_equal(half.block_rbs.numpy(), np.arange(8))
@@ -128,7 +128,7 @@ def test_no_remainder_no_tasks(mbe):
 
 def test_hub_row_is_a_task_of_its_own():
     s, r, w = hub_edges()
-    half = tb._build_half(r, s, w, 1500, 128, torch.bfloat16, 10**6, 1)
+    half = tb._build_half(r, s, w, 1500, 128, torch.bfloat16, 10**6)
     tasks, ptr = rows_of_tasks(half)
     mine = tasks[(tasks[:, 0] <= 700) & (tasks[:, 1] > 700)]
     np.testing.assert_array_equal(mine, [[700, 701]])
@@ -159,10 +159,9 @@ def test_stacked_halves_carry_the_item_list():
         graphs.append(TGraph.from_edge_index(
             np.stack([s, r]), rng.uniform(0.1, 1.0, 8000).astype(np.float32),
             num_nodes=n, device="cpu"))
-    plain = tb.stack_bcsr([tb.BCSRMatrix.from_graph(g, min_block_edges=40,
-                                                    pack=1)
+    plain = tb.stack_bcsr([tb.BCSRMatrix.from_graph(g, min_block_edges=40)
                            for g in graphs])
-    gcn = tops.stack_bcsr_gcn(graphs, pack=1, device="cpu")
+    gcn = tops.stack_bcsr_gcn(graphs, device="cpu")
     seen_tasks = 0
     for mats in (plain, gcn):
         for mat in mats:
@@ -308,7 +307,7 @@ def test_kernel_walk_adds_every_edge_once_in_column_order(case):
     if isinstance(draw, int):
         s, r, w = hub_edges()
         half = tb._build_half(r, s, w, 1500, 128,
-                              torch.bfloat16 if bf16 else None, draw, 1)
+                              torch.bfloat16 if bf16 else None, draw)
     else:
         half = build(draw, bf16)
     rng = np.random.default_rng(f)

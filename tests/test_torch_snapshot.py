@@ -419,7 +419,7 @@ def test_stack_bcsr_steps_match_the_jax_stacked_scan():
     jst = jops.stack_bcsr([jops.BCSRMatrix.from_graph(
         g, min_block_edges=16, pack=2) for g in jgs])
     tst = tops.stack_bcsr([tops.BCSRMatrix.from_graph(
-        g, min_block_edges=16, pack=2) for g in tgs])
+        g, min_block_edges=16) for g in tgs])
     assert len(tst) == ST and tst.num_nodes == SN
     assert tst[1] is list(tst)[1]
     assert all(m.fwd.nnzb and m.fwd.num_rem for m in tst)
@@ -447,7 +447,7 @@ def test_stack_bcsr_gradient_matches_the_jax_stacked_scan():
     jst = jops.stack_bcsr([jops.BCSRMatrix.from_graph(
         g, min_block_edges=16, pack=2) for g in jgs])
     tst = tops.stack_bcsr([tops.BCSRMatrix.from_graph(
-        g, min_block_edges=16, pack=2) for g in tgs])
+        g, min_block_edges=16) for g in tgs])
     x = np.random.default_rng(3).normal(size=(SN, SF)).astype(np.float32)
 
     @jax.jit
@@ -470,31 +470,35 @@ def test_stack_bcsr_gradient_matches_the_jax_stacked_scan():
 def test_stack_bcsr_validation():
     _, (g1,) = dynamic_graphs(seed=5, n=128, t=1)
     _, (g2,) = dynamic_graphs(seed=6, n=256, t=1)
-    m1 = tops.BCSRMatrix.from_graph(g1, pack=2)
+    m1 = tops.BCSRMatrix.from_graph(g1)
     with pytest.raises(ValueError, match="at least one"):
         tops.stack_bcsr([])
     with pytest.raises(ValueError, match="num_nodes"):
-        tops.stack_bcsr([m1, tops.BCSRMatrix.from_graph(g2, pack=2)])
-    with pytest.raises(ValueError, match="pack"):
-        tops.stack_bcsr([m1, tops.BCSRMatrix.from_graph(g1, pack=4)])
+        tops.stack_bcsr([m1, tops.BCSRMatrix.from_graph(g2)])
     with pytest.raises(ValueError, match="dtype"):
         tops.stack_bcsr([m1, tops.BCSRMatrix.from_graph(
-            g1, pack=2, dtype=torch.bfloat16)])
-    with pytest.raises(ValueError, match="rem_k"):
-        tops.stack_bcsr([m1, tops.BCSRMatrix.from_graph(g1, pack=2,
-                                                        rem_k=256)])
+            g1, dtype=torch.bfloat16)])
     _, (g3,) = dynamic_graphs(seed=7, n=300, t=1)
     with pytest.raises(ValueError, match="reordered and plain"):
-        tops.stack_bcsr([tops.BCSRMatrix.from_graph(g3, pack=2),
-                         tops.BCSRMatrix.from_graph(g3, pack=2,
-                                                    reorder="rcm")])
+        tops.stack_bcsr([tops.BCSRMatrix.from_graph(g3),
+                         tops.BCSRMatrix.from_graph(g3, reorder="rcm")])
     assert len(tops.stack_bcsr(iter([m1, m1]))) == 2
+    # two snapshots of different tile counts, built with the defaults,
+    # stack; the JAX package picks them different tiles a TPU grid step
+    # and refuses the pair
+    jgs, tgs = dynamic_graphs(seed=10, n=600, t=2)
+    jmats = [jops.BCSRMatrix.from_graph(g) for g in jgs]
+    with pytest.raises(ValueError, match="pack"):
+        jops.stack_bcsr(jmats)
+    st = tops.stack_bcsr([tops.BCSRMatrix.from_graph(g) for g in tgs])
+    assert len(st) == 2 and st[0].fwd.nnzb != st[1].fwd.nnzb
+    assert [m.fwd.nnzb for m in st] == [m.fwd.nnzb for m in jmats]
 
 
 def test_stack_bcsr_gcn_matches_jax_per_step():
     jgs, tgs = dynamic_graphs(seed=8, n=200, t=3)
     jst = jops.stack_bcsr_gcn(jgs, min_block_edges=16, pack=2)
-    tst = tops.stack_bcsr_gcn(tgs, min_block_edges=16, pack=2, device="cpu")
+    tst = tops.stack_bcsr_gcn(tgs, min_block_edges=16, device="cpu")
     x = np.random.default_rng(9).normal(size=(200, 8)).astype(np.float32)
     for t, mat_t in enumerate(tst):
         jmat = jax.tree_util.tree_map(lambda a: a[t], jst)

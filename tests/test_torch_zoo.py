@@ -329,7 +329,7 @@ def test_evolvegcn_seq_matches_jax(variant, kind):
         # the JAX side through its XLA path, as its own tests run it
         jm, tm = jop, top
         jg = jops.stack_bcsr_gcn(jgs, min_block_edges=16, pack=2)
-        tg = tops.stack_bcsr_gcn(tgs, min_block_edges=16, pack=2, **CPU)
+        tg = tops.stack_bcsr_gcn(tgs, min_block_edges=16, **CPU)
     tm.params_from_flax(p)
     out = tm(t(xs), tg)
     assert out.shape == (steps, n, f)
@@ -342,7 +342,7 @@ def test_evolvegcn_seq_matches_jax(variant, kind):
 def test_evolvegcn_seq_over_bcsr_needs_normalize_false(variant):
     n, f = 130, 4
     _, tgs = dynamic_graphs(19, n, 2)
-    ops = tops.stack_bcsr_gcn(tgs, pack=2, **CPU)
+    ops = tops.stack_bcsr_gcn(tgs, **CPU)
     tm = (tmodels.EvolveGCNOSeq(f, **CPU) if variant == "O"
           else tmodels.EvolveGCNHSeq(n, f, **CPU))
     with pytest.raises(ValueError, match="needs normalize=False"):

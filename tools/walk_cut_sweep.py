@@ -135,7 +135,7 @@ def sweep_half(bcsr, rng, nnz, kind, nrb=88):
     vals = rng.uniform(0.1, 1.0, rows.size).astype(np.float32)
 
     def build():
-        return bcsr._build_half(rows, cols, vals, nrb * 128, 128, None, 0, 1,
+        return bcsr._build_half(rows, cols, vals, nrb * 128, 128, None, 0,
                                 device="cuda")
     return build
 
