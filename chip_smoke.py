@@ -104,7 +104,9 @@ stay kernels executed under replay.
    filters) at N=50,000: the reversed scaled Laplacian is tiled once (f32
    tiles) in the first forward, then 2 forward + 2 backward fused launches
    a step, and hop 1's kernel (``csrc/weighted_hop.cu``) once a block
-   forward and once backward, with no per-edge message formed; per-edge
+   forward and once backward, with no per-edge message formed, and the
+   block tail's kernel (``csrc/block_tail.cu``) likewise, copying only
+   block 1's (B, N, F, T) input into rows; per-edge
    attention sums to 1 per column; output and gradients
    against ``spmm_backend="segment"``; the fused kernel timed on that f32
    operator at F=24 and F=768, and at F=768 against the copies with the
@@ -242,7 +244,14 @@ stay kernels executed under replay.
    N = 11,160, T = 12, F = 2 and 64, the reversed L-hat of phase 15's
    banded graph): forward, g_x and g_w against the plain version within
    the bound of two f32 sum orders, two runs equal to the bit, then each
-   timed cold beside its byte bound and the plain version's time.
+   timed cold beside its byte bound and the plain version's time;
+27. (run after phase 26) an ASTGCN block's tail kernel
+   (``csrc/block_tail.cu``) at the benchmark cell's shapes (B = 32,
+   N = 11,160, T = 12, C = 64): forward and backward against the plain
+   version, with the gradient laid out as the head leaves it and
+   contiguous, two runs equal to the bit, then each timed cold beside its
+   byte bound, the plain version and ``F.layer_norm(F.relu(a + b))``
+   forward and through autograd (a yardstick the port never calls).
 
 A watchdog ends the process if the whole run passes 1150 s (a hang in a
 kernel must not outlive the run).  Exits non-zero, and prints no result,
@@ -250,7 +259,8 @@ without CUDA or when any check fails.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it holds the per-kernel JSON record,
 its launch counts summed over phases 3, 6, 7, 9, 10, 13, 14, 15, 16, 19
 (both ranks), 25 (its first step), 21 and 22 (phase 24's are checked, not
-summed), the hop-1 kernel's of phase 14 (phase 26's are not counted); the
+summed), the hop-1 and block-tail kernels' of phase 14 (phases 26 and 27's are
+not counted); the
 fused kernel's time and share of its bound at each path's own width, and
 the f32 feature-tile sweep, stand on the lines before the total.
 """
@@ -2439,7 +2449,7 @@ def phase_astgcn_edge(torch, kernel_report, smi):
                            loss_fn=mse)
     per_step = 2 * c["blocks"] * (K - 2)
     torch.cuda.reset_peak_memory_stats()
-    losses, step_s, counts, hops = [], [], [], []
+    losses, step_s, counts, hops, tails = [], [], [], [], []
     with counted_builds() as builds:
         bcsr.reset_launch_counts()
         before = _counters.read()
@@ -2449,16 +2459,22 @@ def phase_astgcn_edge(torch, kernel_report, smi):
             d = _counters.counted_since(before)
             return d["weighted_hop"][:2] + d["astgcn_hop1"][1:]
 
+        def tail_counts():
+            # (forward launches, backward launches, bytes copied into rows)
+            return _counters.counted_since(before)["block_tail"]
+
         with torch.no_grad():
             model(x, g)
         counts.append((builds.calls, launch_counts(bcsr)["H"]))
         hops.append(hop_counts())
+        tails.append(tail_counts())
         for _ in range(c["steps"]):
             t0 = time.perf_counter()
             losses.append(float(trainer.train_step(x, y)))
             step_s.append(time.perf_counter() - t0)
             counts.append((builds.calls, launch_counts(bcsr)["H"]))
             hops.append(hop_counts())
+            tails.append(tail_counts())
         launches = launch_counts(bcsr)
         copied = _counters.counted_since(before)["weighted_hop"][2]
     fwd = c["blocks"] * (K - 2)
@@ -2482,6 +2498,19 @@ def phase_astgcn_edge(torch, kernel_report, smi):
         raise SystemExit("edge-mode ASTGCN: hop 1 skipped its kernel or "
                          "formed messages")
     kernel_report["WH"] = {"launches": sum(hops[-1][:2]),
+                           "max_abs_err": 0.0}
+    # the block tail's kernel once a block each way; block 1's input, the
+    # (B, N, F, T) data, copied into (B, T, N, F) rows once a forward
+    rows = x.numel() * x.element_size()
+    want_tails = [(blocks * (1 + i), blocks * i, rows * (1 + i))
+                  for i in range(c["steps"] + 1)]
+    log(f"  block-tail kernel (forward launches, backward launches, bytes "
+        f"copied into rows) after the first forward and after each step: "
+        f"{tails} (expected {want_tails})")
+    if tails != want_tails:
+        raise SystemExit("edge-mode ASTGCN: the block tail skipped its "
+                         "kernel or copied more than block 1's input")
+    kernel_report["BT"] = {"launches": sum(tails[-1][:2]),
                            "max_abs_err": 0.0}
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"edge-mode ASTGCN: losses not finite or not "
@@ -2637,6 +2666,95 @@ def phase_weighted_hop(torch, report, smi):
         f"{plain:.3f} ms")
     k.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
              library_ms=None)
+
+
+def phase_block_tail(torch, report, smi):
+    import torch.nn.functional as fn
+
+    from pytorch_geometric_temporal_tpu_torch.ops import block_tail as bt
+
+    b, t, n, c = HOP["b"], HOP["t"], PEMS["n"], EDGE["filters"]
+    rows, eps = b * t * n, 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pre = torch.randn(rows, c, device="cuda", generator=gen)
+    vecs = [0.3 * torch.randn(c, device="cuda", generator=gen)
+            for _ in range(4)]
+    vecs[2] += 1.0
+    b_t, b_r, gamma, beta = vecs
+    # the gradient as each block's consumers leave it: block 2's from the
+    # head, each (b, n)'s T·C values together; block 1's contiguous
+    grads = {"head": torch.randn(b, n, t, c, device="cuda",
+                                 generator=gen).permute(0, 2, 1, 3),
+             "contiguous": torch.randn(b, t, n, c, device="cuda",
+                                       generator=gen)}
+    k = report["BT"]
+    log(f"  rows of C={c}: B={b}, T={t}, N={n} ({rows} rows, "
+        f"{rows * c * 4 / 1e9:.2f} GB a tensor)")
+
+    def kernel(g):
+        y, stats = bt.block_tail_forward(pre, *vecs, eps)
+        return (y, stats, *bt.block_tail_backward(g, pre, stats, b_t, b_r,
+                                                  gamma, eps))
+
+    def plain(g):
+        y, stats = bt.plain_forward(pre, *vecs, eps)
+        return (y, stats, *bt.plain_backward(g, pre, stats, b_t, b_r, gamma,
+                                             eps))
+
+    for name, g in grads.items():
+        got, want, again = kernel(g), plain(g), kernel(g)
+        errs = [float((a - w).abs().max() / w.abs().max())
+                for a, w in zip(got, want)]
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        k["max_abs_err"] = max(k["max_abs_err"], *(
+            float((a - w).abs().max()) for a, w in zip(got, want)))
+        log(f"  gradient {name}: kernel against plain, largest error over "
+            f"the largest value, y / stats / g_pre / sums: "
+            f"{', '.join(f'{e:.2g}' for e in errs)} (at most 1e-5 but the "
+            f"sums over {rows} rows, 1e-4); two runs equal to the bit: "
+            f"{same}")
+        if max(errs[:3]) > 1e-5 or errs[3] > 1e-4 or not same:
+            raise SystemExit("the block-tail kernel differs from its plain "
+                             "version or from its own second run")
+        del got, want, again
+    y, stats = bt.block_tail_forward(pre, *vecs, eps)
+    fwd = cold_ms(torch, lambda: bt.block_tail_forward(pre, *vecs, eps))
+    bwd = {name: cold_ms(torch, lambda g=g: bt.block_tail_backward(
+        g, pre, stats, b_t, b_r, gamma, eps)) for name, g in grads.items()}
+    plain_fwd = cold_ms(torch, lambda: bt.plain_forward(pre, *vecs, eps),
+                        reps=5)
+    plain_bwd = cold_ms(torch, lambda: bt.plain_backward(
+        grads["head"], pre, stats, b_t, b_r, gamma, eps), reps=5)
+    # the one-call yardstick the port never calls: PyTorch's LayerNorm over
+    # ReLU(a + b), two conv outputs apart, forward and through autograd
+    other = torch.randn(rows, c, device="cuda", generator=gen)
+    leaves = [v.clone().requires_grad_(True)
+              for v in (pre, other, gamma, beta)]
+    g_rows = grads["contiguous"].view(rows, c)
+
+    def yardstick():
+        return fn.layer_norm(fn.relu(leaves[0] + leaves[1]), (c,),
+                             leaves[2], leaves[3], eps)
+
+    yard_fwd = cold_ms(torch, lambda: yardstick().detach())
+    yard_all = cold_ms(torch, lambda: torch.autograd.grad(
+        yardstick(), leaves, g_rows), reps=10)
+    fwd_b = 4 * (2 * rows * c + 2 * rows)
+    bwd_b = 4 * (3 * rows * c + 2 * rows)
+    fwd_bound = fwd_b / H100_BYTES_PER_S * 1e3
+    bwd_bound = bwd_b / H100_BYTES_PER_S * 1e3
+    log(f"  kernel forward {fwd:.4f} ms (bound {fwd_bound:.4f}, "
+        f"{fwd_b / 1e6:.1f} MB, share {fwd_bound / fwd:.3f}); backward "
+        + ", ".join(f"{bwd[name]:.4f} ms with the gradient {name}"
+                    for name in grads)
+        + f" (bound {bwd_bound:.4f}, {bwd_b / 1e6:.1f} MB, share "
+        f"{bwd_bound / bwd['head']:.3f}); plain forward {plain_fwd:.3f} ms, "
+        f"backward {plain_bwd:.3f} ms; yardstick F.layer_norm(F.relu(a + "
+        f"b)) forward {yard_fwd:.4f} ms, forward and backward "
+        f"{yard_all:.4f} ms; cold L2, on {smi}")
+    k.update(ms=fwd + bwd["head"], plain_ms=plain_fwd + plain_bwd,
+             bound_ms=fwd_bound + bwd_bound, bound_by="bytes",
+             library_ms=yard_all)
 
 
 def pems_series(c):
@@ -5000,6 +5118,9 @@ def main() -> int:
     log("== phase 26: edge-mode ASTGCN's hop-1 kernel at the benchmark "
         "cell's shapes")
     phase_weighted_hop(torch, report, smi)
+    log("== phase 27: an ASTGCN block's tail kernel at the benchmark cell's "
+        "shapes")
+    phase_block_tail(torch, report, smi)
     log("== phase 15: index-batched DCRNN on the PeMS-scale stand-in")
     phase_index_pems(torch, report, smi)
     log("== phase 16: DCRNNSeq at N=50k in bf16 compute "
@@ -5054,6 +5175,16 @@ def main() -> int:
         "source": "pytorch_geometric_temporal_tpu_torch/csrc/weighted_hop.cu",
         "replaces": "none: the JAX package's hop 1 is XLA's gather and "
                     "segment sum",
+        "launches": k["launches"],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    k = report["BT"]
+    kernels.append({
+        "name": "block_tail", "route": "cuda",
+        "source": "pytorch_geometric_temporal_tpu_torch/csrc/block_tail.cu",
+        "replaces": "none: the JAX package's block tail is flax's Conv and "
+                    "LayerNorm, fused by XLA",
         "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -6,7 +6,9 @@ its host work, and a record of each step's counts.
 ``models/attention/astgcn.py`` edge-mode hop 1's calls with the bytes of
 per-edge messages they formed (``astgcn_hop1``) and ``ops/weighted_hop.py``
 its kernel's launches with the bytes it copied into rows
-(``weighted_hop``), each where it issues the work.  A CUDA graph's capture runs that
+(``weighted_hop``), ``ops/block_tail.py`` an ASTGCN block tail's kernel
+launches with the bytes it copied into its layout (``block_tail``), each
+where it issues the work.  A CUDA graph's capture runs that
 Python and executes none of the work; each replay executes it and runs no
 Python.  Every counter registers its reader and its adder here, and
 :class:`~.train.trainer._StepGraphs` takes what a capture counted back out

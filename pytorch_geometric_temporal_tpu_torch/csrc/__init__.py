@@ -26,10 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _Q, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # The library's C interface: each ``pgtt_*`` entry point's argument types in
-# order (pointers and the stream as void*, then int and int64_t as they are
-# declared in the sources); every one returns an int, 0 or a CUDA error.
+# order (pointers and the stream as void*, then int, int64_t and float as
+# they are declared in the sources); every one returns an int, 0 or a CUDA
+# error.
 SIGNATURES = {
     "pgtt_tile_spmm": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
     "pgtt_rem_scatter": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
@@ -40,6 +41,9 @@ SIGNATURES = {
     "pgtt_weighted_hop_bwd": (_P, _Q, _Q, _P, _Q, _Q, _P, _Q, _Q, _P, _P,
                               _P, _P, _Q, _Q, _P, _Q, _I, _I, _I, _I, _I,
                               _I, _I, _P),
+    "pgtt_block_tail_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "pgtt_block_tail_bwd": (_P, _Q, _Q, _Q, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _F, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -41,6 +41,14 @@ Port of the JAX package's ``models/attention/astgcn.py``.
   ``astgcn.temporal_attention``, ``astgcn.spatial_attention``,
   ``astgcn.cheb`` ⊃ ``astgcn.hop1``, ``astgcn.time_conv`` mark a block's
   parts, ``astgcn.hop1_grad`` hop 1's backward.
+- A stride-1 block's tail (time and residual convolutions, residual add,
+  ReLU, LayerNorm) runs in the Chebyshev output's (B, T, N, C) layout
+  (:class:`_BlockTail`, ``ops/block_tail.py``): the convolutions as GEMMs
+  into one buffer, the rest one pass each way (on the card
+  ``csrc/block_tail.cu``), no layout copy; the block's output is the
+  (B, N, C, T) view of it, and the head one GEMM whose gradient gives each
+  row's channels together.  The counter ``block_tail`` counts the kernel's
+  launches and the bytes copied into the tail's layout.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from torch import nn
 from ... import _counters
 from ..._device import resolve_device
 from ...config import get_config
+from ...ops import block_tail
 from ...ops.graph import (Graph, _memo, cheb_norm,
                           lambda_max as power_lambda_max)
 from ...ops.spmm import spmm
@@ -177,6 +186,47 @@ def _weighted_hop(rev: Graph, x: torch.Tensor,
         csrs = None if x.device.type == "cpu" else hop_csrs(rev)
         return _WeightedHop.apply(x, w, rev.senders, rev.receivers,
                                   rev.num_nodes, csrs)
+
+
+class _BlockTail(torch.autograd.Function):
+    """A stride-1 block's tail (``ops/block_tail.py``): the time and
+    residual convolutions as GEMMs on the rows of xh (B, T, N, C_in) and
+    xt (B, T, N, F) into one buffer ``pre``, then ReLU(pre + both biases) and
+    flax's LayerNorm in one pass, the kernel on the card and the plain
+    version on the CPU; y (B, T, N, C).  The backward saves ``pre``, each
+    row's statistics and the inputs the GEMMs read, and makes the gradient
+    of ``pre`` in one pass, which both convolutions' gradients read."""
+
+    @staticmethod
+    def forward(ctx, xh, xt, w_time, b_time, w_res, b_res, gamma, beta,
+                eps):
+        xh, xt_rows = block_tail.contiguous(xh), block_tail.rows(xt)
+        pre = block_tail.conv_forward(xh, xt_rows, w_time, w_res)
+        tail = (block_tail.plain_forward if pre.device.type == "cpu"
+                else block_tail.block_tail_forward)
+        y, stats = tail(pre, b_time, b_res, gamma, beta, eps)
+        ctx.save_for_backward(xh, xt_rows, w_time, b_time, w_res, b_res,
+                              gamma, pre, stats)
+        ctx.eps, ctx.xt_shape = eps, xt.shape
+        return y.view(xh.shape[:3] + (y.shape[1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        xh, xt_rows, w_time, b_time, w_res, b_res, gamma, pre, stats = (
+            ctx.saved_tensors)
+        need = ctx.needs_input_grad
+        tail = (block_tail.plain_backward if g.device.type == "cpu"
+                else block_tail.block_tail_backward)
+        g_pre, sums = tail(g, pre, stats, b_time, b_res, gamma, ctx.eps)
+        g_xh, g_xt, g_wt, g_wr = block_tail.conv_backward(
+            g_pre, xh, xt_rows, w_time, w_res,
+            (need[0], need[1], need[2], need[4]))
+        if g_xt is not None:
+            g_xt = g_xt.view(ctx.xt_shape)
+        g_bias = sums[2]
+        return (g_xh, g_xt, g_wt, g_bias if need[3] else None, g_wr,
+                g_bias if need[5] else None, sums[0] if need[6] else None,
+                sums[1] if need[7] else None, None)
 
 
 class ChebConvAttention(FlaxModule):
@@ -404,7 +454,17 @@ class TemporalAttention(FlaxModule):
 
 class ASTGCNBlock(FlaxModule):
     """temporal attn → spatial attn → attention ChebConv → time conv +
-    residual + LayerNorm.  I/O layout (B, N, F, T)."""
+    residual + LayerNorm.  I/O layout (B, N, F, T).
+
+    With ``time_strides`` 1 and ``nb_time_filter`` a width the tail's
+    kernel takes (a multiple of 4 up to 128, ``ops/block_tail.py``
+    ``takes``), the tail runs in the Chebyshev output's (B, T, N, C)
+    layout (:class:`_BlockTail`): the convolutions as GEMMs, the residual
+    add, ReLU and LayerNorm in one pass each way, and no layout copy; the
+    output is the (B, N, C, T) view of a (B, T, N, C) tensor, so the next
+    block's (B, T, N, F) input is contiguous.  Any other stride or width
+    keeps the flax ``Conv`` and ``LayerNorm`` modules' formulation; either
+    way the parameters are the same."""
 
     def __init__(self, in_channels: int, K: int, nb_chev_filter: int,
                  nb_time_filter: int, time_strides: int,
@@ -437,6 +497,8 @@ class ASTGCNBlock(FlaxModule):
             in_channels, nb_time_filter, (1, 1), strides=(1, time_strides),
             device=device, generator=generator)
         self.layer_norm = LayerNorm(nb_time_filter, device=device)
+        self.fused_tail = time_strides == 1 and block_tail.takes(
+            nb_time_filter)
 
     def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
         span = _counters.span
@@ -453,6 +515,13 @@ class ASTGCNBlock(FlaxModule):
         with span("astgcn.cheb"):
             x_hat = torch.relu(self.chebconv_attention(xt, graph, s))
         with span("astgcn.time_conv"):
+            if self.fused_tail:
+                tc, rc, ln = (self.time_convolution,
+                              self.residual_convolution, self.layer_norm)
+                out = _BlockTail.apply(
+                    x_hat, xt, tc.kernel, tc.bias, rc.kernel, rc.bias,
+                    ln.scale, ln.bias, ln.epsilon)
+                return out.permute(0, 2, 3, 1)  # (B, N, C, T)
             # time conv over T: layout (B, N, T, C); the residual conv and
             # the LayerNorm
             x_hat = self.time_convolution(x_hat.transpose(1, 2))
@@ -509,5 +578,10 @@ class ASTGCN(FlaxModule):
             )
         for i in range(self.nb_block):
             x = getattr(self, f"block_{i}")(x, graph)
-        return (torch.einsum("bnft,ptf->bnp", x, self.final_conv_w)
-                + self.final_conv_b)
+        # the head: one GEMM over each (b, n)'s T·F values, so its gradient
+        # comes back with each (b, t, n) row's F values contiguous, as the
+        # fused tail reads it, whatever the loss's gradient's layout
+        b, n, f, t = x.shape
+        rows = x.permute(0, 1, 3, 2).reshape(b * n, t * f)
+        out = rows @ self.final_conv_w.reshape(-1, t * f).t()
+        return out.view(b, n, -1) + self.final_conv_b

@@ -493,6 +493,38 @@ def test_astgcn_block_matches_jax(mode):
     close(out, jm.apply(p, j(x), jg), 2e-5)
 
 
+@pytest.mark.parametrize("mode", ["dense", "edge"])
+def test_astgcn_block_with_the_fused_tail_matches_jax(mode):
+    """Stride 1 and 8 time filters: the tail runs fused (``_BlockTail``),
+    against flax's Conv and LayerNorm in the JAX block; the stride-2 block
+    above keeps the flax modules' formulation."""
+    jg, tg = graphs(seed=9, pad=2)
+    x = arr(np.random.default_rng(9), 2, N, 3, 6)
+    jm = jatt.ASTGCNBlock(3, 3, 6, 8, 1, N, 6, "sym", attention_mode=mode)
+    p = shifted(jm.init(KEY, j(x), jg))
+    tm = tatt.ASTGCNBlock(3, 3, 6, 8, 1, N, 6, "sym", attention_mode=mode,
+                          **CPU).params_from_flax(p)
+    assert tm.fused_tail
+    assert not tatt.ASTGCNBlock(3, 3, 6, 8, 2, N, 6, "sym",
+                                attention_mode=mode, **CPU).fused_tail
+    out = tm(t(x), tg)
+    assert out.shape == (2, N, 8, 6)
+    close(out, jm.apply(p, j(x), jg), 2e-5)
+
+
+@pytest.mark.parametrize("mode", ["dense", "edge"])
+def test_astgcn_with_fused_tails_matches_jax(mode):
+    """Both blocks at stride 1 with 8 time filters (fused tails): output
+    and every parameter gradient against the JAX model."""
+    jm, tm, p, x, jg, tg = astgcn_pair(attention_mode=mode,
+                                       normalization="sym", time_strides=1,
+                                       nb_time_filter=8)
+    assert tm.block_0.fused_tail and tm.block_1.fused_tail
+    close(tm(t(x), tg), jm.apply(p, j(x), jg), 1e-4)
+    grads_close(tm, sq(tm(t(x), tg)), jax.grad(
+        lambda q: sq(jm.apply(q, j(x), jg)))(p))
+
+
 AST = dict(nb_block=2, in_channels=3, K=3, nb_chev_filter=6, nb_time_filter=5,
            time_strides=2, num_for_predict=4, len_input=8, num_of_vertices=N)
 

@@ -485,7 +485,8 @@ def test_astgcn_configuration_trains_a_step_at_reduced_n(cuda, monkeypatch):
     one operator build and 4 fused launches (a hop past T_1 a block,
     forward and gradient), hop 1's calls with no message formed and its
     kernel's 2 + 2 launches (``csrc/weighted_hop.cu``, a block forward
-    and backward), and the bcsr path against the segment path within
+    and backward), the block tail's 2 + 2 (``csrc/block_tail.cu``) with
+    nothing copied, and the bcsr path against the segment path within
     ``EDGE_TOLS``."""
     import json
     from pathlib import Path
@@ -531,6 +532,9 @@ def test_astgcn_configuration_trains_a_step_at_reduced_n(cuda, monkeypatch):
     widths = m["in_channels"] + m["nb_time_filter"]
     assert counted["weighted_hop"] == (m["nb_block"], m["nb_block"],
                                        b * t * n * widths * 4)
+    # the tail's kernel once a block each way, in the Chebyshev output's
+    # layout: nothing copied
+    assert counted["block_tail"] == (m["nb_block"], m["nb_block"], 0)
 
     def outputs_and_grads():
         out = forward(x)
@@ -720,6 +724,127 @@ def test_weighted_hop_through_autograd_counts_and_names(cuda):
     assert torch.equal(gw, want_w)
     with pytest.raises(TypeError, match="f32"):
         astgcn._weighted_hop(rev, x.detach().bfloat16(), w.detach())
+
+
+# -- an ASTGCN block's tail as a kernel (csrc/block_tail.cu) -----------------
+
+def _tail_case(cuda, b, t, n, c, seed=0, head_layout=True):
+    """``pre`` (B·T·N, C), the channel vectors and a gradient g (B, T, N,
+    C): laid out as ASTGCN's head gives it (each (b, n)'s T·C values
+    together) or contiguous."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    pre = torch.randn(b * t * n, c, device=cuda, generator=gen)
+    vecs = [0.3 * torch.randn(c, device=cuda, generator=gen)
+            for _ in range(4)]
+    vecs[2] = vecs[2] + 1.0     # gamma
+    if head_layout:
+        g = torch.randn(b, n, t, c, device=cuda, generator=gen).permute(
+            0, 2, 1, 3)
+    else:
+        g = torch.randn(b, t, n, c, device=cuda, generator=gen)
+    return pre, vecs, g
+
+
+def _tail_both(bt, pre, vecs, g, eps=1e-6):
+    """(y, stats, g_pre, sums) of the kernel and of the plain version."""
+    b_t, b_r, gamma, beta = vecs
+    y, stats = bt.block_tail_forward(pre, b_t, b_r, gamma, beta, eps)
+    g_pre, sums = bt.block_tail_backward(g, pre, stats, b_t, b_r, gamma,
+                                         eps)
+    py, pstats = bt.plain_forward(pre, b_t, b_r, gamma, beta, eps)
+    pg, psums = bt.plain_backward(g, pre, pstats, b_t, b_r, gamma, eps)
+    return (y, stats, g_pre, sums), (py, pstats, pg, psums)
+
+
+@pytest.mark.parametrize("head_layout", [True, False])
+def test_block_tail_matches_plain_at_the_cells_shapes(cuda, head_layout):
+    """B = 32, T = 12, N = 11,160, C = 64 (the benchmark cell's block):
+    the kernel against its plain version on the card, the gradient read
+    where the head puts it and contiguous, with no copy.  Row values
+    (y, g_pre, the statistics) differ by the two sides' sum orders over a
+    row's 64 channels, 1e-5 of their scale; the three gradients summed
+    over 4.28M rows by the bound of two sum orders whose longest chains
+    are under 1,024 terms (``_within_sum_order``)."""
+    from pytorch_geometric_temporal_tpu_torch.ops import block_tail as bt
+
+    b, t, n, c = 32, 12, 11_160, 64
+    pre, vecs, g = _tail_case(cuda, b, t, n, c, head_layout=head_layout)
+    before = bt.block_tail_counts()
+    got, want = _tail_both(bt, pre, vecs, g)
+    torch.cuda.synchronize()
+    assert tuple(a - w for a, w in zip(bt.block_tail_counts(), before)) == (
+        1, 1, 0)
+    for a, e in zip(got[:3], want[:3]):
+        assert a.shape == e.shape and a.is_contiguous()
+        assert float((a - e).abs().max()) <= 1e-5 * float(e.abs().max())
+    b_t, b_r, gamma, _ = vecs
+    a = pre + (b_t + b_r)
+    xhat = (torch.relu(a) - want[1][:, :1]) * torch.rsqrt(
+        want[1][:, 1:].clamp(min=0) + 1e-6)
+    gr = g.reshape(-1, c)
+    mags = torch.stack([(gr * xhat).abs().sum(0), gr.abs().sum(0),
+                        want[2].abs().sum(0)])
+    _within_sum_order(got[3], want[3], mags, 1024)
+
+
+def test_block_tail_refuses_and_repeats_its_bits(cuda):
+    """The kernel takes f32 rows of a multiple of 4 channels up to 128 on
+    the 16-byte grid and refuses the rest; every width it takes (4 to
+    128, one to 32 lanes a row) against the plain version, a gradient off
+    the 16-byte grid copied (counted); two runs give the same bits; the
+    profiler's names of its kernels (``block_tail_*``) are apart from the
+    aggregation's and hop 1's, which ``spmm_ms_per_step`` and
+    ``hop1_ms_per_step`` read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.metrics import _common
+    from pytorch_geometric_temporal_tpu_torch.ops import block_tail as bt
+
+    pre, vecs, g = _tail_case(cuda, 2, 5, 37, 8)
+    with pytest.raises(TypeError, match="f32"):
+        bt.block_tail_forward(pre.double(), *[v.double() for v in vecs],
+                              1e-6)
+    for c in (6, 132):
+        bad, bvecs, _ = _tail_case(cuda, 2, 5, 37, c)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            bt.block_tail_forward(bad, *bvecs, 1e-6)
+    with pytest.raises(ValueError, match="no kernel"):
+        bt.block_tail_forward(pre.cpu(), *[v.cpu() for v in vecs], 1e-6)
+    off_grid = pre.new_zeros(pre.numel() + 1)[1:].view(pre.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        bt.block_tail_forward(off_grid, *vecs, 1e-6)
+    for c in (4, 8, 12, 16, 32, 40, 64, 96, 128):
+        pre, vecs, g = _tail_case(cuda, 2, 5, 37, c, seed=c)
+        got, want = _tail_both(bt, pre, vecs, g)
+        for a, e in zip(got, want):
+            assert float((a - e).abs().max()) <= 1e-5 * float(
+                e.abs().max()), c
+    pre, vecs, g = _tail_case(cuda, 3, 4, 50, 64, seed=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first, _ = _tail_both(bt, pre, vecs, g)
+        torch.cuda.synchronize()
+    again, _ = _tail_both(bt, pre, vecs, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    names = {e.name for e in prof.events() if "block_tail" in e.name}
+    assert any("fwd" in k for k in names) and any("bwd" in k for k in names)
+    hop = manifest_metric("hop1_ms_per_step")
+    assert not any(_common.SPMM_KERNELS.search(k) or hop.KERNELS.search(k)
+                   for k in names)
+    assert all(manifest_metric("block_tail_ms_per_step").KERNELS.search(k)
+               for k in names)
+    # rows off the 16-byte grid: copied once, counted
+    odd = torch.randn(3, 4, 50, 65, device=cuda)[..., 1:]
+    before = bt.block_tail_counts()
+    got, want = _tail_both(bt, pre, vecs, odd)
+    assert bt.block_tail_counts()[2] - before[2] == odd.numel() * 4
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5 * float(
+        want[2].abs().max())
+
+
+def manifest_metric(name):
+    from perfbench import manifest
+
+    return manifest.load_metric(name)
 
 
 def test_stconv_launches_over_a_prepared_chebyshev_operator(cuda):

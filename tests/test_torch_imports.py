@@ -293,9 +293,9 @@ def test_fused_wrapper_refuses_other_devices():
 def test_kernel_signatures_match_the_sources():
     """``csrc.SIGNATURES`` names every ``int pgtt_*(...)`` entry point of
     ``csrc/*.cu`` with its arguments' types in order (a pointer as void*,
-    int, int64_t), and ``bcsr.hybrid_args`` gives the fused kernel all of
-    its arguments but the stream: ctypes passes a drifted list through
-    unchecked."""
+    int, int64_t, float), and ``bcsr.hybrid_args`` gives the fused kernel
+    all of its arguments but the stream: ctypes passes a drifted list
+    through unchecked."""
     import ctypes
     import re
 
@@ -305,8 +305,8 @@ def test_kernel_signatures_match_the_sources():
     def c_type(param):
         if "*" in param:
             return ctypes.c_void_p
-        return {"int": ctypes.c_int, "int64_t": ctypes.c_int64}[
-            param.split()[0]]
+        return {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+                "float": ctypes.c_float}[param.split()[0]]
 
     protos = {}
     for src in csrc.SOURCES:
@@ -314,7 +314,7 @@ def test_kernel_signatures_match_the_sources():
                                        src.read_text(), re.M):
             protos[name] = tuple(c_type(p.strip())
                                  for p in params.split(","))
-    assert len(protos) == 5
+    assert len(protos) == 7
     assert protos == csrc.SIGNATURES
 
     g = Graph.from_edge_index(np.array([[0, 1, 2], [1, 2, 0]]),
